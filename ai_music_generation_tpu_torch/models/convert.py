@@ -1,0 +1,80 @@
+"""Weights for the port's GPT: converted from the JAX package's params, or
+initialised with the JAX package's scheme.
+
+The state dict uses nanoGPT's names and torch layouts, the same keys and
+values as the JAX package's ``models/nanogpt_ckpt.py::
+nanogpt_state_from_params`` (that module imports jax, so the mapping is
+repeated here in numpy).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from ai_music_generation_tpu_torch.models.gpt import GPT, GPTConfig
+
+
+def state_dict_from_jax(params: Mapping[str, Any],
+                        config: GPTConfig) -> dict[str, torch.Tensor]:
+    """The JAX GPT's nested param dict (numpy arrays, e.g. from
+    ``jax.device_get(params)``) -> the port's ``state_dict`` (fp32). Flax
+    ``Dense`` kernels are [in, out] and torch ``Linear`` weights [out, in],
+    so kernels are transposed. ``lm_head.weight`` is the same tensor as
+    ``transformer.wte.weight`` (weight tying)."""
+    p = params["params"] if "params" in params else params
+
+    def t(x, transpose=False):
+        x = np.asarray(x, np.float32)
+        return torch.from_numpy(np.array(x.T if transpose else x, order="C"))
+
+    wte = t(p["wte"]["embedding"])
+    out = {"transformer.wte.weight": wte,
+           "transformer.wpe.weight": t(p["wpe"]["embedding"])}
+    for i in range(config.n_layer):
+        blk, h = p[f"h_{i}"], f"transformer.h.{i}."
+        for mod, names in (("ln_1", None), ("attn", ("c_attn", "c_proj")),
+                           ("ln_2", None), ("mlp", ("c_fc", "c_proj"))):
+            if names is None:  # LayerNorm
+                out[h + mod + ".weight"] = t(blk[mod]["scale"])
+                if config.bias:
+                    out[h + mod + ".bias"] = t(blk[mod]["bias"])
+                continue
+            for name in names:
+                out[h + f"{mod}.{name}.weight"] = t(
+                    blk[mod][name]["kernel"], transpose=True)
+                if config.bias:
+                    out[h + f"{mod}.{name}.bias"] = t(blk[mod][name]["bias"])
+    out["transformer.ln_f.weight"] = t(p["ln_f"]["scale"])
+    if config.bias:
+        out["transformer.ln_f.bias"] = t(p["ln_f"]["bias"])
+    out["lm_head.weight"] = wte
+    return out
+
+
+@torch.no_grad()
+def init_weights(model: GPT, generator: torch.Generator) -> GPT:
+    """The JAX package's init in place: every Linear and Embedding weight
+    N(0, 0.02), the residual projections (both ``c_proj``) N(0,
+    0.02/sqrt(2*n_layer)), biases 0, LayerNorm scales 1. ``generator`` must
+    be on the model's device."""
+    proj_std = 0.02 / math.sqrt(2 * model.config.n_layer)
+    for name, module in model.named_modules():
+        if isinstance(module, nn.Linear):
+            if name == "lm_head":
+                continue  # tied to transformer.wte, initialised there
+            std = proj_std if name.endswith("c_proj") else 0.02
+            module.weight.normal_(0.0, std, generator=generator)
+            if module.bias is not None:
+                module.bias.zero_()
+        elif isinstance(module, nn.Embedding):
+            module.weight.normal_(0.0, 0.02, generator=generator)
+        elif isinstance(module, nn.LayerNorm):
+            module.weight.fill_(1.0)
+            if module.bias is not None:
+                module.bias.zero_()
+    return model

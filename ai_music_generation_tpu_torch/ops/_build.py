@@ -1,0 +1,99 @@
+"""Build the port's CUDA kernels from ``ops/csrc/*.cu`` at first use.
+
+Route: ``nvcc`` by hand into one shared library with a plain C interface,
+loaded with ``ctypes``. No source includes PyTorch's headers, so a build
+takes seconds. The library goes to ``ai_music_generation_tpu_torch/_build/``
+(git-ignored) under a name keyed by a hash of the sources and the flags: an
+edited source or flag builds a new library, and a stale one is never loaded.
+nvcc's output (including ``-Xptxas -v``: registers, shared memory, spills
+per kernel) is kept beside the library as ``<name>.log``.
+
+Nothing here runs at import time; the CPU tests import this module on
+machines that have no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "_build"
+
+# sm_90a (not sm_90): the target of Hopper's wgmma/setmaxnreg, which the
+# kernels' later, faster versions need. No --use_fast_math: it makes float
+# division approximate, and the int8 scales must stay bit-exact with
+# models/gpt.py::quantize_int8.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def sources() -> list[pathlib.Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> pathlib.Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256()
+    for flag in NVCC_FLAGS:
+        h.update(flag.encode() + b"\0")
+    for src in sources():
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"libaimg_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME or put nvcc on PATH): the CUDA "
+            "kernels are built from source at first use")
+    return found
+
+
+def build(path: pathlib.Path) -> None:
+    """Compile every ``csrc/*.cu`` into ``path``; write nvcc's output to
+    ``path.with_suffix('.log')``. Raises with that output on failure."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    # build under a temporary name and rename: a concurrent loader never
+    # sees a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())],
+            capture_output=True, text=True, timeout=900)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        path.with_suffix(".log").write_text(log)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built first if it is missing."""
+    path = library_path()
+    if not path.exists():
+        build(path)
+    lib = ctypes.CDLL(str(path))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fn = lib.gqa_decode_update_launch
+    fn.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
+    fn.restype = i32
+    return lib
