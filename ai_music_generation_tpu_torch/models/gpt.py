@@ -12,37 +12,46 @@ and are cast to the compute ``dtype`` at each use, as Flax's ``Dense``,
 ``dtype``; the MLP uses the tanh GELU (Flax's ``nn.gelu`` default); the
 residual stream and the logits are in ``dtype``.
 
-Decode runs over a flat lockstep :class:`KVCache`. A prefill (T > 1) writes
-its slab and attends with plain torch ops (JAX runs it as XLA einsums, not
-Pallas); every T=1 step goes through ``ops.gqa_decode.gqa_decode_update``,
-which owns the column write and the attention (the CUDA kernel on a GPU,
-its twin on the CPU).
+Decode runs over a flat :class:`KVCache`. In lockstep mode a prefill
+(T > 1) writes its slab and attends with plain torch ops (JAX runs it as XLA
+einsums, not Pallas); every T=1 step goes through
+``ops.gqa_decode.gqa_decode_update``, which owns the column write and the
+attention. In speculative mode (``KVCache.create(..., spec=True)``) every
+call, whatever its T, goes through ``ops.spec_attention.
+spec_attention_update``, which owns the slab write at the shared cursor and
+the attention under per-column logical positions. Each op is the CUDA
+kernel on a GPU and its plain twin on the CPU.
 
 Not ported yet: training (loss, MFU, remat, dropout), MoE, sequence
-parallelism, and the ring and speculative cache modes.
+parallelism, and the ring cache mode.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import ClassVar, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ai_music_generation_tpu_torch.ops.gqa_decode import gqa_decode_update
+from ai_music_generation_tpu_torch.ops.spec_attention import (
+    spec_attention_update,
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
     """Same fields and defaults as the JAX ``GPTConfig``; ``dtype`` and
     ``param_dtype`` are torch dtypes. The port runs inference only, so
-    ``dropout``, ``attn_impl``, ``remat`` and ``spec_int8_dots`` have no
-    effect, and its cache is always flat (``flat_kv`` is accepted for
-    configs carried over). ``n_expert > 0`` and ``seq_axis`` are refused by
-    :class:`GPT`."""
+    ``dropout``, ``attn_impl`` and ``remat`` have no effect, and its cache
+    is always flat (``flat_kv`` is accepted for configs carried over).
+    ``spec_int8_dots`` selects the int8 x int8 products of the speculative
+    verify attention on an int8 spec cache (on the CPU as well: there the
+    op runs that mode's plain twin). ``n_expert > 0`` and ``seq_axis`` are
+    refused by :class:`GPT`."""
 
     block_size: int = 1024
     vocab_size: int = 50304
@@ -95,9 +104,22 @@ class KVCache:
     by every row. It stays on the device so a decode step never syncs with
     the host.
 
-    The model updates every buffer and ``length`` IN PLACE (the JAX model
-    returns a new cache instead). Buffers start zeroed, like JAX's: columns
-    past ``length`` are masked, and zeros keep a masked column finite.
+    Speculative mode (``spec=True``, the JAX spec cache, models/gpt.py:
+    230-287) keeps the same flat buffers with full multi-head K/V, but
+    ``length`` is a [B] int32 vector, the logical position of each row's
+    first query this call, and ``col_pos`` [B, S] int32 holds the logical
+    position of every column (``INVALID_POS`` for a dead one). Every call
+    writes all rows' T fresh columns as one slab at the shared ``cursor``
+    (an int32 0-dim tensor), padded to the 8-aligned width Tw = ceil(T/8)*8;
+    query t of row b reads column s iff ``col_pos[b, s] <= length[b] + t``.
+    The model marks the T fresh columns with their positions and advances
+    ``cursor`` by Tw and ``length`` by T; the caller re-marks rejected
+    columns dead and rewinds ``length`` (decode/speculative.py).
+
+    The model updates every buffer, ``length``, ``cursor`` and ``col_pos``
+    IN PLACE (the JAX model returns a new cache instead). Buffers start
+    zeroed, like JAX's: masked columns are never read, and zeros keep a
+    masked column finite.
     """
 
     k: list[torch.Tensor]
@@ -105,14 +127,30 @@ class KVCache:
     length: torch.Tensor
     k_scale: Optional[list[torch.Tensor]] = None
     v_scale: Optional[list[torch.Tensor]] = None
+    cursor: Optional[torch.Tensor] = None
+    col_pos: Optional[torch.Tensor] = None
+
+    # col_pos sentinel for dead columns: large and positive, so that
+    # ``col_pos[s] <= q_pos`` is false for every real query position
+    INVALID_POS: ClassVar[int] = 1 << 30
 
     @classmethod
     def create(cls, config: GPTConfig, batch: int,
-               max_len: Optional[int] = None, device=None) -> "KVCache":
+               max_len: Optional[int] = None, device=None,
+               spec: bool = False) -> "KVCache":
         """A zeroed cache of ``max_len`` (default block_size) positions:
         int8 with scales when ``config.kv_quantized``, else in
-        ``config.dtype``."""
+        ``config.dtype``; ``spec`` selects speculative mode (class
+        docstring), which needs full multi-head K/V and ``max_len % 8 ==
+        0``."""
         max_len = max_len or config.block_size
+        if spec:
+            if max_len % 8:
+                raise ValueError("spec cache length must be 8-aligned")
+            if config.kv_heads != config.n_head:
+                raise ValueError(
+                    "the speculative verify attention needs full multi-head "
+                    "K/V; decode GQA models with the plain Generator")
         quantized = config.kv_quantized
         dtype = torch.int8 if quantized else config.dtype
         shape = (batch, max_len, config.kv_heads * config.head_dim)
@@ -122,11 +160,16 @@ class KVCache:
             return [torch.zeros(shape, dtype=dtype, device=device)
                     for _ in range(config.n_layer)]
 
+        def i32(shape, fill=0):
+            return torch.full(shape, fill, dtype=torch.int32, device=device)
+
         return cls(
             k=bufs(shape, dtype), v=bufs(shape, dtype),
-            length=torch.zeros((), dtype=torch.int32, device=device),
+            length=i32((batch,) if spec else ()),
             k_scale=bufs(scale_shape, torch.bfloat16) if quantized else None,
             v_scale=bufs(scale_shape, torch.bfloat16) if quantized else None,
+            cursor=i32(()) if spec else None,
+            col_pos=i32((batch, max_len), cls.INVALID_POS) if spec else None,
         )
 
 
@@ -201,14 +244,19 @@ class CausalSelfAttention(nn.Module):
         self.c_proj = nn.Linear(C, C, bias=config.bias,
                                 dtype=config.param_dtype)
 
-    def forward(self, x, layer_cache=None, cache_len=None):
+    def forward(self, x, layer_cache=None, cache_len=None, cursor=None,
+                spec_col_pos=None):
         """``layer_cache`` = (k, v, k_scale, v_scale) of this layer (scales
-        None for a bf16 cache), updated in place at ``cache_len``."""
+        None for a bf16 cache), updated in place at ``cache_len`` or, in
+        speculative mode (``spec_col_pos`` given), at ``cursor``."""
         cfg = self.config
         B, T, C = x.shape
         H, KH, D = cfg.n_head, cfg.kv_heads, cfg.head_dim
         KHD = KH * D
         q, k, v = _linear(x, self.c_attn).split([C, KHD, KHD], dim=-1)
+        if spec_col_pos is not None:
+            return self._spec_forward(q, k, v, layer_cache, cache_len,
+                                      cursor, spec_col_pos)
         if layer_cache is None:
             # no-cache causal forward (JAX repeats K/V to H heads first;
             # attend groups the queries instead: the same dot products)
@@ -246,6 +294,34 @@ class CausalSelfAttention(nn.Module):
                    cv.view(B, S, KH, D), ck_scale, cv_scale, mask[None, None])
         return _linear(y, self.c_proj)
 
+    def _spec_forward(self, q, k, v, layer_cache, lengths, cursor, col_pos):
+        """Speculative mode (JAX models/gpt.py:515-589): the fresh K/V slab,
+        padded with zero columns to Tw = ceil(T/8)*8 and (int8 mode)
+        quantized per (column, head) with its scales written into the
+        window ``[cursor, cursor+Tw)``, goes to ``spec_attention_update``,
+        which writes it at ``cursor`` and attends under ``col_pos``. The
+        zero pad columns quantize to scale bf16(1e-6/127), as in JAX; they
+        stay dead in ``col_pos``."""
+        cfg = self.config
+        B, T, C = q.shape
+        H, D = cfg.n_head, cfg.head_dim
+        ck, cv, ck_scale, cv_scale = layer_cache
+        Tw = -(-T // 8) * 8
+        k, v = (F.pad(t, (0, 0, 0, Tw - T)) for t in (k, v))
+        if ck_scale is not None:
+            kq, ks = quantize_int8(k.reshape(B, Tw, H, D))
+            vq, vs = quantize_int8(v.reshape(B, Tw, H, D))
+            scale_write(ck_scale, ks, cursor)
+            scale_write(cv_scale, vs, cursor)
+            k_slab, v_slab = kq.reshape(B, Tw, C), vq.reshape(B, Tw, C)
+        else:
+            k_slab, v_slab = k.to(ck.dtype), v.to(cv.dtype)
+        y = spec_attention_update(
+            q.contiguous(), ck, cv, k_slab.contiguous(), v_slab.contiguous(),
+            ck_scale, cv_scale, col_pos, lengths, cursor, n_head=H,
+            int8_dots=cfg.spec_int8_dots and ck_scale is not None)
+        return _linear(y, self.c_proj)
+
 
 class MLP(nn.Module):
     def __init__(self, config: GPTConfig):
@@ -275,8 +351,10 @@ class Block(nn.Module):
                                  dtype=config.param_dtype)
         self.mlp = MLP(config)
 
-    def forward(self, x, layer_cache=None, cache_len=None):
-        x = x + self.attn(_layer_norm(x, self.ln_1), layer_cache, cache_len)
+    def forward(self, x, layer_cache=None, cache_len=None, cursor=None,
+                spec_col_pos=None):
+        x = x + self.attn(_layer_norm(x, self.ln_1), layer_cache, cache_len,
+                          cursor, spec_col_pos)
         return x + self.mlp(_layer_norm(x, self.ln_2))
 
 
@@ -286,7 +364,8 @@ class GPT(nn.Module):
     ``forward(idx, cache=None, return_all_logits=False)`` returns
     ``(logits, cache)``: logits in the compute dtype for the last position
     (or all positions with ``return_all_logits``); with a cache, the new
-    tokens are written at ``cache.length`` and the same cache, updated in
+    tokens are written at ``cache.length`` (speculative mode: at
+    ``cache.cursor``, see :class:`KVCache`) and the same cache, updated in
     place, is returned.
 
     Weights: load a state dict (``models.convert.state_dict_from_jax``) or
@@ -319,7 +398,19 @@ class GPT(nn.Module):
                 f"sequence length {T} exceeds block_size {cfg.block_size}")
         wte = self.transformer.wte.weight.to(cfg.dtype)
         pos = torch.arange(T, device=idx.device)
-        if cache is not None:
+        spec_col_pos = None
+        if cache is not None and cache.col_pos is not None:
+            # speculative mode (JAX gpt.py:902-919): query t of row b sits
+            # at length[b] + t; the T fresh columns at the cursor are
+            # tentatively marked with those positions (the caller re-marks
+            # rejected ones), the pad columns past them stay dead
+            pos = cache.length[:, None] + pos.to(torch.int32)  # [B, T]
+            rel = (torch.arange(cache.col_pos.shape[1], device=idx.device,
+                                dtype=torch.int32) - cache.cursor)
+            spec_col_pos = torch.where(
+                (rel >= 0) & (rel < T), cache.length[:, None] + rel,
+                cache.col_pos)
+        elif cache is not None:
             pos = pos + cache.length
         x = (F.embedding(idx, wte)
              + F.embedding(pos, self.transformer.wpe.weight.to(cfg.dtype)))
@@ -329,9 +420,16 @@ class GPT(nn.Module):
                 None if cache.k_scale is None else cache.k_scale[i],
                 None if cache.v_scale is None else cache.v_scale[i])
             x = block(x, layer_cache,
-                      None if cache is None else cache.length)
+                      None if cache is None else cache.length,
+                      None if cache is None else cache.cursor, spec_col_pos)
         x = _layer_norm(x, self.transformer.ln_f)
-        if cache is not None:
+        if spec_col_pos is not None:
+            # JAX gpt.py:981-998: the cursor advances by the 8-aligned
+            # write width, the length as if every token were accepted
+            cache.col_pos = spec_col_pos
+            cache.cursor += -(-T // 8) * 8
+            cache.length += T
+        elif cache is not None:
             cache.length += T
         if not return_all_logits:
             x = x[:, -1:]  # inference fast path: last position only

@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's batched ABC decode path once on an NVIDIA GPU.
+"""Drive the PyTorch port's batched ABC decode paths once on an NVIDIA GPU:
+the plain decode path and speculative decoding.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -22,7 +23,26 @@ printing a result):
 5. main path: ``Generator(window=128, max_new_tokens=500, temperature=0.8,
    top_k=200)`` at batch 4096 with 8-token prompts: shape, prompts kept,
    token range, same-seed determinism, and exactly n_layer * 500 kernel
-   launches per generate; then decode throughput timed with CUDA events.
+   launches per generate; then decode throughput timed with CUDA events;
+6. spec kernel vs twin: the verify-attention kernel with its slab write
+   (K2, ``spec_attention_update``) and without (K3, ``spec_attention``) at
+   B=4096 and B=3, S=256, H=6, D=64, T in {1, 5, 7, 128}, cursor in {0, 8,
+   S-Tw}, int8 and bf16 caches and int8_dots: the write bit-exact, the
+   output within one bf16 ulp of its range of the twin evaluated in fp32
+   (2^-6 with int8_dots); then both timed at T=5 (a verify step) and T=128
+   (a refresh);
+7. spec model: the ``SPEC`` GPT (the bench config with MHA, which the spec
+   cache needs) on the card against the CPU: a prefill, 4 verify steps
+   with scripted rejections, a refresh; logits compared for 8 rows;
+8. spec main path: ``SpecGenerator(max_new_tokens=500, temperature=0.8,
+   top_k=200, n_draft=4)`` at batch 4096 with 8-token prompts, twice with
+   one seed: shape, prompts kept, token range, identical runs, the n_steps
+   bounds, and exactly n_layer kernel launches per model call (prefill,
+   verify steps, refreshes, counted by a hook on the model); then a run
+   with ragged 8-64-token prompts and a greedy run;
+9. throughput: spec tokens/s and committed tokens per step beside the plain
+   ``Generator`` on the same ``SPEC`` model (window 256, K1 at MHA), timed
+   with CUDA events. Printed, not gated.
 
 The last two lines are a JSON summary of each kernel and
 ``{"ok": true, "device": {...}}``.
@@ -44,6 +64,15 @@ BENCH = dict(block_size=256, vocab_size=128, n_layer=6, n_head=6, n_embd=384,
 BATCH, PROMPT_LEN, MAX_NEW, WINDOW = 4096, 8, 500, 128
 KERNEL_SOURCE = "ai_music_generation_tpu_torch/ops/csrc/gqa_decode.cu"
 KERNEL_REPLACES = "ai_music_generation_tpu/ops/gqa_decode.py:394"
+# speculative decoding: the bench config with MHA (the spec cache refuses
+# GQA), at the protocol of docs/experiments/spec_decode.py and cli/sample.py
+SPEC = dict(BENCH, n_kv_head=None)
+N_DRAFT = 4
+SPEC_SOURCE = "ai_music_generation_tpu_torch/ops/csrc/spec_attention.cu"
+SPEC_REPLACES = {"spec_attention_update":
+                 "ai_music_generation_tpu/ops/spec_attention.py:450",
+                 "spec_attention":
+                 "ai_music_generation_tpu/ops/spec_attention.py:284"}
 
 
 def _cmd(args) -> str:
@@ -218,11 +247,11 @@ def phase_kernel_timing(B=BATCH, S=WINDOW) -> tuple[float, float]:
     return ms, plain_ms
 
 
-def _bench_model(device):
+def _bench_model(device, config=BENCH):
     from ai_music_generation_tpu_torch.models.convert import init_weights
     from ai_music_generation_tpu_torch.models.gpt import GPT, GPTConfig
 
-    model = GPT(GPTConfig(**BENCH))
+    model = GPT(GPTConfig(**config))
     init_weights(model, torch.Generator().manual_seed(0))
     return model.eval(), copy.deepcopy(model).to(device).eval()
 
@@ -321,6 +350,366 @@ def phase_throughput(gen, prompts, runs=3) -> float:
     return tok_s
 
 
+def _spec_inputs(quant, T, cursor, B, S, H=6, D=64, seed=0, device="cpu",
+                 n_live=None):
+    """Operands of one verify call, made on ``device`` from a seed (the
+    generator of tests/test_torch_spec_attention.py::make_inputs): row b
+    has n_b live history columns outside the write window at positions
+    0..n_b-1 (a tenth of them killed, as rejected drafts are), the T fresh
+    columns at ``cursor`` at positions n_b.., every other column dead.
+    ``n_live`` fixes n_b for every row and kills none."""
+    from ai_music_generation_tpu_torch.models.gpt import KVCache
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    HD, Tw = H * D, -(-T // 8) * 8
+    kw = dict(generator=g, device=device)
+    hist = torch.cat([torch.arange(cursor, device=device),
+                      torch.arange(cursor + Tw, S, device=device)])
+    nvalid = (torch.randint(0, S - Tw + 1, (B,), **kw) if n_live is None
+              else torch.full((B,), n_live, device=device))
+    rank = torch.arange(len(hist), device=device)
+    dead = KVCache.INVALID_POS
+    col_pos = torch.full((B, S), dead, dtype=torch.int64, device=device)
+    col_pos[:, hist] = torch.where(rank[None] < nvalid[:, None], rank[None],
+                                   dead)
+    if n_live is None:
+        col_pos[torch.rand((B, S), **kw) < 0.1] = dead
+    col_pos[:, cursor:cursor + T] = nvalid[:, None] + torch.arange(
+        T, device=device)
+    bf = lambda *shape: torch.randn(shape, **kw).to(torch.bfloat16)  # noqa
+    if quant:
+        k, v, k_slab, v_slab = (torch.randint(
+            -127, 128, (B, n, HD), dtype=torch.int8, **kw)
+            for n in (S, S, Tw, Tw))
+        k_scale, v_scale = ((torch.rand((B, H, S), **kw) * 0.02
+                             + 0.002).to(torch.bfloat16) for _ in range(2))
+    else:
+        k, v = bf(B, S, HD), bf(B, S, HD)
+        k_slab, v_slab = bf(B, Tw, HD), bf(B, Tw, HD)
+        k_scale = v_scale = None
+    return dict(q=bf(B, T, HD), k=k, v=v, k_slab=k_slab, v_slab=v_slab,
+                k_scale=k_scale, v_scale=v_scale,
+                col_pos=col_pos.to(torch.int32),
+                lengths=nvalid.to(torch.int32),
+                cursor=torch.tensor(cursor, dtype=torch.int32, device=device))
+
+
+SPEC_ATT = ("q", "k", "v", "k_scale", "v_scale", "col_pos", "lengths")
+SPEC_UPD = ("q", "k", "v", "k_slab", "v_slab", "k_scale", "v_scale",
+            "col_pos", "lengths", "cursor")
+
+
+def phase_spec_kernel_vs_twin(device, B=BATCH, S=256, H=6, D=64):
+    """K2 and K3 against the twins at the verify, prefill and refresh
+    widths. K2's write must equal the twin's bit for bit; the output is
+    held against the twin evaluated in fp32 on the card (q upcast exactly;
+    TF32 off) within one bf16 ulp of its range, 2^-7 (2^-6 in int8_dots
+    mode, where a probability may quantize to a neighbouring integer).
+    Returns the largest error of each kernel."""
+    from ai_music_generation_tpu_torch.ops.spec_attention import (
+        spec_attention, spec_attention_int8_dots_reference,
+        spec_attention_reference, spec_attention_update, write_slab,
+    )
+
+    worst = {"spec_attention_update": 0.0, "spec_attention": 0.0}
+    cases = 0
+    for b in (B, 3):
+        for T in (1, 5, 7, 128):
+            Tw = -(-T // 8) * 8
+            for mode in ("int8", "bf16", "int8_dots"):
+                quant, dots = mode != "bf16", mode == "int8_dots"
+                twin = (spec_attention_int8_dots_reference if dots
+                        else spec_attention_reference)
+                for write, cursors in ((True, (0, 8, S - Tw)),
+                                       (False, (S - Tw,))):
+                    for cursor in cursors:
+                        x = _spec_inputs(quant, T, cursor, b, S, H, D,
+                                         seed=T + cursor, device=device)
+                        ref_k, ref_v = x["k"].clone(), x["v"].clone()
+                        if write:
+                            out = spec_attention_update(
+                                *[x[n] for n in SPEC_UPD], n_head=H,
+                                int8_dots=dots)
+                            write_slab(ref_k, ref_v, x["k_slab"],
+                                       x["v_slab"], x["cursor"])
+                        else:
+                            out = spec_attention(*[x[n] for n in SPEC_ATT],
+                                                 n_head=H, int8_dots=dots)
+                        _sync(device)
+                        if not (torch.equal(x["k"], ref_k)
+                                and torch.equal(x["v"], ref_v)):
+                            raise AssertionError(
+                                f"cache write differs: B={b} T={T} "
+                                f"cursor={cursor} {mode}")
+                        ref = twin(x["q"].float(), ref_k, ref_v,
+                                   *[x[n] for n in SPEC_ATT[3:]], n_head=H)
+                        err = (out.float() - ref).abs().max().item()
+                        tol = 2.0 ** (-6 if dots else -7) * \
+                            ref.abs().max().item()
+                        name = ("spec_attention_update" if write
+                                else "spec_attention")
+                        if not err <= tol:
+                            raise AssertionError(
+                                f"{name} differs from the fp32 twin by "
+                                f"{err} > {tol}: B={b} T={T} cursor={cursor}"
+                                f" {mode}")
+                        worst[name] = max(worst[name], err)
+                        cases += 1
+                        del x, ref_k, ref_v, out, ref
+    print(f"spec kernel vs twin: {cases} cases (K2 and K3; int8, bf16, "
+          f"int8_dots; T 1, 5, 7, 128; cursors 0, 8, S-Tw) at B={B} and "
+          f"B=3, S={S}: writes bit-exact; out max abs err vs the fp32 twin "
+          f"{worst}")
+    return worst
+
+
+def phase_spec_kernel_timing(S=256, H=6, D=64, B=BATCH):
+    """ms per call of K2 and its plain twin (write_slab + the bf16
+    reference, what the op runs on the CPU) at B=4096 with an int8 cache:
+    a verify step (T=5, cursor S-8, every history column live: the most a
+    step reads) and a refresh (T=128 at cursor 0 over an empty history),
+    in the order plain, kernel, kernel, plain; K3 at the verify step.
+    Returns {name: (ms, plain_ms)} at the verify step, and the refresh
+    pair."""
+    from ai_music_generation_tpu_torch.ops.spec_attention import (
+        spec_attention, spec_attention_reference, spec_attention_update,
+        write_slab,
+    )
+
+    def plain_update(x):
+        write_slab(x["k"], x["v"], x["k_slab"], x["v_slab"], x["cursor"])
+        return spec_attention_reference(*[x[n] for n in SPEC_ATT], n_head=H)
+
+    res = {}
+    for label, T, cursor, n_live in (("verify", 5, S - 8, S - 8),
+                                     ("refresh", 128, 0, 0)):
+        x = _spec_inputs(True, T, cursor, B, S, H, D, seed=1, device="cuda",
+                         n_live=n_live)
+        kernel, plain = [], []
+        for order in (0, 1, 1, 0):
+            if order:
+                kernel.append(_cuda_ms(lambda: spec_attention_update(
+                    *[x[n] for n in SPEC_UPD], n_head=H), 20))
+            else:
+                plain.append(_cuda_ms(lambda: plain_update(x), 5))
+        res[label] = (min(kernel), min(plain))
+        read = (2 * B * (n_live + T) * H * D  # live K and V columns
+                + 2 * 2 * B * H * S)  # the bf16 scale rows
+        print(f"spec_attention_update {label} (B={B} S={S} T={T} int8, "
+              f"{n_live} live history columns): kernel {kernel} ms/call, "
+              f"twin {plain} ms/call (plain, kernel, kernel, plain); best "
+              f"kernel {res[label][0]:.4f} ms = "
+              f"{read / res[label][0] / 1e6:.1f} GB/s of cache read, twin "
+              f"{res[label][1]:.4f} ms")
+        if label == "verify":
+            k3, p3 = [], []
+            for order in (0, 1, 1, 0):
+                if order:
+                    k3.append(_cuda_ms(lambda: spec_attention(
+                        *[x[n] for n in SPEC_ATT], n_head=H), 20))
+                else:
+                    p3.append(_cuda_ms(lambda: spec_attention_reference(
+                        *[x[n] for n in SPEC_ATT], n_head=H), 5))
+            res["spec_attention"] = (min(k3), min(p3))
+            print(f"spec_attention verify: kernel {k3} ms/call, twin {p3} "
+                  f"ms/call")
+        del x
+    return res
+
+
+@torch.inference_mode()
+def phase_spec_model(device, B=BATCH, rows=8, verify_steps=4):
+    """The spec-mode SPEC model on the card and the same weights on the CPU:
+    a 7-token prefill, ``verify_steps`` T=5 steps each followed by scripted
+    rejections (the SpecGenerator's bookkeeping with random commit counts),
+    then a refresh (reset, 128-token re-prefill). bf16 logits within 2^-4
+    of their range (the yardstick of phase 4)."""
+    from ai_music_generation_tpu_torch.decode.speculative import (
+        keep_committed, reset_spec_cache,
+    )
+    from ai_music_generation_tpu_torch.models.gpt import KVCache
+
+    cpu_model, model = _bench_model(device, SPEC)
+    cfg = model.config
+    g = torch.Generator().manual_seed(3)
+    caches = (KVCache.create(cfg, B, device=device, spec=True),
+              KVCache.create(cfg, rows, spec=True))
+    T = N_DRAFT + 1
+    worst, tol = 0.0, 0.0
+    for n in [PROMPT_LEN - 1] + [T] * verify_steps + ["refresh", 128]:
+        if n == "refresh":
+            for c in caches:
+                reset_spec_cache(c)
+            continue
+        ids = torch.randint(0, cfg.vocab_size, (B, n), generator=g,
+                            dtype=torch.int32)
+        before = [(c.cursor.clone(), c.length.clone()) for c in caches]
+        got, _ = model(ids.to(device), cache=caches[0],
+                       return_all_logits=True)
+        want, _ = cpu_model(ids[:rows], cache=caches[1],
+                            return_all_logits=True)
+        got = got[:rows].float().cpu()
+        if not torch.isfinite(got).all():
+            raise AssertionError("non-finite logits on the card")
+        err = (got - want.float()).abs().max().item()
+        tol = max(tol, 2.0 ** -4 * want.float().abs().max().item())
+        if not err <= tol:
+            raise AssertionError(f"spec logits differ by {err} > {tol} "
+                                 f"(call of T={n})")
+        worst = max(worst, err)
+        if n == T:
+            commits = torch.randint(1, T + 1, (B,), generator=g,
+                                    dtype=torch.int32)
+            for c, (cursor0, length0), cm in zip(
+                    caches, before, (commits.to(device), commits[:rows])):
+                keep_committed(c, cursor0, length0, cm, T)
+    if not torch.equal(caches[0].col_pos[:rows].cpu(), caches[1].col_pos):
+        raise AssertionError("col_pos differs between the card and the CPU")
+    print(f"spec model: prefill {PROMPT_LEN - 1} + {verify_steps} verify "
+          f"steps (T={T}, scripted rejections) + refresh (T=128) at B={B}, "
+          f"{rows} rows vs CPU: logits max abs err {worst} (tol {tol})")
+
+
+def _spec_run(gen, prompts, prompt_lens=None, seed=1234):
+    """One generate_with_stats with the model calls recorded by a hook
+    (independently of the kernel's counter) and the kernel's launches;
+    returns (tokens on the CPU, n_steps, the T of each call, launches)."""
+    from ai_music_generation_tpu_torch.ops.spec_attention import (
+        spec_attention_update,
+    )
+
+    calls = []
+    handle = gen.model.register_forward_pre_hook(
+        lambda _, args: calls.append(args[0].shape[1]))
+    try:
+        spec_attention_update.launches = 0
+        out, n_steps = gen.generate_with_stats(prompts, prompt_lens,
+                                               seed=seed)
+        _sync(out.device)
+        launches = spec_attention_update.launches
+    finally:
+        handle.remove()
+    return out.cpu(), n_steps, calls, launches
+
+
+def _check_spec_run(gen, out, n_steps, calls, launches, device, prefill):
+    """The launch and step accounting of one spec generate: every model
+    call (the prefill of ``prefill - 1`` tokens, the verify steps, the
+    refreshes) launches the kernel once per layer, and
+    ceil(committed/(K+1)) <= n_steps <= committed."""
+    K, C = gen.n_draft, gen.window
+    refreshes = calls.count(C)
+    if calls[0] != prefill - 1 or calls.count(K + 1) != n_steps or \
+            len(calls) != 1 + n_steps + refreshes:
+        raise AssertionError(f"model calls {calls[:3]}..., {len(calls)} in "
+                             f"all, for {n_steps} steps")
+    cuda = torch.device(device).type == "cuda"
+    want = gen.model.config.n_layer * len(calls) if cuda else 0
+    if launches != want:
+        raise AssertionError(f"spec kernel launches {launches} != {want} "
+                             f"= n_layer x {len(calls)} model calls")
+    committed = out.shape[1] - prefill
+    if not -(-committed // (K + 1)) <= n_steps <= committed:
+        raise AssertionError(f"n_steps {n_steps} outside its bounds for "
+                             f"{committed} committed tokens")
+    return refreshes, committed / n_steps
+
+
+@torch.inference_mode()
+def phase_spec_main_path(device, B=BATCH, max_new=MAX_NEW):
+    """The speculative path at the protocol, through SpecGenerator: two
+    same-seed runs, a ragged-prompt run and a greedy run, all checked.
+    Returns (generator, prompts, launches of the first run, its n_steps,
+    committed tokens per step)."""
+    from ai_music_generation_tpu_torch.decode.speculative import (
+        SpecGenerator,
+    )
+
+    _, model = _bench_model(device, SPEC)
+    V = model.config.vocab_size
+    gen = SpecGenerator(model, max_new_tokens=max_new, temperature=0.8,
+                        top_k=200, n_draft=N_DRAFT)
+    g = torch.Generator().manual_seed(4)
+    prompts = torch.randint(0, V, (B, PROMPT_LEN), generator=g,
+                            dtype=torch.int32)
+    out, n_steps, calls, launches = _spec_run(gen, prompts)
+    again = _spec_run(gen, prompts)
+    refreshes, per_step = _check_spec_run(gen, out, n_steps, calls,
+                                          launches, device, PROMPT_LEN)
+    if out.shape != (B, PROMPT_LEN + max_new):
+        raise AssertionError(f"output shape {tuple(out.shape)}")
+    if not torch.equal(out[:, :PROMPT_LEN], prompts):
+        raise AssertionError("prompts not preserved")
+    if not ((out >= 0) & (out < V)).all():
+        raise AssertionError("token out of range")
+    if not (torch.equal(out, again[0]) and again[1:] == (n_steps, calls,
+                                                           launches)):
+        raise AssertionError("same seed gave different runs")
+    print(f"spec main path: generate [{B}, {PROMPT_LEN}] -> "
+          f"{tuple(out.shape)}, prompts kept, tokens in range, same seed "
+          f"identical; {n_steps} verify steps + {refreshes} refreshes + 1 "
+          f"prefill, {launches} kernel launches = n_layer x model calls; "
+          f"{per_step:.3f} committed tokens per step")
+
+    # ragged prompts of 8-64 tokens: in-prompt drafts are force-accepted
+    plens = torch.randint(8, 65, (B,), generator=g, dtype=torch.int32)
+    ragged = torch.randint(0, V, (B, 64), generator=g, dtype=torch.int32)
+    r_out, r_steps, r_calls, r_launches = _spec_run(gen, ragged, plens)
+    bucket = 1 << (min(int(plens.min()), gen.window).bit_length() - 1)
+    _, r_per_step = _check_spec_run(gen, r_out, r_steps, r_calls, r_launches,
+                                    device, bucket)
+    keep = torch.arange(64)[None, :] < plens[:, None]
+    if not torch.equal(r_out[:, :64][keep], ragged[keep]):
+        raise AssertionError("ragged prompts not preserved")
+    print(f"spec ragged prompts (8-64 tokens): prompts kept, {r_steps} "
+          f"steps, {r_per_step:.3f} committed tokens per step")
+
+    greedy = SpecGenerator(model, max_new_tokens=max_new, temperature=0.0,
+                           top_k=None, n_draft=N_DRAFT)
+    g_out, g_steps, g_calls, g_launches = _spec_run(greedy, prompts)
+    _, g_per_step = _check_spec_run(greedy, g_out, g_steps, g_calls,
+                                    g_launches, device, PROMPT_LEN)
+    print(f"spec greedy: {g_steps} steps, {g_per_step:.3f} committed tokens "
+          f"per step")
+    return gen, prompts, launches, n_steps, per_step
+
+
+def _event_seconds(fn) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
+@torch.inference_mode()
+def phase_spec_throughput(gen, prompts):
+    """Spec tokens/s (B * 500 / time of one generate) beside the plain
+    Generator on the same SPEC model (window 256: its own default, K1 at
+    MHA), one generate each in the order plain, spec, spec, plain after a
+    plain warm-up (the spec path is warm from its main-path runs)."""
+    from ai_music_generation_tpu_torch.decode.generate import Generator
+
+    plain = Generator(gen.model, max_new_tokens=gen.max_new_tokens,
+                      temperature=0.8, top_k=200)
+    plain.generate(prompts, seed=99)
+    seconds = {"plain": [], "spec": []}
+    for i, name in enumerate(("plain", "spec", "spec", "plain")):
+        g = plain if name == "plain" else gen
+        seconds[name].append(_event_seconds(
+            lambda: g.generate(prompts, seed=2000 + i)))
+    n = prompts.shape[0] * gen.max_new_tokens
+    tok_s = {k: n / (sum(v) / len(v)) for k, v in seconds.items()}
+    print(f"throughput at B={prompts.shape[0]}, {gen.max_new_tokens} new "
+          f"tokens: spec {tok_s['spec']:.1f} tok/s (generates "
+          f"{seconds['spec']} s), plain Generator {tok_s['plain']:.1f} tok/s"
+          f" ({seconds['plain']} s); spec/plain "
+          f"{tok_s['spec'] / tok_s['plain']:.3f}")
+    return tok_s
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -336,11 +725,41 @@ def main() -> int:
     print(f"[{card}] decode {tok_s:.1f} tokens/s at batch {BATCH}, "
           f"{MAX_NEW} new tokens, window {WINDOW}; gqa_decode kernel "
           f"{ms:.4f} ms/call, plain twin {plain_ms:.4f} ms/call")
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "gqa_decode_update", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms}]}))
+        "plain_ms": plain_ms}]
+    del gen, prompts
+    torch.cuda.empty_cache()
+
+    from ai_music_generation_tpu_torch.ops.spec_attention import (
+        spec_attention,
+    )
+
+    spec_attention.launches = 0
+    spec_err = phase_spec_kernel_vs_twin("cuda")
+    k3_launches = spec_attention.launches
+    spec_ms = phase_spec_kernel_timing()
+    phase_spec_model("cuda")
+    gen, prompts, spec_launches, n_steps, per_step = phase_spec_main_path(
+        "cuda")
+    spec_tok_s = phase_spec_throughput(gen, prompts)
+    print(f"[{card}] spec decode {spec_tok_s['spec']:.1f} tokens/s "
+          f"({per_step:.3f} committed tokens per step, {n_steps} steps) vs "
+          f"plain {spec_tok_s['plain']:.1f} tokens/s on the SPEC model; "
+          f"spec_attention_update {spec_ms['verify'][0]:.4f} ms/call at T=5 "
+          f"(twin {spec_ms['verify'][1]:.4f}), {spec_ms['refresh'][0]:.4f} "
+          f"ms at T=128 (twin {spec_ms['refresh'][1]:.4f})")
+    for name, n in (("spec_attention_update", spec_launches),
+                    ("spec_attention", k3_launches)):
+        key = "verify" if name == "spec_attention_update" else name
+        kernels.append({
+            "name": name, "route": "cuda", "source": SPEC_SOURCE,
+            "replaces": SPEC_REPLACES[name], "launches": n,
+            "max_abs_err": spec_err[name], "ms": spec_ms[key][0],
+            "plain_ms": spec_ms[key][1]})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -13,11 +13,23 @@ import dataclasses
 import pytest
 import torch
 
+from ai_music_generation_tpu_torch.decode.speculative import (
+    SpecGenerator,
+    keep_committed,
+    reset_spec_cache,
+)
 from ai_music_generation_tpu_torch.models.convert import init_weights
 from ai_music_generation_tpu_torch.models.gpt import GPT, GPTConfig, KVCache
 from ai_music_generation_tpu_torch.ops.gqa_decode import (
     gqa_decode_reference,
     gqa_decode_update,
+)
+from ai_music_generation_tpu_torch.ops.spec_attention import (
+    spec_attention,
+    spec_attention_int8_dots_reference,
+    spec_attention_reference,
+    spec_attention_update,
+    write_slab,
 )
 
 torch.set_num_threads(1)
@@ -127,3 +139,200 @@ def test_model_decode_on_cuda_matches_cpu(cuda, variant):
             assert err <= 2.0 ** -4 * want.abs().max(), (lo, err)
     assert gqa_decode_update.launches - before == cfg.n_layer * 12
     assert int(caches[0].length) == 20
+
+
+def _spec_inputs(quant, T, cursor, B, S, H, D, seed=0):
+    """CPU tensors for one verify call (the operands of
+    spec_attention_update): ragged live histories outside the write window,
+    a tenth of them killed, the T fresh columns at ``cursor``, every other
+    column dead (tests/test_torch_spec_attention.py::make_inputs)."""
+    g = torch.Generator().manual_seed(seed)
+    HD, Tw = H * D, -(-T // 8) * 8
+    bf = lambda *shape: torch.randn(shape, generator=g).to(torch.bfloat16)  # noqa
+    hist = torch.cat([torch.arange(cursor), torch.arange(cursor + Tw, S)])
+    nvalid = torch.randint(0, S - Tw + 1, (B,), generator=g)
+    rank = torch.arange(len(hist))
+    col_pos = torch.full((B, S), KVCache.INVALID_POS, dtype=torch.int64)
+    col_pos[:, hist] = torch.where(rank[None] < nvalid[:, None], rank[None],
+                                   KVCache.INVALID_POS)
+    col_pos[torch.rand((B, S), generator=g) < 0.1] = KVCache.INVALID_POS
+    col_pos[:, cursor:cursor + T] = nvalid[:, None] + torch.arange(T)
+    if quant:
+        k, v, k_slab, v_slab = (torch.randint(
+            -127, 128, (B, n, HD), generator=g, dtype=torch.int8)
+            for n in (S, S, Tw, Tw))
+        k_scale, v_scale = ((torch.rand((B, H, S), generator=g) * 0.02
+                             + 0.002).to(torch.bfloat16) for _ in range(2))
+    else:
+        k, v, k_slab, v_slab = bf(B, S, HD), bf(B, S, HD), bf(B, Tw, HD), \
+            bf(B, Tw, HD)
+        k_scale = v_scale = None
+    return dict(q=bf(B, T, HD), k=k, v=v, k_slab=k_slab, v_slab=v_slab,
+                k_scale=k_scale, v_scale=v_scale,
+                col_pos=col_pos.to(torch.int32),
+                lengths=nvalid.to(torch.int32),
+                cursor=torch.tensor(cursor, dtype=torch.int32))
+
+
+ATT = ("q", "k", "v", "k_scale", "v_scale", "col_pos", "lengths")
+UPD = ("q", "k", "v", "k_slab", "v_slab", "k_scale", "v_scale", "col_pos",
+       "lengths", "cursor")
+
+
+def _on(x, device):
+    return {n: None if a is None else a.to(device) for n, a in x.items()}
+
+
+def _spec_fp32_twin(x, n_head, int8_dots):
+    """The twin evaluated in fp32 (q upcast exactly), the kernel's own
+    precision; the caches are read as given."""
+    args = [x[n] for n in ATT]
+    args[0] = args[0].float()
+    twin = (spec_attention_int8_dots_reference if int8_dots
+            else spec_attention_reference)
+    return twin(*args, n_head=n_head)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int8_dots"])
+@pytest.mark.parametrize("write", [False, True], ids=["k3", "k2"])
+def test_spec_attention_kernel_matches_twin(cuda, write, mode):
+    """K2 (write + attention) and K3 (attention) against the twins: the
+    slab write bit-exact; the output within one bf16 ulp of its range of
+    the twin evaluated in fp32 (2^-7), 2^-6 in int8_dots mode (the kernel
+    and the twin may round a quantized probability to neighbouring
+    integers)."""
+    quant, dots = mode != "bf16", mode == "int8_dots"
+    for B, S, H, D in ((3, 64, 6, 64), (8, 256, 6, 64), (2, 32, 2, 16)):
+        for T in (1, 5, 7, 13, 128):
+            Tw = -(-T // 8) * 8
+            if Tw > S:
+                continue
+            for cursor in (0, 8, S - Tw) if write else (S - Tw,):
+                cpu = _spec_inputs(quant, T, cursor, B, S, H, D, seed=T)
+                gpu = _on(cpu, cuda)
+                if write:
+                    before = spec_attention_update.launches
+                    out = spec_attention_update(
+                        *[gpu[n] for n in UPD], n_head=H, int8_dots=dots)
+                    assert spec_attention_update.launches == before + 1
+                    write_slab(cpu["k"], cpu["v"], cpu["k_slab"],
+                               cpu["v_slab"], cursor)
+                else:
+                    before = spec_attention.launches
+                    out = spec_attention(*[gpu[n] for n in ATT], n_head=H,
+                                         int8_dots=dots)
+                    assert spec_attention.launches == before + 1
+                torch.cuda.synchronize()
+                for n in ("k", "v"):  # the write, bit for bit
+                    assert torch.equal(gpu[n].cpu(), cpu[n]), (n, B, T)
+                ref = _spec_fp32_twin(cpu, H, dots)
+                err = (out.float().cpu() - ref).abs().max()
+                tol = 2.0 ** (-6 if dots else -7) * ref.abs().max()
+                assert err <= tol, (B, S, T, cursor, err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int8_dots"])
+def test_spec_attention_kernel_dead_query_reads_nothing(cuda, mode):
+    """A query whose every column is dead gets 0, never NaN; poisoned dead
+    columns change nothing."""
+    quant, dots = mode != "bf16", mode == "int8_dots"
+    x = _on(_spec_inputs(quant, 5, 56, 4, 64, 6, 64), cuda)
+    x["col_pos"][0] = KVCache.INVALID_POS
+    out = spec_attention(*[x[n] for n in ATT], n_head=6, int8_dots=dots)
+    dead = x["col_pos"] == KVCache.INVALID_POS
+    poison = 127 if quant else float("nan")
+    x["k"][dead], x["v"][dead] = poison, poison
+    again = spec_attention(*[x[n] for n in ATT], n_head=6, int8_dots=dots)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    assert torch.isfinite(out.float()).all()
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+def test_spec_attention_kernel_refuses_what_it_cannot_take(cuda):
+    x = _on(_spec_inputs(False, 5, 8, 2, 32, 6, 64), cuda)
+    args = lambda **kw: [kw.get(n, x[n]) for n in UPD]  # noqa: E731
+    with pytest.raises(ValueError, match="q must be"):
+        spec_attention_update(*args(q=x["q"].float()), n_head=6)
+    with pytest.raises(ValueError, match="contiguous"):
+        k = x["k"].transpose(0, 1).contiguous().transpose(0, 1)
+        spec_attention_update(*args(k=k), n_head=6)
+    with pytest.raises(ValueError, match="cursor must be"):
+        spec_attention_update(*args(cursor=x["cursor"].long()), n_head=6)
+    with pytest.raises(ValueError, match="k_slab must be"):
+        spec_attention_update(*args(k_slab=x["k_slab"][:, :5].contiguous()),
+                              n_head=6)
+    with pytest.raises(ValueError, match="int8 cache"):
+        spec_attention_update(*args(), n_head=6, int8_dots=True)
+    with pytest.raises(ValueError, match="head size"):
+        spec_attention_update(*args(), n_head=4)  # D = 96
+    with pytest.raises(ValueError, match="16-byte"):
+        k = torch.empty(x["k"].numel() + 1, dtype=x["k"].dtype,
+                        device=cuda)[1:].view(x["k"].shape)
+        spec_attention_update(*args(k=k), n_head=6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [True, False], ids=["int8", "bf16"])
+def test_spec_model_on_cuda_matches_cpu(cuda, quant):
+    """The spec-mode model at the bench widths (2 layers): a 7-token
+    prefill, three T=5 verify steps with scripted rejections, a refresh
+    re-prefill of 32 tokens; bf16 logits on the card within 2^-4 of their
+    range of the CPU's, and one kernel launch per layer per call."""
+    cfg = GPTConfig(block_size=64, vocab_size=128, n_layer=2, n_head=6,
+                    n_embd=384, bias=False, kv_quantized=quant)
+    cpu_model = init_weights(GPT(cfg), torch.Generator().manual_seed(0))
+    gpu_model = GPT(dataclasses.replace(cfg)).to(cuda)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    g = torch.Generator().manual_seed(1)
+    B = 16
+    caches = (KVCache.create(cfg, B, device=cuda, spec=True),
+              KVCache.create(cfg, B, spec=True))
+    calls = [7, 5, 5, 5, "refresh", 32]
+    before = spec_attention_update.launches
+    with torch.inference_mode():
+        for T in calls:
+            if T == "refresh":
+                for c in caches:
+                    reset_spec_cache(c)
+                continue
+            ids = torch.randint(0, 128, (B, T), generator=g, dtype=torch.int32)
+            c0 = [(c.cursor.clone(), c.length.clone()) for c in caches]
+            got, _ = gpu_model(ids.to(cuda), cache=caches[0],
+                               return_all_logits=True)
+            want, _ = cpu_model(ids, cache=caches[1], return_all_logits=True)
+            want = want.float()
+            err = (got.float().cpu() - want).abs().max()
+            assert err <= 2.0 ** -4 * want.abs().max(), (T, err)
+            if T == 5:
+                commits = torch.randint(1, T + 1, (B,), generator=g,
+                                        dtype=torch.int32)
+                for c, (cursor0, length0) in zip(caches, c0):
+                    keep_committed(c, cursor0, length0,
+                                   commits.to(c.length.device), T)
+    assert spec_attention_update.launches - before == cfg.n_layer * 5
+    assert torch.equal(caches[0].col_pos.cpu(), caches[1].col_pos)
+    assert int(caches[0].cursor) == 32
+
+
+@pytest.mark.cuda
+def test_spec_generator_on_cuda_goes_through_the_kernel(cuda):
+    cfg = GPTConfig(block_size=64, vocab_size=128, n_layer=2, n_head=6,
+                    n_embd=384, bias=False, kv_quantized=True)
+    model = init_weights(GPT(cfg), torch.Generator().manual_seed(0))
+    model = model.to(cuda).eval()
+    prompts = torch.randint(0, 128, (32, 8), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(2))
+    calls = []
+    handle = model.register_forward_pre_hook(
+        lambda _, args: calls.append(args[0].shape[1]))
+    before = spec_attention_update.launches
+    out, n_steps = SpecGenerator(model, max_new_tokens=100).generate_with_stats(
+        prompts, seed=3)
+    handle.remove()
+    assert out.shape == (32, 108) and torch.equal(out[:, :8].cpu(), prompts)
+    assert calls[0] == 7 and calls.count(5) == n_steps
+    assert spec_attention_update.launches - before == cfg.n_layer * len(calls)
