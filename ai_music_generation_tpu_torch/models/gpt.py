@@ -14,13 +14,17 @@ residual stream and the logits are in ``dtype``.
 
 Decode runs over a flat :class:`KVCache`. In lockstep mode a prefill
 (T > 1) writes its slab and attends with plain torch ops (JAX runs it as XLA
-einsums, not Pallas); every T=1 step goes through
-``ops.gqa_decode.gqa_decode_update``, which owns the column write and the
-attention. In speculative mode (``KVCache.create(..., spec=True)``) every
-call, whatever its T, goes through ``ops.spec_attention.
-spec_attention_update``, which owns the slab write at the shared cursor and
-the attention under per-column logical positions. Each op is the CUDA
-kernel on a GPU and its plain twin on the CPU.
+einsums, not Pallas). A T=1 step follows the JAX model's dispatch: with
+``attn_impl="pallas"`` on a non-``flat_kv`` MHA cache in the compute dtype
+it writes its column as the prefill does and attends through
+``ops.decode_attention.decode_attention`` (the valid prefix only); every
+other T=1 step goes through ``ops.gqa_decode.gqa_decode_update``, which owns
+the column write and the attention. In speculative mode
+(``KVCache.create(..., spec=True)``) every call, whatever its T, goes
+through ``ops.spec_attention.spec_attention_update``, which owns the slab
+write at the shared cursor and the attention under per-column logical
+positions. Each op is the CUDA kernel on a GPU and its plain twin on the
+CPU.
 
 Not ported yet: training (loss, MFU, remat, dropout), MoE, sequence
 parallelism, and the ring cache mode.
@@ -36,6 +40,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ai_music_generation_tpu_torch.ops.decode_attention import (
+    decode_attention,
+)
 from ai_music_generation_tpu_torch.ops.gqa_decode import gqa_decode_update
 from ai_music_generation_tpu_torch.ops.spec_attention import (
     spec_attention_update,
@@ -46,12 +53,18 @@ from ai_music_generation_tpu_torch.ops.spec_attention import (
 class GPTConfig:
     """Same fields and defaults as the JAX ``GPTConfig``; ``dtype`` and
     ``param_dtype`` are torch dtypes. The port runs inference only, so
-    ``dropout``, ``attn_impl`` and ``remat`` have no effect, and its cache
-    is always flat (``flat_kv`` is accepted for configs carried over).
-    ``spec_int8_dots`` selects the int8 x int8 products of the speculative
-    verify attention on an int8 spec cache (on the CPU as well: there the
-    op runs that mode's plain twin). ``n_expert > 0`` and ``seq_axis`` are
-    refused by :class:`GPT`."""
+    ``dropout`` and ``remat`` have no effect. Its cache buffers are always
+    flat [B, S, KH*D]; ``flat_kv`` and ``attn_impl`` pick the T=1 decode op
+    as in the JAX model: ``flat_kv`` sends every T=1 step to
+    ``ops.gqa_decode`` (K1) whatever ``attn_impl`` is; otherwise
+    ``attn_impl="pallas"`` with MHA (``n_kv_head`` None or ``n_head``) and
+    an unquantized cache sends it to ``ops.decode_attention`` (K4), and
+    every other T=1 step goes to K1. ``attn_impl`` does not change the
+    prefill or the no-cache forward (plain torch ops, as XLA einsums in
+    JAX). ``spec_int8_dots`` selects the int8 x int8 products of the
+    speculative verify attention on an int8 spec cache (on the CPU as
+    well: there the op runs that mode's plain twin). ``n_expert > 0`` and
+    ``seq_axis`` are refused by :class:`GPT`."""
 
     block_size: int = 1024
     vocab_size: int = 50304
@@ -142,7 +155,9 @@ class KVCache:
         int8 with scales when ``config.kv_quantized``, else in
         ``config.dtype``; ``spec`` selects speculative mode (class
         docstring), which needs full multi-head K/V and ``max_len % 8 ==
-        0``."""
+        0``. ``device`` None allocates on the card, as the JAX cache lands
+        on the accelerator, and raises when there is none; pass
+        ``device="cpu"`` for a CPU cache."""
         max_len = max_len or config.block_size
         if spec:
             if max_len % 8:
@@ -151,6 +166,13 @@ class KVCache:
                 raise ValueError(
                     "the speculative verify attention needs full multi-head "
                     "K/V; decode GQA models with the plain Generator")
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "KVCache.create allocates on the CUDA device by default "
+                    "and none is available; pass device='cpu' for a CPU "
+                    "cache")
+            device = torch.device("cuda")
         quantized = config.kv_quantized
         dtype = torch.int8 if quantized else config.dtype
         shape = (batch, max_len, config.kv_heads * config.head_dim)
@@ -266,7 +288,10 @@ class CausalSelfAttention(nn.Module):
             return _linear(y, self.c_proj)
         ck, cv, ck_scale, cv_scale = layer_cache
         S = ck.shape[1]
-        if T == 1:
+        # K4 (JAX gpt.py:719-734, reached only off the flat branch)
+        prefix_step = (T == 1 and cfg.attn_impl == "pallas"
+                       and not cfg.flat_kv and ck_scale is None and KH == H)
+        if T == 1 and not prefix_step:
             # decode step: in int8 mode the slabs stay raw (the op owns the
             # quantize and the scale write), else they take the cache dtype
             k_slab, v_slab = k.reshape(B, KHD), v.reshape(B, KHD)
@@ -276,8 +301,8 @@ class CausalSelfAttention(nn.Module):
                 q.reshape(B, H, D).contiguous(), ck, cv, k_slab.contiguous(),
                 v_slab.contiguous(), ck_scale, cv_scale, None, cache_len)
             return _linear(y.reshape(B, 1, C), self.c_proj)
-        # prefill: slab write at cache_len (a device index, no host sync),
-        # then the shared attention chain over the [B, S, KH, D] views
+        # prefill (and the K4 step): slab write at cache_len (a device
+        # index, no host sync), as JAX's dynamic_update_slice
         cols = (cache_len + torch.arange(T, device=x.device)).long()
         if ck_scale is not None:
             kq, ks = quantize_int8(k.reshape(B, T, KH, D))
@@ -289,6 +314,12 @@ class CausalSelfAttention(nn.Module):
         else:
             ck[:, cols] = k.to(ck.dtype)
             cv[:, cols] = v.to(cv.dtype)
+        if prefix_step:
+            # the step's query attends over the cache_len + 1 valid columns
+            y = decode_attention(q.reshape(B, C).contiguous(), ck, cv,
+                                 cache_len + 1, n_head=H)
+            return _linear(y.reshape(B, 1, C), self.c_proj)
+        # the shared attention chain over the [B, S, KH, D] views
         mask = torch.arange(S, device=x.device)[None, :] <= cols[:, None]
         y = attend(q.reshape(B, T, H, D), ck.view(B, S, KH, D),
                    cv.view(B, S, KH, D), ck_scale, cv_scale, mask[None, None])

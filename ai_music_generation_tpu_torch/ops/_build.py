@@ -115,7 +115,8 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name, n_ptr, n_int in (("gqa_decode_update_launch", 10, 6),
-                               ("spec_attention_launch", 11, 7)):
+                               ("spec_attention_launch", 11, 7),
+                               ("decode_attention_launch", 7, 5)):
         fn = getattr(lib, name)
         fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
         fn.restype = i32

@@ -1,5 +1,6 @@
 """Drive the PyTorch port's batched ABC decode paths once on an NVIDIA GPU:
-the plain decode path and speculative decoding.
+the plain decode path, speculative decoding, and the attn_impl="pallas"
+decode path.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -30,7 +31,8 @@ printing a result):
    S-Tw}, int8 and bf16 caches and int8_dots: the write bit-exact, the
    output within one bf16 ulp of its range of the twin evaluated in fp32
    (2^-6 with int8_dots); then both timed at T=5 (a verify step) and T=128
-   (a refresh);
+   (a refresh), K3 also with a bf16 cache beside the one PyTorch call that
+   computes it (``scaled_dot_product_attention`` under the col_pos mask);
 7. spec model: the ``SPEC`` GPT (the bench config with MHA, which the spec
    cache needs) on the card against the CPU: a prefill, 4 verify steps
    with scripted rejections, a refresh; logits compared for 8 rows;
@@ -42,14 +44,42 @@ printing a result):
    with ragged 8-64-token prompts and a greedy run;
 9. throughput: spec tokens/s and committed tokens per step beside the plain
    ``Generator`` on the same ``SPEC`` model (window 256, K1 at MHA), timed
-   with CUDA events. Printed, not gated.
+   with CUDA events. Printed, not gated;
+10. prefix kernel vs twin: the valid-prefix decode attention (K4,
+    ``decode_attention``) at B=4096 and B=3, S=256, H=6, D=64, bf16,
+    lengths {1, 63, 64, 100, 255, 256}, NaN past the length: finite and
+    within one bf16 ulp of its range of the twin evaluated in fp32; then
+    kernel, twin and ``scaled_dot_product_attention`` on the prefix timed
+    at lengths 128 and 256;
+11. pallas model: the ``PALLAS`` GPT (the bench widths with MHA, a bf16
+    cache, ``attn_impl="pallas"``) on the card against the CPU: prefill plus
+    16 decode steps, logits compared for 8 rows;
+12. pallas main path: ``Generator(max_new_tokens=500, temperature=0.8,
+    top_k=200)`` at its default window 256, batch 4096, 8-token prompts,
+    twice with one seed: shape, prompts kept, token range, identical runs,
+    exactly n_layer * 500 = 3000 K4 launches and no K1 launch per generate;
+    then tokens/s and peak memory beside the same weights with
+    ``attn_impl="xla"`` (K1). Printed, not gated;
+13. int8 prefix kernels vs twin: K5 (``decode_attention_int8``) and K6
+    (``decode_attention_int8_multirow``, R in {1, 8}) at B=4096 and B=16,
+    S=256, lengths {1, 127, 128, 200, 256}, int8 127 and scales 1e4 past
+    the length: the yardstick of phase 10; then timed at length 256.
 
 The last two lines are a JSON summary of each kernel and
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. Each kernel's ``launches`` counts its
+launches in its path's main-path run (phases 5, 8, 12; every count is set
+to 0 just before each of them and read just after); a kernel with no
+caller on any path (K3, K5, K6) shows its count summed over those three
+runs there, and its kernel-vs-twin launches as ``check_launches``. ``bound_ms`` is the least time the card
+could take for the timed call: its bytes (each input read once, each output
+written once) over 3.35 TB/s or its operations over 989 TFLOP/s, the
+larger; ``library_ms`` the time of one PyTorch call computing the same
+function, where there is one (else null).
 """
 
 from __future__ import annotations
 
+import argparse
 import copy
 import json
 import subprocess
@@ -73,6 +103,33 @@ SPEC_REPLACES = {"spec_attention_update":
                  "ai_music_generation_tpu/ops/spec_attention.py:450",
                  "spec_attention":
                  "ai_music_generation_tpu/ops/spec_attention.py:284"}
+# the attn_impl="pallas" decode path: the bench widths with MHA and a bf16
+# cache off the flat branch, so each T=1 step runs K4 (JAX gpt.py:724-734);
+# Generator at its default window (block_size 256)
+PALLAS = dict(BENCH, n_kv_head=None, kv_quantized=False, flat_kv=False,
+              attn_impl="pallas")
+PREFIX_SOURCE = "ai_music_generation_tpu_torch/ops/csrc/decode_attention.cu"
+PREFIX_REPLACES = {
+    "decode_attention": "ai_music_generation_tpu/ops/decode_attention.py:163",
+    "decode_attention_int8":
+        "ai_music_generation_tpu/ops/decode_attention_int8.py:177",
+    "decode_attention_int8_multirow":
+        "ai_music_generation_tpu/ops/decode_attention_int8.py:339"}
+# published H100 SXM peaks (NVIDIA's data sheet, at 700 W): device
+# memory rate, and the dense bf16 tensor-core rate, the peak for products
+# whose widest input is bf16 (int8 caches meet bf16 queries here)
+HBM_BYTES_PER_S = 3.35e12
+BF16_OPS_PER_S = 989e12
+
+
+def bound(n_bytes, n_ops) -> tuple[float, str]:
+    """The least time (ms) the card could take for work that moves
+    ``n_bytes`` (each input read once, each output written once) and does
+    ``n_ops`` operations, and which of the two sets it."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / BF16_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                             "operations")
 
 
 def _cmd(args) -> str:
@@ -220,11 +277,13 @@ def _cuda_ms(fn, iters) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_kernel_timing(B=BATCH, S=WINDOW) -> tuple[float, float]:
+def phase_kernel_timing(B=BATCH, S=WINDOW) -> dict:
     """ms per call of the kernel and of the plain twin on the card, at the
     decode shape, int8 lockstep at pos = S-1 (the whole window valid). The
     K+V caches (128 MiB at B=4096) exceed the 50 MB L2, so every call reads
-    them from device memory, as the decode loop does."""
+    them from device memory, as the decode loop does. Returns the kernel's
+    JSON numbers, with its bound; no one PyTorch call fuses the quantize,
+    the writes and the attention, so there is no library time."""
     from ai_music_generation_tpu_torch.ops.gqa_decode import (
         gqa_decode_reference, gqa_decode_update,
     )
@@ -240,11 +299,20 @@ def phase_kernel_timing(B=BATCH, S=WINDOW) -> tuple[float, float]:
                 lambda: gqa_decode_reference(*args, pos), 20))
     ms, plain_ms = min(kernel), min(plain)
     cache_bytes = 2 * args[1].numel() + 2 * 2 * args[5].numel()
+    q, k, _, k_slab, _, k_scale = args[:6]
+    KHD, KH = k.shape[2], k_scale.shape[1]
+    # reads: q, the S-1 older columns of K, V and their scales, the slabs;
+    # writes: the fresh column of K, V and their scales, out
+    n_bytes = (2 * q.nbytes + 2 * B * (S - 1) * KHD + 2 * 2 * B * KH * S
+               + 2 * k_slab.nbytes + 2 * B * KHD)
+    bound_ms, bound_by = bound(n_bytes, 4 * q.numel() * S)
     print(f"gqa_decode at B={B} S={S} int8: kernel {kernel} ms/call, twin "
           f"{plain} ms/call (plain, kernel, kernel, plain); best kernel "
           f"{ms:.4f} ms = {cache_bytes / ms / 1e6:.1f} GB/s of cache read, "
-          f"twin {plain_ms:.4f} ms")
-    return ms, plain_ms
+          f"twin {plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{n_bytes / 1e6:.1f} MB), {bound_ms / ms:.3f} of it")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
 
 
 def _bench_model(device, config=BENCH):
@@ -257,20 +325,22 @@ def _bench_model(device, config=BENCH):
 
 
 @torch.inference_mode()
-def phase_model(device, B=BATCH, rows=8, steps=16) -> None:
-    """Teacher-forced prefill + decode steps on the card and on the CPU with
-    the same weights; bf16 logits agree within 2^-4 of their range (8 bf16
-    ulps at the largest logit: cuBLAS and the kernel round at other places
-    than the CPU's matmuls and the twin, over 6 layers)."""
+def phase_model(device, B=BATCH, rows=8, steps=16, config=BENCH,
+                window=WINDOW) -> None:
+    """Teacher-forced prefill + decode steps of the ``config`` model (cache
+    of ``window`` columns, default block_size) on the card and on the CPU
+    with the same weights; bf16 logits agree within 2^-4 of their range (8
+    bf16 ulps at the largest logit: cuBLAS and the kernel round at other
+    places than the CPU's matmuls and the twin, over 6 layers)."""
     from ai_music_generation_tpu_torch.models.gpt import KVCache
 
-    cpu_model, model = _bench_model(device)
+    cpu_model, model = _bench_model(device, config)
     cfg = model.config
     g = torch.Generator().manual_seed(1)
     ids = torch.randint(0, cfg.vocab_size, (B, PROMPT_LEN + steps),
                         generator=g, dtype=torch.int32)
-    caches = (KVCache.create(cfg, B, WINDOW, device=device),
-              KVCache.create(cfg, rows, WINDOW))
+    caches = (KVCache.create(cfg, B, window, device=device),
+              KVCache.create(cfg, rows, window, device="cpu"))
     worst, tol = 0.0, 0.0
     for lo, hi in [(0, PROMPT_LEN)] + [
             (t, t + 1) for t in range(PROMPT_LEN, PROMPT_LEN + steps)]:
@@ -284,8 +354,10 @@ def phase_model(device, B=BATCH, rows=8, steps=16) -> None:
         if not err <= tol:
             raise AssertionError(f"logits differ by {err} > {tol} at {lo}")
         worst = max(worst, err)
-    print(f"model: prefill {PROMPT_LEN} + {steps} decode steps at B={B}, "
-          f"{rows} rows vs CPU: logits max abs err {worst} (tol {tol})")
+    print(f"model (attn_impl={cfg.attn_impl}, n_kv_head={cfg.n_kv_head}, "
+          f"kv_quantized={cfg.kv_quantized}, flat_kv={cfg.flat_kv}): prefill "
+          f"{PROMPT_LEN} + {steps} decode steps at B={B}, {rows} rows vs "
+          f"CPU: logits max abs err {worst} (tol {tol})")
 
 
 @torch.inference_mode()
@@ -463,14 +535,36 @@ def phase_spec_kernel_vs_twin(device, B=BATCH, S=256, H=6, D=64):
     return worst
 
 
+def _spec_work(x, T, n_live, H, write):
+    """(bytes, operations) of one verify call whose every query reads the
+    ``n_live`` history columns and the fresh columns up to its own: reads
+    q, col_pos, lengths, the live K/V columns (the fresh ones from the slab
+    with the write, else from the cache) and their scales; writes out and,
+    with the write, the slab into the cache."""
+    B, S, HD = x["k"].shape
+    D, Tw, item = HD // H, -(-T // 8) * 8, x["k"].element_size()
+    fresh = Tw if write else T
+    n = (2 * x["q"].nbytes + x["col_pos"].nbytes + x["lengths"].nbytes
+         + 2 * B * (n_live + fresh) * HD * item
+         + (2 * B * Tw * HD * item if write else 0))
+    if x["k_scale"] is not None:
+        n += 2 * 2 * B * H * (n_live + T)
+    return n, 4 * B * H * D * (T * n_live + T * (T + 1) // 2)
+
+
 def phase_spec_kernel_timing(S=256, H=6, D=64, B=BATCH):
     """ms per call of K2 and its plain twin (write_slab + the bf16
     reference, what the op runs on the CPU) at B=4096 with an int8 cache:
     a verify step (T=5, cursor S-8, every history column live: the most a
     step reads) and a refresh (T=128 at cursor 0 over an empty history),
-    in the order plain, kernel, kernel, plain; K3 at the verify step.
-    Returns {name: (ms, plain_ms)} at the verify step, and the refresh
-    pair."""
+    in the order plain, kernel, kernel, plain; K3 at the verify step, with
+    the int8 cache and with a bf16 one, where one PyTorch call computes the
+    same function: ``scaled_dot_product_attention`` under the boolean mask
+    built from col_pos beforehand (timed library, kernel, kernel, library).
+    Returns {name: the kernel's JSON numbers}: K2 and K3 (bf16) at the
+    verify step, K2 at the refresh."""
+    import torch.nn.functional as F
+
     from ai_music_generation_tpu_torch.ops.spec_attention import (
         spec_attention, spec_attention_reference, spec_attention_update,
         write_slab,
@@ -479,6 +573,12 @@ def phase_spec_kernel_timing(S=256, H=6, D=64, B=BATCH):
     def plain_update(x):
         write_slab(x["k"], x["v"], x["k_slab"], x["v_slab"], x["cursor"])
         return spec_attention_reference(*[x[n] for n in SPEC_ATT], n_head=H)
+
+    def numbers(kernel, plain, work, library=None):
+        bound_ms, bound_by = bound(*work)
+        return dict(ms=min(kernel), plain_ms=min(plain), bound_ms=bound_ms,
+                    bound_by=bound_by,
+                    library_ms=None if library is None else min(library))
 
     res = {}
     for label, T, cursor, n_live in (("verify", 5, S - 8, S - 8),
@@ -492,27 +592,52 @@ def phase_spec_kernel_timing(S=256, H=6, D=64, B=BATCH):
                     *[x[n] for n in SPEC_UPD], n_head=H), 20))
             else:
                 plain.append(_cuda_ms(lambda: plain_update(x), 5))
-        res[label] = (min(kernel), min(plain))
+        name = "spec_attention_update" if label == "verify" else label
+        res[name] = r = numbers(kernel, plain,
+                                _spec_work(x, T, n_live, H, True))
         read = (2 * B * (n_live + T) * H * D  # live K and V columns
                 + 2 * 2 * B * H * S)  # the bf16 scale rows
         print(f"spec_attention_update {label} (B={B} S={S} T={T} int8, "
               f"{n_live} live history columns): kernel {kernel} ms/call, "
               f"twin {plain} ms/call (plain, kernel, kernel, plain); best "
-              f"kernel {res[label][0]:.4f} ms = "
-              f"{read / res[label][0] / 1e6:.1f} GB/s of cache read, twin "
-              f"{res[label][1]:.4f} ms")
+              f"kernel {r['ms']:.4f} ms = {read / r['ms'] / 1e6:.1f} GB/s "
+              f"of cache read, twin {r['plain_ms']:.4f} ms; bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"{r['bound_ms'] / r['ms']:.3f} of it")
         if label == "verify":
-            k3, p3 = [], []
-            for order in (0, 1, 1, 0):
-                if order:
-                    k3.append(_cuda_ms(lambda: spec_attention(
-                        *[x[n] for n in SPEC_ATT], n_head=H), 20))
-                else:
-                    p3.append(_cuda_ms(lambda: spec_attention_reference(
-                        *[x[n] for n in SPEC_ATT], n_head=H), 5))
-            res["spec_attention"] = (min(k3), min(p3))
-            print(f"spec_attention verify: kernel {k3} ms/call, twin {p3} "
-                  f"ms/call")
+            for quant in (True, False):
+                lib_call = None
+                if not quant:
+                    x = _spec_inputs(False, T, cursor, B, S, H, D, seed=1,
+                                     device="cuda", n_live=n_live)
+                    qv, kv, vv = (x[n].view(B, -1, H, D).transpose(1, 2)
+                                  for n in ("q", "k", "v"))
+                    mask = (x["col_pos"][:, None, None, :] <= (
+                        x["lengths"][:, None] + torch.arange(
+                            T, device="cuda"))[:, None, :, None])
+                    lib_call = lambda: F.scaled_dot_product_attention(  # noqa
+                        qv, kv, vv, attn_mask=mask)
+                k3, p3, lib = [], [], []
+                for order in ("plain", "library", "kernel", "kernel",
+                              "library", "plain"):
+                    if order == "plain":
+                        p3.append(_cuda_ms(lambda: spec_attention_reference(
+                            *[x[n] for n in SPEC_ATT], n_head=H), 5))
+                    elif order == "kernel":
+                        k3.append(_cuda_ms(lambda: spec_attention(
+                            *[x[n] for n in SPEC_ATT], n_head=H), 20))
+                    elif lib_call is not None:
+                        lib.append(_cuda_ms(lib_call, 20))
+                r = numbers(k3, p3, _spec_work(x, T, n_live, H, False),
+                            lib or None)
+                if not quant:
+                    res["spec_attention"] = r
+                print(f"spec_attention verify {'int8' if quant else 'bf16'}"
+                      f": kernel {k3} ms/call, twin {p3} ms/call"
+                      + (f", scaled_dot_product_attention {lib} ms/call"
+                         if lib else "")
+                      + f"; bound {r['bound_ms']:.4f} ms ({r['bound_by']}),"
+                      f" {r['bound_ms'] / r['ms']:.3f} of it")
         del x
     return res
 
@@ -533,7 +658,7 @@ def phase_spec_model(device, B=BATCH, rows=8, verify_steps=4):
     cfg = model.config
     g = torch.Generator().manual_seed(3)
     caches = (KVCache.create(cfg, B, device=device, spec=True),
-              KVCache.create(cfg, rows, spec=True))
+              KVCache.create(cfg, rows, device="cpu", spec=True))
     T = N_DRAFT + 1
     worst, tol = 0.0, 0.0
     for n in [PROMPT_LEN - 1] + [T] * verify_steps + ["refresh", 128]:
@@ -710,55 +835,450 @@ def phase_spec_throughput(gen, prompts):
     return tok_s
 
 
-def main() -> int:
+def _prefix_inputs(B, S, H, D, length, cache_dtype, seed=0, device="cpu"):
+    """Operands of one valid-prefix decode call, made on ``device`` from a
+    seed: q [B, HD] and the K/V cache [B, S, HD] in bf16 (K4), or bf16 q,
+    an int8 cache and fp32 per-position scales [B, S] (K5, K6); every column
+    from ``length`` on poisoned: NaN in the bf16 cache, int8 127 and scales
+    1e4 in the int8 one (tests/test_decode_attention_int8.py:47-51).
+    Returns (q, k, v, k_scale, v_scale, length tensor)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    kw = dict(generator=g, device=device)
+    HD = H * D
+    q = torch.randn((B, HD), **kw).to(torch.bfloat16)
+    n = torch.tensor(length, dtype=torch.int32, device=device)
+    if cache_dtype == torch.int8:
+        k, v = (torch.randint(-127, 128, (B, S, HD), dtype=torch.int8, **kw)
+                for _ in range(2))
+        k_scale, v_scale = (torch.rand((B, S), **kw) * 0.02 + 0.002
+                            for _ in range(2))
+        k[:, length:], v[:, length:] = 127, 127
+        k_scale[:, length:], v_scale[:, length:] = 1e4, 1e4
+        return q, k, v, k_scale, v_scale, n
+    k, v = (torch.randn((B, S, HD), **kw).to(torch.bfloat16)
+            for _ in range(2))
+    k[:, length:], v[:, length:] = float("nan"), float("nan")
+    return q, k, v, None, None, n
+
+
+def _check_close(out, ref, what):
+    """The kernel yardstick: finite, and within one bf16 ulp of the range
+    (2^-7 of the largest value) of the twin evaluated in fp32. Returns the
+    error."""
+    out = out.float()
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"non-finite output: {what}")
+    err = (out - ref).abs().max().item()
+    tol = 2.0 ** -7 * ref.abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"{what}: differs from the fp32 twin by {err} > "
+                             f"{tol}")
+    return err
+
+
+def phase_prefix_kernel_vs_twin(device, B=BATCH, S=256, H=6, D=64,
+                                lengths=(1, 63, 64, 100, 255, 256)):
+    """K4 against its twin evaluated in fp32 (q and the cache upcast
+    exactly; TF32 off) at B=4096 and B=3, with every column from the length
+    on NaN-poisoned. Returns the largest error."""
+    from ai_music_generation_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_reference,
+    )
+
+    worst = 0.0
+    for b in (B, 3):
+        for length in lengths:
+            q, k, v, _, _, n = _prefix_inputs(b, S, H, D, length,
+                                              torch.bfloat16, seed=length,
+                                              device=device)
+            out = decode_attention(q, k, v, n, n_head=H)
+            ref = decode_attention_reference(q.float(), k.float(), v.float(),
+                                             n, n_head=H)
+            worst = max(worst, _check_close(
+                out, ref, f"decode_attention B={b} length={length}"))
+            del q, k, v, out, ref
+    print(f"decode_attention vs twin: B={B} and B=3, S={S}, H={H}, D={D}, "
+          f"bf16, lengths {list(lengths)}, NaN past the length: finite, max "
+          f"abs err {worst} vs the fp32 twin")
+    return worst
+
+
+def _prefix_work(q, k, k_scale, L):
+    """(bytes, operations) of one valid-prefix call over L live columns:
+    reads q, L columns of K and V and their scales; writes out."""
+    B, S, HD = k.shape
+    n = 2 * q.nbytes + 2 * B * L * HD * k.element_size()
+    if k_scale is not None:
+        n += 2 * B * L * k_scale.element_size()
+    return n, 4 * B * L * HD
+
+
+def phase_prefix_kernel_timing(B=BATCH, S=256, H=6, D=64, lengths=(128, 256)):
+    """ms per call of K4, its plain twin, and the one PyTorch call that
+    computes the same function (``scaled_dot_product_attention`` on the
+    length-L prefix views) at the path's shape, B=4096 bf16, in the order
+    plain, kernel, library, library, kernel, plain. The K+V prefix (0.8-1.6
+    GB) exceeds the 50 MB L2, so every call reads it from device memory, as
+    the decode loop does. Returns {L: the kernel's JSON numbers}."""
+    import torch.nn.functional as F
+
+    from ai_music_generation_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_reference,
+    )
+
+    res = {}
+    for L in lengths:
+        q, k, v, _, _, n = _prefix_inputs(B, S, H, D, L, torch.bfloat16,
+                                          seed=7, device="cuda")
+        q4 = q.view(B, H, 1, D)
+        k4, v4 = (t[:, :L].view(B, L, H, D).transpose(1, 2) for t in (k, v))
+        times = {"plain": [], "kernel": [], "library": []}
+        for order in ("plain", "kernel", "library", "library", "kernel",
+                      "plain"):
+            fn = {"plain": lambda: decode_attention_reference(
+                      q, k, v, n, n_head=H),
+                  "kernel": lambda: decode_attention(q, k, v, n, n_head=H),
+                  "library": lambda: F.scaled_dot_product_attention(
+                      q4, k4, v4)}[order]
+            times[order].append(_cuda_ms(fn, 5 if order == "plain" else 50))
+        bound_ms, bound_by = bound(*_prefix_work(q, k, None, L))
+        res[L] = r = dict(ms=min(times["kernel"]),
+                          plain_ms=min(times["plain"]), bound_ms=bound_ms,
+                          bound_by=bound_by,
+                          library_ms=min(times["library"]))
+        print(f"decode_attention at B={B} S={S} length {L} bf16: kernel "
+              f"{times['kernel']} ms/call, twin {times['plain']}, "
+              f"scaled_dot_product_attention {times['library']} (plain, "
+              f"kernel, library, library, kernel, plain); bound "
+              f"{bound_ms:.4f} ms ({bound_by}), kernel at "
+              f"{bound_ms / r['ms']:.3f} of it, library at "
+              f"{bound_ms / r['library_ms']:.3f}")
+        del q, k, v, q4, k4, v4
+    return res
+
+
+@torch.inference_mode()
+def phase_pallas_main_path(device, B=BATCH, max_new=MAX_NEW):
+    """The attn_impl="pallas" path through Generator at its default window
+    (256): two same-seed generates, checked, each with exactly n_layer *
+    max_new K4 launches and no K1 launch on the card (none of either on
+    the CPU, where the twins run). Returns (generator, prompts, K4
+    launches per generate)."""
+    from ai_music_generation_tpu_torch.decode.generate import Generator
+    from ai_music_generation_tpu_torch.ops.decode_attention import (
+        decode_attention,
+    )
+    from ai_music_generation_tpu_torch.ops.gqa_decode import gqa_decode_update
+
+    _, model = _bench_model(device, PALLAS)
+    cfg = model.config
+    gen = Generator(model, max_new_tokens=max_new, temperature=0.8,
+                    top_k=200)
+    prompts = torch.randint(0, cfg.vocab_size, (B, PROMPT_LEN),
+                            generator=torch.Generator().manual_seed(5),
+                            dtype=torch.int32)
+    runs = []
+    for _ in range(2):
+        decode_attention.launches = gqa_decode_update.launches = 0
+        out = gen.generate(prompts, seed=1234)
+        _sync(device)
+        runs.append((out.cpu(), (decode_attention.launches,
+                                 gqa_decode_update.launches)))
+    (out, launches), (again, launches2) = runs
+    if out.shape != (B, PROMPT_LEN + max_new):
+        raise AssertionError(f"output shape {tuple(out.shape)}")
+    if not torch.equal(out[:, :PROMPT_LEN], prompts):
+        raise AssertionError("prompts not preserved")
+    if not ((out >= 0) & (out < cfg.vocab_size)).all():
+        raise AssertionError("token out of range")
+    if not torch.equal(out, again):
+        raise AssertionError("same seed gave different tokens")
+    cuda = torch.device(device).type == "cuda"
+    want = (cfg.n_layer * max_new if cuda else 0, 0)
+    if not launches == launches2 == want:
+        raise AssertionError(f"(K4, K1) launches per generate {launches}, "
+                             f"{launches2} != {want}")
+    print(f"pallas main path: generate [{B}, {PROMPT_LEN}] -> "
+          f"{tuple(out.shape)} at window {gen.window}, prompts kept, tokens "
+          f"in range, same seed identical, {launches[0]} K4 launches and "
+          f"{launches[1]} K1 launches per generate")
+    return gen, prompts, launches[0]
+
+
+@torch.inference_mode()
+def phase_pallas_throughput(gen, prompts):
+    """Tokens/s and peak memory of the pallas path (K4) beside the same
+    weights with attn_impl="xla" (K1 at MHA bf16), one generate each in the
+    order xla, pallas, pallas, xla after an xla warm-up (the pallas path is
+    warm from its main-path runs). Printed, not gated."""
+    from ai_music_generation_tpu_torch.decode.generate import Generator
+    from ai_music_generation_tpu_torch.models.gpt import GPT, GPTConfig
+
+    xla_model = GPT(GPTConfig(**dict(PALLAS, attn_impl="xla")))
+    xla_model.load_state_dict(gen.model.state_dict())
+    device = gen.model.transformer.wte.weight.device
+    xla = Generator(xla_model.to(device).eval(),
+                    max_new_tokens=gen.max_new_tokens, temperature=0.8,
+                    top_k=200)
+    xla.generate(prompts, seed=99)
+    seconds = {"xla": [], "pallas": []}
+    peak = {}
+    for i, name in enumerate(("xla", "pallas", "pallas", "xla")):
+        g = xla if name == "xla" else gen
+        torch.cuda.reset_peak_memory_stats()
+        seconds[name].append(_event_seconds(
+            lambda: g.generate(prompts, seed=3000 + i)))
+        peak[name] = torch.cuda.max_memory_allocated() / 2**30
+    n = prompts.shape[0] * gen.max_new_tokens
+    tok_s = {k: n / (sum(v) / len(v)) for k, v in seconds.items()}
+    print(f"pallas path at B={prompts.shape[0]}, {gen.max_new_tokens} new "
+          f"tokens, window {gen.window}: {tok_s['pallas']:.1f} tok/s "
+          f"(generates {seconds['pallas']} s, peak {peak['pallas']:.2f} "
+          f"GiB) vs attn_impl=xla (K1) {tok_s['xla']:.1f} tok/s "
+          f"({seconds['xla']} s, peak {peak['xla']:.2f} GiB); pallas/xla "
+          f"{tok_s['pallas'] / tok_s['xla']:.3f}")
+    return tok_s
+
+
+INT8_VARIANTS = (("decode_attention_int8", 1),
+                 ("decode_attention_int8_multirow", 1),
+                 ("decode_attention_int8_multirow", 8))
+
+
+def _int8_call(name, rows, q, k, v, k_scale, v_scale, n, H):
+    from ai_music_generation_tpu_torch.ops import decode_attention_int8 as ops
+
+    if name == "decode_attention_int8":
+        B, S = k_scale.shape
+        return ops.decode_attention_int8(
+            q, k, v, k_scale.view(B, 1, S), v_scale.view(B, 1, S), n,
+            n_head=H)
+    return ops.decode_attention_int8_multirow(q, k, v, k_scale, v_scale, n,
+                                              n_head=H, rows_per_program=rows)
+
+
+def phase_int8_kernel_vs_twin(device, B=BATCH, S=256, H=6, D=64,
+                              lengths=(1, 127, 128, 200, 256)):
+    """K5 and K6 (R = 1 and 8) against their twin evaluated in fp32 (q
+    upcast exactly) at B=4096 and B=16, every column from the length on
+    poisoned (int8 127, scales 1e4). Returns the largest error of each."""
+    from ai_music_generation_tpu_torch.ops.decode_attention_int8 import (
+        decode_attention_int8_reference,
+    )
+
+    worst = {name: 0.0 for name, _ in INT8_VARIANTS}
+    for b in (B, 16):
+        for length in lengths:
+            x = _prefix_inputs(b, S, H, D, length, torch.int8, seed=length,
+                               device=device)
+            ref = decode_attention_int8_reference(x[0].float(), *x[1:],
+                                                  n_head=H)
+            for name, rows in INT8_VARIANTS:
+                out = _int8_call(name, rows, *x, H)
+                worst[name] = max(worst[name], _check_close(
+                    out, ref, f"{name} R={rows} B={b} length={length}"))
+            del x, ref, out
+    print(f"int8 decode attention vs twin: K5 and K6 (R 1, 8) at B={B} and "
+          f"B=16, S={S}, lengths {list(lengths)}, poisoned past the length: "
+          f"finite, max abs err vs the fp32 twin {worst}")
+    return worst
+
+
+def phase_int8_kernel_timing(B=BATCH, S=256, H=6, D=64, L=256):
+    """ms per call of K5, K6 (R=8, the JAX default; the kernel launches one
+    block per (row, head) whatever R is) and their plain twin at B=4096,
+    every column live, in the order plain, K5, K6, K6, K5, plain. No one
+    PyTorch call dequantizes a per-position int8 cache, so there is no
+    library time. Returns {name: the kernel's JSON numbers}."""
+    from ai_music_generation_tpu_torch.ops.decode_attention_int8 import (
+        decode_attention_int8_reference,
+    )
+
+    x = _prefix_inputs(B, S, H, D, L, torch.int8, seed=8, device="cuda")
+    variants = (("decode_attention_int8", 1),
+                ("decode_attention_int8_multirow", 8))
+    order = [None, *variants, *variants[::-1], None]
+    times = {v: [] for v in order}
+    for v in order:
+        if v is None:
+            times[v].append(_cuda_ms(lambda: decode_attention_int8_reference(
+                *x, n_head=H), 5))
+        else:
+            times[v].append(_cuda_ms(lambda: _int8_call(*v, *x, H), 50))
+    bound_ms, bound_by = bound(*_prefix_work(x[0], x[1], x[3], L))
+    plain_ms = min(times[None])
+    res = {}
+    for name, rows in variants:
+        ms = min(times[(name, rows)])
+        print(f"{name} R={rows} at B={B} S={S} length {L} int8: kernel "
+              f"{times[(name, rows)]} ms/call, twin {times[None]}; bound "
+              f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.3f} of it")
+        res[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None)
+    return res
+
+
+@torch.inference_mode()
+def phase_profile(B=BATCH, max_new=MAX_NEW, top=12) -> None:
+    """One generate of the pallas path (phase 12's protocol) under
+    ``torch.profiler`` (CPU and CUDA activities) after a warm-up and an
+    unprofiled generate timed with CUDA events: device self time by kernel,
+    summed only over entries whose device type is not the CPU (a CPU op's
+    entry repeats its kernels' device time), and the device's busy share of
+    the profiled wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ai_music_generation_tpu_torch.decode.generate import Generator
+
+    _, model = _bench_model("cuda", PALLAS)
+    gen = Generator(model, max_new_tokens=max_new, temperature=0.8,
+                    top_k=200)
+    prompts = torch.randint(0, model.config.vocab_size, (B, PROMPT_LEN),
+                            generator=torch.Generator().manual_seed(6),
+                            dtype=torch.int32)
+    gen.generate(prompts, seed=1)
+    wall = _event_seconds(lambda: gen.generate(prompts, seed=2))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gen.generate(prompts, seed=3)
+        torch.cuda.synchronize()
+        profiled = time.perf_counter() - t0
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type != DeviceType.CPU
+                   and e.self_device_time_total > 0), reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    print(f"profile pallas: B={B}, {max_new} new tokens, window "
+          f"{gen.window}; unprofiled generate {wall:.3f} s, profiled "
+          f"{profiled:.3f} s; device busy {busy_ms:.1f} ms = "
+          f"{busy_ms / 1e3 / profiled:.3f} of the profiled wall, "
+          f"{busy_ms / 1e3 / wall:.3f} of the unprofiled one")
+    for ms, count, key in rows[:top]:
+        print(f"  {ms:10.1f} ms {count:7d} calls  {ms / count:.4f} ms/call  "
+              f"{key[:90]}")
+
+
+def _counted_ops() -> dict:
+    """Every kernel wrapper of the port by name; each counts its launches."""
+    from ai_music_generation_tpu_torch.ops import decode_attention_int8 as i8
+    from ai_music_generation_tpu_torch.ops.decode_attention import (
+        decode_attention,
+    )
+    from ai_music_generation_tpu_torch.ops.gqa_decode import gqa_decode_update
+    from ai_music_generation_tpu_torch.ops.spec_attention import (
+        spec_attention, spec_attention_update,
+    )
+
+    return {f.__name__: f for f in (
+        gqa_decode_update, spec_attention_update, spec_attention,
+        decode_attention, i8.decode_attention_int8,
+        i8.decode_attention_int8_multirow)}
+
+
+def _main_path(phase, *args):
+    """Run a main-path phase with every kernel's launch count set to 0 just
+    before it; returns the phase's result and the counts just after."""
+    ops = _counted_ops()
+    for f in ops.values():
+        f.launches = 0
+    result = phase(*args)
+    return result, {name: f.launches for name, f in ops.items()}
+
+
+def _entry(name, source, replaces, launches, err, numbers, **extra):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches, max_abs_err=err, **numbers, **extra)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="only build, then profile one generate of the "
+                             "pallas path (no checks, no JSON result)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
         return 1
     card = phase_environment()
     phase_build()
+    if args.profile:
+        phase_profile()
+        return 0
     err = phase_kernel_vs_twin("cuda")
-    ms, plain_ms = phase_kernel_timing()
+    k1 = phase_kernel_timing()
     phase_model("cuda")
-    gen, prompts, launches = phase_main_path("cuda")
+    (gen, prompts, launches), on_path = _main_path(phase_main_path,
+                                                   "cuda")
     tok_s = phase_throughput(gen, prompts)
     print(f"[{card}] decode {tok_s:.1f} tokens/s at batch {BATCH}, "
           f"{MAX_NEW} new tokens, window {WINDOW}; gqa_decode kernel "
-          f"{ms:.4f} ms/call, plain twin {plain_ms:.4f} ms/call")
-    kernels = [{
-        "name": "gqa_decode_update", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms}]
+          f"{k1['ms']:.4f} ms/call, plain twin {k1['plain_ms']:.4f} ms/call")
+    kernels = [_entry("gqa_decode_update", KERNEL_SOURCE, KERNEL_REPLACES,
+                      launches, err, k1)]
     del gen, prompts
     torch.cuda.empty_cache()
 
-    from ai_music_generation_tpu_torch.ops.spec_attention import (
-        spec_attention,
-    )
-
-    spec_attention.launches = 0
+    ops = _counted_ops()
+    ops["spec_attention"].launches = 0
     spec_err = phase_spec_kernel_vs_twin("cuda")
-    k3_launches = spec_attention.launches
+    k3_checks = ops["spec_attention"].launches
     spec_ms = phase_spec_kernel_timing()
     phase_spec_model("cuda")
-    gen, prompts, spec_launches, n_steps, per_step = phase_spec_main_path(
-        "cuda")
+    (gen, prompts, spec_launches, n_steps, per_step), counts = _main_path(
+        phase_spec_main_path, "cuda")
+    on_path = {k: n + counts[k] for k, n in on_path.items()}
     spec_tok_s = phase_spec_throughput(gen, prompts)
+    verify, refresh = spec_ms["spec_attention_update"], spec_ms["refresh"]
     print(f"[{card}] spec decode {spec_tok_s['spec']:.1f} tokens/s "
           f"({per_step:.3f} committed tokens per step, {n_steps} steps) vs "
           f"plain {spec_tok_s['plain']:.1f} tokens/s on the SPEC model; "
-          f"spec_attention_update {spec_ms['verify'][0]:.4f} ms/call at T=5 "
-          f"(twin {spec_ms['verify'][1]:.4f}), {spec_ms['refresh'][0]:.4f} "
-          f"ms at T=128 (twin {spec_ms['refresh'][1]:.4f})")
-    for name, n in (("spec_attention_update", spec_launches),
-                    ("spec_attention", k3_launches)):
-        key = "verify" if name == "spec_attention_update" else name
-        kernels.append({
-            "name": name, "route": "cuda", "source": SPEC_SOURCE,
-            "replaces": SPEC_REPLACES[name], "launches": n,
-            "max_abs_err": spec_err[name], "ms": spec_ms[key][0],
-            "plain_ms": spec_ms[key][1]})
+          f"spec_attention_update {verify['ms']:.4f} ms/call at T=5 "
+          f"(twin {verify['plain_ms']:.4f}), {refresh['ms']:.4f} ms at "
+          f"T=128 (twin {refresh['plain_ms']:.4f})")
+    kernels.append(_entry("spec_attention_update", SPEC_SOURCE,
+                          SPEC_REPLACES["spec_attention_update"],
+                          spec_launches, spec_err["spec_attention_update"],
+                          verify))
+    del gen, prompts
+    torch.cuda.empty_cache()
+
+    k4_err = phase_prefix_kernel_vs_twin("cuda")
+    k4 = phase_prefix_kernel_timing()
+    phase_model("cuda", config=PALLAS, window=None)
+    (gen, prompts, k4_launches), counts = _main_path(phase_pallas_main_path,
+                                                     "cuda")
+    on_path = {k: n + counts[k] for k, n in on_path.items()}
+    pallas_tok_s = phase_pallas_throughput(gen, prompts)
+    print(f"[{card}] pallas decode {pallas_tok_s['pallas']:.1f} tokens/s vs "
+          f"xla (K1) {pallas_tok_s['xla']:.1f} tokens/s at batch {BATCH}, "
+          f"{MAX_NEW} new tokens, window 256; decode_attention "
+          f"{k4[128]['ms']:.4f} ms/call at length 128, {k4[256]['ms']:.4f} "
+          f"at 256")
+    kernels.append(_entry("decode_attention", PREFIX_SOURCE,
+                          PREFIX_REPLACES["decode_attention"], k4_launches,
+                          k4_err, k4[256]))
+    del gen, prompts
+    torch.cuda.empty_cache()
+
+    ops["decode_attention_int8"].launches = 0
+    ops["decode_attention_int8_multirow"].launches = 0
+    int8_err = phase_int8_kernel_vs_twin("cuda")
+    int8_checks = {name: ops[name].launches for name in int8_err}
+    int8_ms = phase_int8_kernel_timing()
+    # K3, K5 and K6 have no caller on any path: their launches are the sum
+    # of their counts over the three main paths (phases 5, 8 and 12)
+    kernels.append(_entry("spec_attention", SPEC_SOURCE,
+                          SPEC_REPLACES["spec_attention"],
+                          on_path["spec_attention"],
+                          spec_err["spec_attention"],
+                          spec_ms["spec_attention"], check_launches=k3_checks))
+    for name in int8_err:
+        kernels.append(_entry(name, PREFIX_SOURCE, PREFIX_REPLACES[name],
+                              on_path[name], int8_err[name], int8_ms[name],
+                              check_launches=int8_checks[name]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

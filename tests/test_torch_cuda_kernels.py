@@ -13,6 +13,7 @@ import dataclasses
 import pytest
 import torch
 
+from ai_music_generation_tpu_torch.decode.generate import Generator
 from ai_music_generation_tpu_torch.decode.speculative import (
     SpecGenerator,
     keep_committed,
@@ -20,6 +21,15 @@ from ai_music_generation_tpu_torch.decode.speculative import (
 )
 from ai_music_generation_tpu_torch.models.convert import init_weights
 from ai_music_generation_tpu_torch.models.gpt import GPT, GPTConfig, KVCache
+from ai_music_generation_tpu_torch.ops.decode_attention import (
+    decode_attention,
+    decode_attention_reference,
+)
+from ai_music_generation_tpu_torch.ops.decode_attention_int8 import (
+    decode_attention_int8,
+    decode_attention_int8_multirow,
+    decode_attention_int8_reference,
+)
 from ai_music_generation_tpu_torch.ops.gqa_decode import (
     gqa_decode_reference,
     gqa_decode_update,
@@ -128,7 +138,8 @@ def test_model_decode_on_cuda_matches_cpu(cuda, variant):
     gpu_model.load_state_dict(cpu_model.state_dict())
     ids = torch.randint(0, 128, (16, 20), dtype=torch.int32,
                         generator=torch.Generator().manual_seed(1))
-    caches = KVCache.create(cfg, 16, device=cuda), KVCache.create(cfg, 16)
+    caches = (KVCache.create(cfg, 16, device=cuda),
+              KVCache.create(cfg, 16, device="cpu"))
     before = gqa_decode_update.launches
     with torch.inference_mode():
         for lo, hi in [(0, 8)] + [(t, t + 1) for t in range(8, 20)]:
@@ -290,7 +301,7 @@ def test_spec_model_on_cuda_matches_cpu(cuda, quant):
     g = torch.Generator().manual_seed(1)
     B = 16
     caches = (KVCache.create(cfg, B, device=cuda, spec=True),
-              KVCache.create(cfg, B, spec=True))
+              KVCache.create(cfg, B, device="cpu", spec=True))
     calls = [7, 5, 5, 5, "refresh", 32]
     before = spec_attention_update.launches
     with torch.inference_mode():
@@ -336,3 +347,165 @@ def test_spec_generator_on_cuda_goes_through_the_kernel(cuda):
     assert out.shape == (32, 108) and torch.equal(out[:, :8].cpu(), prompts)
     assert calls[0] == 7 and calls.count(5) == n_steps
     assert spec_attention_update.launches - before == cfg.n_layer * len(calls)
+
+
+def _prefix_inputs(B, S, H, D, length, cache_dtype, seed=0):
+    """CPU operands of one valid-prefix decode call (K4: q and cache in
+    ``cache_dtype``; int8: bf16 q, int8 cache, fp32 scales [B, S]), every
+    column from ``length`` on poisoned: NaN in the float cache, 127 and NaN
+    scales in the int8 one. Returns (q, k, v, k_scale, v_scale)."""
+    g = torch.Generator().manual_seed(seed)
+    HD = H * D
+    if cache_dtype == torch.int8:
+        k, v = (torch.randint(-127, 128, (B, S, HD), generator=g,
+                              dtype=torch.int8) for _ in range(2))
+        k_scale, v_scale = (torch.rand((B, S), generator=g) * 0.02 + 0.002
+                            for _ in range(2))
+        k[:, length:], v[:, length:] = 127, 127
+        k_scale[:, length:], v_scale[:, length:] = float("nan"), float("nan")
+        return (torch.randn((B, HD), generator=g).to(torch.bfloat16), k, v,
+                k_scale, v_scale)
+    q, k, v = (torch.randn(shape, generator=g).to(cache_dtype)
+               for shape in ((B, HD), (B, S, HD), (B, S, HD)))
+    k[:, length:], v[:, length:] = float("nan"), float("nan")
+    return q, k, v, None, None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_decode_attention_kernel_matches_twin(cuda, dtype):
+    """K4 against the twin evaluated in fp32 (inputs upcast exactly): finite
+    with a NaN-poisoned tail, within one bf16 ulp of the output's range
+    (2^-7) in bf16, 1e-5 of it in fp32."""
+    for B, S, H, D in ((3, 256, 6, 64), (256, 256, 6, 64), (5, 40, 2, 16),
+                       (4, 96, 3, 128), (2, 64, 4, 32)):
+        for length in (1, 7, 63, 64, 100, S - 1, S, S + 9):
+            L = min(length, S)
+            q, k, v, _, _ = _prefix_inputs(B, S, H, D, L, dtype, seed=length)
+            n = torch.tensor(length, dtype=torch.int32, device=cuda)
+            before = decode_attention.launches
+            out = decode_attention(q.to(cuda), k.to(cuda), v.to(cuda), n,
+                                   n_head=H)
+            assert decode_attention.launches == before + 1
+            torch.cuda.synchronize()
+            ref = decode_attention_reference(q.float(), k.float(), v.float(),
+                                             length, n_head=H)
+            out = out.float().cpu()
+            assert out.dtype == ref.dtype and torch.isfinite(out).all()
+            tol = (2.0 ** -7 if dtype == torch.bfloat16 else 1e-5) \
+                * ref.abs().max()
+            assert (out - ref).abs().max() <= tol, (B, S, H, D, length)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["k5", "k6-r1", "k6-r8"])
+def test_decode_attention_int8_kernels_match_twin(cuda, variant):
+    """K5 and K6 against the twin evaluated in fp32 (q upcast exactly):
+    finite with 127s and NaN scales past ``length``, within one bf16 ulp of
+    the output's range."""
+    for B, S, H, D in ((16, 256, 6, 64), (256, 256, 6, 64), (8, 48, 2, 16),
+                       (8, 64, 3, 128)):
+        for length in (1, 15, 127, 128, 200, S):
+            L = min(length, S)
+            q, k, v, ks, vs = _prefix_inputs(B, S, H, D, L, torch.int8,
+                                             seed=length)
+            dev = [t.to(cuda) for t in (q, k, v, ks, vs)]
+            n = torch.tensor(length, dtype=torch.int32, device=cuda)
+            if variant == "k5":
+                fn = decode_attention_int8
+                out = fn(*dev[:3], dev[3].reshape(B, 1, S),
+                         dev[4].reshape(B, 1, S), n, n_head=H)
+            else:
+                fn = decode_attention_int8_multirow
+                rows = int(variant[-1])
+                before = fn.launches
+                out = fn(*dev, n, n_head=H, rows_per_program=rows)
+                assert fn.launches == before + 1
+            torch.cuda.synchronize()
+            ref = decode_attention_int8_reference(q.float(), k, v, ks, vs,
+                                                  length, n_head=H)
+            out = out.float().cpu()
+            assert torch.isfinite(out).all()
+            assert (out - ref).abs().max() <= 2.0 ** -7 * ref.abs().max(), (
+                B, S, H, D, length)
+
+
+@pytest.mark.cuda
+def test_decode_attention_kernels_refuse_what_they_cannot_take(cuda):
+    q, k, v, _, _ = (None if t is None else t.to(cuda)
+                     for t in _prefix_inputs(4, 32, 6, 64, 32, torch.bfloat16))
+    n = torch.tensor(32, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        decode_attention(q.half(), k.half(), v.half(), n, n_head=6)
+    with pytest.raises(ValueError, match="k must be"):
+        decode_attention(q, k.float(), v, n, n_head=6)
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_attention(q, k.transpose(0, 1).contiguous().transpose(0, 1),
+                         v, n, n_head=6)
+    with pytest.raises(ValueError, match="length must be"):
+        decode_attention(q, k, v, n.long(), n_head=6)
+    with pytest.raises(ValueError, match="length must be a tensor"):
+        decode_attention(q, k, v, 32, n_head=6)
+    with pytest.raises(ValueError, match="head size"):
+        decode_attention(q, k, v, n, n_head=4)  # D = 96
+    with pytest.raises(ValueError, match="16-byte"):
+        k_off = torch.empty(k.numel() + 1, dtype=k.dtype,
+                            device=cuda)[1:].view(k.shape)
+        decode_attention(q, k_off, v, n, n_head=6)
+    q8, k8, v8, ks, vs = (t.to(cuda) for t in
+                          _prefix_inputs(6, 32, 6, 64, 32, torch.int8))
+    with pytest.raises(ValueError, match="k_scale must be"):
+        decode_attention_int8(q8, k8, v8, ks, vs, n, n_head=6)  # [B, S]
+    with pytest.raises(ValueError, match="must divide batch"):
+        decode_attention_int8_multirow(q8, k8, v8, ks, vs, n, n_head=6,
+                                       rows_per_program=4)
+    with pytest.raises(ValueError, match="q must be"):
+        decode_attention_int8_multirow(q8.float(), k8, v8, ks, vs, n,
+                                       n_head=6, rows_per_program=2)
+
+
+PALLAS_SMALL = dict(block_size=64, vocab_size=128, n_layer=2, n_head=6,
+                    n_embd=384, bias=False, attn_impl="pallas")
+
+
+@pytest.mark.cuda
+def test_pallas_model_on_cuda_matches_cpu(cuda):
+    """The attn_impl="pallas" model (MHA, bf16 cache) at the bench widths,
+    2 layers: prefill + 12 decode steps, bf16 logits on the card within 2^-4
+    of their range of the CPU's; every step launches K4 once per layer and
+    K1 never."""
+    cfg = GPTConfig(**PALLAS_SMALL)
+    cpu_model = init_weights(GPT(cfg), torch.Generator().manual_seed(0))
+    gpu_model = GPT(dataclasses.replace(cfg)).to(cuda)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    ids = torch.randint(0, 128, (16, 20), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(1))
+    caches = (KVCache.create(cfg, 16, device=cuda),
+              KVCache.create(cfg, 16, device="cpu"))
+    k4, k1 = decode_attention.launches, gqa_decode_update.launches
+    with torch.inference_mode():
+        for lo, hi in [(0, 8)] + [(t, t + 1) for t in range(8, 20)]:
+            got, _ = gpu_model(ids[:, lo:hi].to(cuda), cache=caches[0])
+            want, _ = cpu_model(ids[:, lo:hi], cache=caches[1])
+            want = want.float()
+            err = (got.float().cpu() - want).abs().max()
+            assert err <= 2.0 ** -4 * want.abs().max(), (lo, err)
+    assert decode_attention.launches - k4 == cfg.n_layer * 12
+    assert gqa_decode_update.launches == k1
+
+
+@pytest.mark.cuda
+def test_pallas_generator_on_cuda_launches_k4_only(cuda):
+    """A Generator run (window 64: 56 steps, a refresh, 32 steps, a refresh,
+    12 steps) launches K4 n_layer x 100 times and K1 none."""
+    model = init_weights(GPT(GPTConfig(**PALLAS_SMALL)),
+                         torch.Generator().manual_seed(0)).to(cuda).eval()
+    prompts = torch.randint(0, 128, (32, 8), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(2))
+    k4, k1 = decode_attention.launches, gqa_decode_update.launches
+    out = Generator(model, max_new_tokens=100).generate(prompts, seed=3)
+    torch.cuda.synchronize()
+    assert out.shape == (32, 108) and torch.equal(out[:, :8].cpu(), prompts)
+    assert decode_attention.launches - k4 == 2 * 100
+    assert gqa_decode_update.launches == k1

@@ -117,7 +117,7 @@ def test_cached_decode_matches_jax(jax_params, quant):
     model = _port(kh, params)
     idx = _ids((3, 16), seed=1)
     jcache = JaxKVCache.create(jcfg, 3)
-    cache = KVCache.create(cfg, 3)
+    cache = KVCache.create(cfg, 3, device="cpu")
     for lo, hi in [(0, 8)] + [(t, t + 1) for t in range(8, 16)]:
         want, _, jcache = step(params, idx[:, lo:hi], jcache)
         with torch.no_grad():
@@ -135,13 +135,28 @@ def test_cached_decode_matches_own_full_forward(jax_params):
     idx = torch.from_numpy(_ids((2, 10), seed=2))
     with torch.no_grad():
         full, _ = model(idx)
-        cache = KVCache.create(model.config, 2)
+        cache = KVCache.create(model.config, 2, device="cpu")
         assert cache.k[0].dtype == torch.float32
         logits, cache = model(idx[:, :6], cache=cache)
         for t in range(6, 10):
             logits, cache = model(idx[:, t:t + 1], cache=cache)
     torch.testing.assert_close(logits, full, rtol=1e-5, atol=1e-5)
     assert int(cache.length) == 10
+
+
+def test_kv_cache_defaults_to_the_card(monkeypatch):
+    """With no device, KVCache.create allocates on the card (the JAX cache
+    lands on the accelerator); with no card it raises, never falling back
+    to the CPU."""
+    _, cfg = _configs("kh2")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        KVCache.create(cfg, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        KVCache.create(dataclasses.replace(cfg, n_kv_head=None), 2, spec=True)
+    cache = KVCache.create(cfg, 2, device="cpu")
+    assert all(t.device.type == "cpu" for t in cache.k + cache.v)
+    assert cache.length.device.type == "cpu"
 
 
 def test_num_params_matches_jax(jax_params):

@@ -20,6 +20,8 @@ MODULES = [
     "ai_music_generation_tpu_torch.models.convert",
     "ai_music_generation_tpu_torch.models.gpt",
     "ai_music_generation_tpu_torch.ops._build",
+    "ai_music_generation_tpu_torch.ops.decode_attention",
+    "ai_music_generation_tpu_torch.ops.decode_attention_int8",
     "ai_music_generation_tpu_torch.ops.gqa_decode",
     "ai_music_generation_tpu_torch.ops.spec_attention",
 ]
@@ -49,7 +51,8 @@ def test_port_imports_without_triton_or_nvcc():
         "import importlib, sys\n"
         "sys.modules['triton'] = None  # any import of triton raises\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
-        "import torch\n"
+        "import dataclasses, torch\n"
+        "from ai_music_generation_tpu_torch.decode.generate import Generator\n"
         "from ai_music_generation_tpu_torch.models.gpt import GPT, GPTConfig\n"
         "from ai_music_generation_tpu_torch.ops import _build\n"
         "from ai_music_generation_tpu_torch.ops.gqa_decode import "
@@ -58,14 +61,19 @@ def test_port_imports_without_triton_or_nvcc():
         "SpecGenerator\n"
         "from ai_music_generation_tpu_torch.ops.spec_attention import "
         "spec_attention_update\n"
+        "from ai_music_generation_tpu_torch.ops.decode_attention import "
+        "decode_attention\n"
         "cfg = GPTConfig(block_size=16, vocab_size=16, n_layer=1, n_head=2, "
         "n_embd=32)\n"
         "GPT(cfg)(torch.zeros((1, 4), dtype=torch.int32))\n"
+        "Generator(GPT(dataclasses.replace(cfg, attn_impl='pallas')), "
+        "max_new_tokens=4).generate([[1, 2, 3]])\n"
         "SpecGenerator(GPT(cfg), max_new_tokens=4).generate([[1, 2, 3]])\n"
         "print(_build.load_library.cache_info().currsize, "
-        "gqa_decode_update.launches, spec_attention_update.launches)\n",
+        "gqa_decode_update.launches, spec_attention_update.launches, "
+        "decode_attention.launches)\n",
         PATH=os.path.dirname(sys.executable), CUDA_HOME="/nonexistent")
-    assert out.split() == ["0", "0", "0"]
+    assert out.split() == ["0", "0", "0", "0"]
 
 
 def test_build_key_tracks_sources_and_flags(monkeypatch, tmp_path):
@@ -74,8 +82,8 @@ def test_build_key_tracks_sources_and_flags(monkeypatch, tmp_path):
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert _build.library_path() == path  # stable
-    assert [p.name for p in _build.sources()] == ["gqa_decode.cu",
-                                                  "spec_attention.cu"]
+    assert [p.name for p in _build.sources()] == [
+        "decode_attention.cu", "gqa_decode.cu", "spec_attention.cu"]
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-g",))
     assert _build.library_path() != path
     assert "--use_fast_math" not in _build.NVCC_FLAGS

@@ -123,7 +123,7 @@ def test_spec_model_matches_jax(params, quant, dtype):
     B, T = 3, 5
     rng = np.random.default_rng(7)
     jcache = JaxKVCache.create(jmodel.config, B, spec=True)
-    cache = KVCache.create(model.config, B, spec=True)
+    cache = KVCache.create(model.config, B, device="cpu", spec=True)
     commits_script = [np.array([1, 5, 3]), np.array([5, 2, 1]),
                       np.array([2, 1, 4])]
     calls = [rng.integers(0, 32, (B, 7))]  # prefill (T = F - 1 = 7)
@@ -179,12 +179,13 @@ def test_spec_cache_refuses_gqa_and_unaligned_length():
     the verify attention assumes full multi-head K/V."""
     cfg = GPTConfig(**{**COMMON, "n_kv_head": 1})
     with pytest.raises(ValueError, match="multi-head"):
-        KVCache.create(cfg, 2, spec=True)
+        KVCache.create(cfg, 2, device="cpu", spec=True)
     with pytest.raises(ValueError, match="multi-head"):
         SpecGenerator(GPT(cfg), max_new_tokens=4).generate(
             np.zeros((1, 4), np.int32))
     with pytest.raises(ValueError, match="8-aligned"):
-        KVCache.create(GPTConfig(**COMMON), 2, max_len=60, spec=True)
+        KVCache.create(GPTConfig(**COMMON), 2, max_len=60, device="cpu",
+                       spec=True)
     with pytest.raises(ValueError, match="no room"):
         SpecGenerator(GPT(GPTConfig(**COMMON)), n_draft=4, refresh=4)
 
