@@ -195,12 +195,21 @@ class KVCache:
         )
 
 
+def true_divide(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` rounded as one IEEE division on every device. PyTorch's
+    CUDA kernels divide by a Python number as a product with its
+    reciprocal, which can land one ulp away and flip a value quantized
+    from it at a rounding tie; a 0-dim tensor on x's device divides."""
+    return x / x.new_full((), d)
+
+
 def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 quantization over the last axis (port of
-    ``_quantize_int8``, bit-exact): fp32 abs-max, ``max(m, 1e-6) / 127``,
-    round half to even, clip to +-127; returns (int8 values, bf16 scales)."""
+    ``_quantize_int8``, bit-exact on the CPU and the card): fp32 abs-max,
+    ``max(m, 1e-6) / 127``, round half to even, clip to +-127; returns
+    (int8 values, bf16 scales)."""
     x = x.float()
-    s = x.abs().amax(dim=-1).clamp_min(1e-6) / 127.0
+    s = true_divide(x.abs().amax(dim=-1).clamp_min(1e-6), 127.0)
     q = torch.round(x / s[..., None]).clamp(-127, 127)
     return q.to(torch.int8), s.to(torch.bfloat16)
 

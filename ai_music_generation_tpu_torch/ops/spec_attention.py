@@ -69,7 +69,10 @@ def _quantize_rows(x, lo):
     ``max(max|x|, 1e-20) / 127`` over the last axis (fp32, IEEE division),
     values ``clip(round_half_even(x / scale), lo, 127)``. Returns the
     integer values (as float64, exact) and the fp32 scales [..., 1]."""
-    s = x.abs().amax(dim=-1, keepdim=True).clamp_min(1e-20) / 127.0
+    from ai_music_generation_tpu_torch.models.gpt import true_divide
+
+    s = true_divide(x.abs().amax(dim=-1, keepdim=True).clamp_min(1e-20),
+                    127.0)
     return torch.round(x / s).clamp(lo, 127).double(), s
 
 

@@ -1,6 +1,6 @@
 """Drive the PyTorch port's batched ABC decode paths once on an NVIDIA GPU:
-the plain decode path, speculative decoding, and the attn_impl="pallas"
-decode path.
+the plain decode path, speculative decoding, the attn_impl="pallas" decode
+path, and the lean int8 / int4 decode-attention probe path.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -63,16 +63,29 @@ printing a result):
 13. int8 prefix kernels vs twin: K5 (``decode_attention_int8``) and K6
     (``decode_attention_int8_multirow``, R in {1, 8}) at B=4096 and B=16,
     S=256, lengths {1, 127, 128, 200, 256}, int8 127 and scales 1e4 past
-    the length: the yardstick of phase 10; then timed at length 256.
+    the length: the yardstick of phase 10; then timed at length 256;
+14. lean kernel vs twin: the lean T=1 attention (K7, ``lean_attention``)
+    in both modes (lean8: int8 cache, requantized q and probabilities;
+    lean4: position-packed int4 cache) at B=4096 and B=3, S=256 and S=16:
+    finite and within 2^-6 of its range of the twin (one p8 or
+    bf16-probability rounding flip); then kernel and twin timed at B=4096,
+    S=256;
+15. probe path: ``experiments/int4_kernel_probe.py::run_variant`` at full
+    width (B=4096, S=256, 6 layers) for xla8, lean8 and lean4: exactly 6
+    K7 launches per lean step (none for xla8), a finite final q; one lean8
+    and one lean4 step on a 3-row slice of the same caches against the
+    twin, layer by layer, within the phase-14 yardstick; ms per layer-read
+    beside each variant's byte floor, printed, not gated.
 
 The last two lines are a JSON summary of each kernel and
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` counts its
-launches in its path's main-path run (phases 5, 8, 12; every count is set
-to 0 just before each of them and read just after); a kernel with no
-caller on any path (K3, K5, K6) shows its count summed over those three
-runs there, and its kernel-vs-twin launches as ``check_launches``. ``bound_ms`` is the least time the card
-could take for the timed call: its bytes (each input read once, each output
-written once) over 3.35 TB/s or its operations over 989 TFLOP/s, the
+launches in its path's main-path run (phases 5, 8, 12, 15; every count is
+set to 0 just before each of them and read just after); a kernel with no
+caller on any path (K3, K5, K6) shows its count summed over those four
+runs there, and its kernel-vs-twin launches as ``check_launches``.
+``bound_ms`` is the least time the card could take for the timed call: its
+bytes (each input read once, each output written once) over 3.35 TB/s or
+its operations over 989 TFLOP/s (1979 TOP/s for int8 x int8 products), the
 larger; ``library_ms`` the time of one PyTorch call computing the same
 function, where there is one (else null).
 """
@@ -115,19 +128,25 @@ PREFIX_REPLACES = {
         "ai_music_generation_tpu/ops/decode_attention_int8.py:177",
     "decode_attention_int8_multirow":
         "ai_music_generation_tpu/ops/decode_attention_int8.py:339"}
+# the lean T=1 attention of the int4 probe (K7) and the probe's path
+LEAN_SOURCE = "ai_music_generation_tpu_torch/ops/csrc/lean_attention.cu"
+LEAN_REPLACES = "docs/experiments/int4_kernel_probe.py:216"
+LEAN_MODES = ("lean8", "lean4")
 # published H100 SXM peaks (NVIDIA's data sheet, at 700 W): device
-# memory rate, and the dense bf16 tensor-core rate, the peak for products
-# whose widest input is bf16 (int8 caches meet bf16 queries here)
+# memory rate, the dense bf16 tensor-core rate, the peak for products
+# whose widest input is bf16 (int8 caches meet bf16 queries here), and the
+# dense int8 rate, for int8 x int8 products
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
 
 
-def bound(n_bytes, n_ops) -> tuple[float, str]:
+def bound(n_bytes, n_ops, ops_per_s=BF16_OPS_PER_S) -> tuple[float, str]:
     """The least time (ms) the card could take for work that moves
     ``n_bytes`` (each input read once, each output written once) and does
-    ``n_ops`` operations, and which of the two sets it."""
+    ``n_ops`` operations at ``ops_per_s``, and which of the two sets it."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_ops / BF16_OPS_PER_S * 1e3
+    by_ops = n_ops / ops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                              "operations")
 
@@ -861,15 +880,15 @@ def _prefix_inputs(B, S, H, D, length, cache_dtype, seed=0, device="cpu"):
     return q, k, v, None, None, n
 
 
-def _check_close(out, ref, what):
-    """The kernel yardstick: finite, and within one bf16 ulp of the range
-    (2^-7 of the largest value) of the twin evaluated in fp32. Returns the
-    error."""
+def _check_close(out, ref, what, frac=2.0 ** -7):
+    """The kernel yardstick: finite, and within ``frac`` of the range of
+    the twin evaluated in fp32 (by default one bf16 ulp of the largest
+    value, 2^-7). Returns the error."""
     out = out.float()
     if not torch.isfinite(out).all():
         raise AssertionError(f"non-finite output: {what}")
     err = (out - ref).abs().max().item()
-    tol = 2.0 ** -7 * ref.abs().max().item()
+    tol = frac * ref.abs().max().item()
     if not err <= tol:
         raise AssertionError(f"{what}: differs from the fp32 twin by {err} > "
                              f"{tol}")
@@ -1118,6 +1137,172 @@ def phase_int8_kernel_timing(B=BATCH, S=256, H=6, D=64, L=256):
     return res
 
 
+def _lean_layer(name, B, S, seed, device):
+    """One probe layer of mode ``name`` and its query, made on ``device``
+    from a seed (experiments/int4_kernel_probe.py::random_layer): (q, k, v,
+    k_scale, v_scale)."""
+    from ai_music_generation_tpu_torch.experiments import (
+        int4_kernel_probe as probe,
+    )
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    layer = probe.random_layer(name, B, S, g)
+    return (probe.random_query(name, B, g), *layer)
+
+
+def phase_lean_kernel_vs_twin(device, B=BATCH, S=256):
+    """K7 in both modes against its twin evaluated in fp32 on the CPU, at
+    B=4096 and B=3, S=256 and S=16: finite and within 2^-6 of the range,
+    the room for one p8 (lean8) or bf16-probability (lean4) rounding flip,
+    which fp32 sums taken in another order than the twin's can cause at a
+    tie (K2's int8_dots yardstick). The CPU twin is the one that
+    tests/test_torch_lean_attention.py holds to the JAX kernel. Returns the
+    largest error of each mode."""
+    from ai_music_generation_tpu_torch.ops.lean_attention import (
+        lean_attention, lean_attention_reference,
+    )
+
+    worst = {name: 0.0 for name in LEAN_MODES}
+    for b in (B, 3):
+        for s in (S, 16):
+            for name in LEAN_MODES:
+                x = _lean_layer(name, b, s, seed=b + s, device=device)
+                packed = name == "lean4"
+                out = lean_attention(*x, packed)
+                ref = lean_attention_reference(*(t.cpu() for t in x), packed)
+                worst[name] = max(worst[name], _check_close(
+                    out.cpu(), ref, f"lean_attention {name} B={b} S={s}",
+                    frac=2.0 ** -6))
+                del x, out, ref
+    print(f"lean_attention vs twin: lean8 and lean4 at B={B} and B=3, S={S} "
+          f"and S=16: finite, max abs err vs the fp32 twin {worst}")
+    return worst
+
+
+def _lean_work(x, name):
+    """(bytes, operations, peak rate) of one lean call: reads q, K, V and
+    their scales once, writes the fp32 output; QK and PV 2 operations per
+    (row, lane, position) each, int8 x int8 in lean8, bf16 in lean4."""
+    q, k, v, ks, vs = x
+    B, HD = q.shape
+    S = ks.shape[-1]
+    n = sum(t.nbytes for t in x) + 4 * B * HD
+    rate = INT8_OPS_PER_S if name == "lean8" else BF16_OPS_PER_S
+    return n, 4 * B * HD * S, rate
+
+
+def phase_lean_kernel_timing(B=BATCH, S=256):
+    """ms per call of K7 in both modes and of their twins at B=4096, S=256,
+    in the order plain, lean8, lean4, lean4, lean8, plain (each plain slot
+    times both twins). The caches (0.4-0.8 GB) exceed the 50 MB L2, so every
+    call reads them from device memory. No one PyTorch call does int8 x
+    int8 dots with per-row requantized q and probabilities, or unpacks a
+    position-packed int4 cache, so there is no library time. Returns
+    {mode: the kernel's JSON numbers}."""
+    from ai_music_generation_tpu_torch.ops.lean_attention import (
+        lean_attention, lean_attention_reference,
+    )
+
+    x = {name: _lean_layer(name, B, S, seed=9, device="cuda")
+         for name in LEAN_MODES}
+    kernel = {name: [] for name in LEAN_MODES}
+    plain = {name: [] for name in LEAN_MODES}
+    for slot in ("plain", "lean8", "lean4", "lean4", "lean8", "plain"):
+        for name in (LEAN_MODES if slot == "plain" else (slot,)):
+            packed = name == "lean4"
+            if slot == "plain":
+                plain[name].append(_cuda_ms(
+                    lambda: lean_attention_reference(*x[name], packed), 5))
+            else:
+                kernel[name].append(_cuda_ms(
+                    lambda: lean_attention(*x[name], packed), 50))
+    res = {}
+    for name in LEAN_MODES:
+        n_bytes, n_ops, rate = _lean_work(x[name], name)
+        bound_ms, bound_by = bound(n_bytes, n_ops, rate)
+        res[name] = r = dict(ms=min(kernel[name]), plain_ms=min(plain[name]),
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=None)
+        print(f"lean_attention {name} at B={B} S={S}: kernel {kernel[name]} "
+              f"ms/call, twin {plain[name]} (plain, lean8, lean4, lean4, "
+              f"lean8, plain); bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{n_bytes / 1e6:.1f} MB), {bound_ms / r['ms']:.3f} of it")
+    return res
+
+
+@torch.inference_mode()
+def phase_probe_main_path(device, B=BATCH, S=256, iters=3):
+    """The probe path through its entry point, ``run_variant``, at full
+    width for xla8, lean8 and lean4: each lean step launches K7 once per
+    layer (none on the CPU, where the twin runs; none for xla8), and the
+    final q is finite. Returns {variant: run_variant's result}."""
+    from ai_music_generation_tpu_torch.experiments import (
+        int4_kernel_probe as probe,
+    )
+    from ai_music_generation_tpu_torch.ops.lean_attention import (
+        lean_attention,
+    )
+
+    cuda = torch.device(device).type == "cuda"
+    res = {}
+    for name in ("xla8", "lean8", "lean4"):
+        before = lean_attention.launches
+        r = probe.run_variant(name, batch=B, seq=S, device=device,
+                              iters=iters)
+        launches = lean_attention.launches - before
+        want = probe.L * r["steps"] if cuda and name != "xla8" else 0
+        if launches != want:
+            raise AssertionError(f"probe {name}: {launches} K7 launches for "
+                                 f"{r['steps']} steps, want {want}")
+        if not torch.isfinite(r["q"].float()).all():
+            raise AssertionError(f"probe {name}: non-finite q")
+        ms = r["ms_per_layer"]
+        timing = ("not timed" if ms is None else
+                  f"{ms:.4f} ms per layer-read, {r['floor_ms'] / ms:.3f} of "
+                  f"the floor")
+        print(f"probe {name} at B={B} S={S}, {probe.L} layers: {r['steps']} "
+              f"steps, {launches} K7 launches, final q finite; floor "
+              f"{r['floor_ms']:.4f} ms ({r['floor_bytes'] / 1e6:.1f} MB); "
+              f"{timing}")
+        res[name] = r
+    return res
+
+
+@torch.inference_mode()
+def phase_probe_vs_twin(res, rows=3):
+    """One lean8 and one lean4 probe step on a ``rows``-row slice of phase
+    15's caches, on their device, against the twin on the CPU applied layer
+    by layer to the same inputs (each layer's q as the step saw it: a
+    rounding flip in one layer would otherwise carry into the next layer's
+    requantized q): within the phase-14 yardstick. Returns the largest
+    error."""
+    from ai_music_generation_tpu_torch.experiments import (
+        int4_kernel_probe as probe,
+    )
+    from ai_music_generation_tpu_torch.ops.lean_attention import (
+        lean_attention_reference,
+    )
+
+    worst = 0.0
+    for name in LEAN_MODES:
+        packed = name == "lean4"
+        layers = [tuple(t[:rows].contiguous() for t in layer)
+                  for layer in res[name]["layers"]]
+        record = []
+        q = probe.lean_step(res[name]["q0"][:rows].contiguous(), layers,
+                            packed, record=record)
+        if not torch.isfinite(q.float()).all():
+            raise AssertionError(f"probe {name} slice: non-finite q")
+        for i, ((q_in, o), layer) in enumerate(zip(record, layers)):
+            ref = lean_attention_reference(
+                q_in.cpu(), *(t.cpu() for t in layer), packed)
+            worst = max(worst, _check_close(
+                o.cpu(), ref, f"probe {name} layer {i}", frac=2.0 ** -6))
+    print(f"probe steps on a {rows}-row slice vs the twin, layer by layer: "
+          f"max abs err {worst}")
+    return worst
+
+
 @torch.inference_mode()
 def phase_profile(B=BATCH, max_new=MAX_NEW, top=12) -> None:
     """One generate of the pallas path (phase 12's protocol) under
@@ -1167,6 +1352,9 @@ def _counted_ops() -> dict:
         decode_attention,
     )
     from ai_music_generation_tpu_torch.ops.gqa_decode import gqa_decode_update
+    from ai_music_generation_tpu_torch.ops.lean_attention import (
+        lean_attention,
+    )
     from ai_music_generation_tpu_torch.ops.spec_attention import (
         spec_attention, spec_attention_update,
     )
@@ -1174,7 +1362,7 @@ def _counted_ops() -> dict:
     return {f.__name__: f for f in (
         gqa_decode_update, spec_attention_update, spec_attention,
         decode_attention, i8.decode_attention_int8,
-        i8.decode_attention_int8_multirow)}
+        i8.decode_attention_int8_multirow, lean_attention)}
 
 
 def _main_path(phase, *args):
@@ -1268,8 +1456,21 @@ def main(argv=None) -> int:
     int8_err = phase_int8_kernel_vs_twin("cuda")
     int8_checks = {name: ops[name].launches for name in int8_err}
     int8_ms = phase_int8_kernel_timing()
+
+    lean_err = phase_lean_kernel_vs_twin("cuda")
+    lean_ms = phase_lean_kernel_timing()
+    probe, counts = _main_path(phase_probe_main_path, "cuda")
+    on_path = {k: n + counts[k] for k, n in on_path.items()}
+    probe_err = phase_probe_vs_twin(probe)
+    print(f"[{card}] probe at B={BATCH}, S=256, 6 layers: "
+          + ", ".join(f"{n} {r['ms_per_layer']:.4f} ms per layer-read "
+                      f"(floor {r['floor_ms']:.4f})" for n, r in probe.items())
+          + f"; lean_attention lean8 {lean_ms['lean8']['ms']:.4f} ms/call, "
+          f"lean4 {lean_ms['lean4']['ms']:.4f}")
+    del probe
+    torch.cuda.empty_cache()
     # K3, K5 and K6 have no caller on any path: their launches are the sum
-    # of their counts over the three main paths (phases 5, 8 and 12)
+    # of their counts over the four main paths (phases 5, 8, 12 and 15)
     kernels.append(_entry("spec_attention", SPEC_SOURCE,
                           SPEC_REPLACES["spec_attention"],
                           on_path["spec_attention"],
@@ -1279,6 +1480,14 @@ def main(argv=None) -> int:
         kernels.append(_entry(name, PREFIX_SOURCE, PREFIX_REPLACES[name],
                               on_path[name], int8_err[name], int8_ms[name],
                               check_launches=int8_checks[name]))
+    # K7's numbers are lean4's (the probe's position-packed int4 cache);
+    # each mode's own are under "modes"
+    kernels.append(_entry(
+        "lean_attention", LEAN_SOURCE, LEAN_REPLACES,
+        on_path["lean_attention"], max(*lean_err.values(), probe_err),
+        lean_ms["lean4"], modes={name: dict(lean_ms[name],
+                                            max_abs_err=lean_err[name])
+                                 for name in LEAN_MODES}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

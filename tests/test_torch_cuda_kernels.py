@@ -19,8 +19,14 @@ from ai_music_generation_tpu_torch.decode.speculative import (
     keep_committed,
     reset_spec_cache,
 )
+from ai_music_generation_tpu_torch.experiments import int4_kernel_probe
 from ai_music_generation_tpu_torch.models.convert import init_weights
-from ai_music_generation_tpu_torch.models.gpt import GPT, GPTConfig, KVCache
+from ai_music_generation_tpu_torch.models.gpt import (
+    GPT,
+    GPTConfig,
+    KVCache,
+    quantize_int8,
+)
 from ai_music_generation_tpu_torch.ops.decode_attention import (
     decode_attention,
     decode_attention_reference,
@@ -34,7 +40,14 @@ from ai_music_generation_tpu_torch.ops.gqa_decode import (
     gqa_decode_reference,
     gqa_decode_update,
 )
+from ai_music_generation_tpu_torch.ops.lean_attention import (
+    MAX_S,
+    lean_attention,
+    lean_attention_reference,
+    pack_int4,
+)
 from ai_music_generation_tpu_torch.ops.spec_attention import (
+    _quantize_rows,
     spec_attention,
     spec_attention_int8_dots_reference,
     spec_attention_reference,
@@ -509,3 +522,104 @@ def test_pallas_generator_on_cuda_launches_k4_only(cuda):
     assert out.shape == (32, 108) and torch.equal(out[:, :8].cpu(), prompts)
     assert decode_attention.launches - k4 == 2 * 100
     assert gqa_decode_update.launches == k1
+
+
+def _lean_inputs(packed, B, S, H, D, seed=0):
+    """CPU operands of one lean_attention call: bf16 normal q [B, HD]; an
+    int8 cache [B, S, HD] over the full range, or a position-packed int4
+    one [B, S/2, HD] with two independent values per byte; bf16 scales
+    [B, H, S] in [0.5, 1.5)."""
+    g = torch.Generator().manual_seed(seed)
+    HD = H * D
+    if packed:
+        k, v = (pack_int4(*(torch.randint(-8, 8, (B, S // 2, HD), generator=g,
+                                          dtype=torch.int8)
+                            for _ in range(2))) for _ in range(2))
+    else:
+        k, v = (torch.randint(-128, 128, (B, S, HD), generator=g,
+                              dtype=torch.int8) for _ in range(2))
+    ks, vs = ((torch.rand((B, H, S), generator=g) + 0.5).to(torch.bfloat16)
+              for _ in range(2))
+    return torch.randn((B, HD), generator=g).to(torch.bfloat16), k, v, ks, vs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True], ids=["lean8", "lean4"])
+def test_lean_attention_kernel_matches_twin(cuda, packed):
+    """K7 against its twin (fp32 on the CPU, the int8 dots exact): finite,
+    within 2^-6 of the output's range (one p8 or bf16-probability rounding
+    flip)."""
+    for B, S, H, D in ((3, 256, 6, 64), (64, 256, 6, 64), (5, 16, 6, 64),
+                       (4, 64, 2, 16), (4, 96, 3, 128), (2, 34, 4, 32),
+                       (2, 1000, 6, 64)):
+        x = _lean_inputs(packed, B, S, H, D, seed=S)
+        before = lean_attention.launches
+        out = lean_attention(*(t.to(cuda) for t in x), packed, n_head=H)
+        assert lean_attention.launches == before + 1
+        torch.cuda.synchronize()
+        ref = lean_attention_reference(*x, packed, n_head=H)
+        out = out.cpu()
+        assert out.dtype == torch.float32 and torch.isfinite(out).all()
+        assert (out - ref).abs().max() <= 2.0 ** -6 * ref.abs().max(), (
+            B, S, H, D)
+
+
+@pytest.mark.cuda
+def test_lean_attention_kernel_refuses_what_it_cannot_take(cuda):
+    q, k, v, ks, vs = (t.to(cuda) for t in _lean_inputs(False, 2, 16, 6, 64))
+    with pytest.raises(ValueError, match="q must be"):
+        lean_attention(q.float(), k, v, ks, vs, False)
+    with pytest.raises(ValueError, match="k must be"):
+        lean_attention(q, k.view(torch.uint8), v, ks, vs, False)
+    with pytest.raises(ValueError, match="k_scale must be"):
+        lean_attention(q, k, v, ks.float(), vs, False)
+    with pytest.raises(ValueError, match="k must be"):  # packed: S/2 rows
+        lean_attention(q, k, v, ks, vs, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        lean_attention(q, k.transpose(0, 1).contiguous().transpose(0, 1), v,
+                       ks, vs, False)
+    with pytest.raises(ValueError, match="head size"):
+        lean_attention(q, k, v, ks, vs, False, n_head=4)  # D = 96
+    with pytest.raises(ValueError, match="even S"):
+        odd = torch.ones((2, 6, 17), dtype=torch.bfloat16, device=cuda)
+        lean_attention(q, k[:, :8].contiguous(), v[:, :8].contiguous(), odd,
+                       odd, True)
+    S = MAX_S + 2
+    big = torch.zeros((1, S // 2, 384), dtype=torch.int8, device=cuda)
+    s = torch.ones((1, 6, S), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        lean_attention(q[:1], big, big, s, s, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["lean8", "lean4"])
+def test_probe_step_launches_k7_once_per_layer(cuda, name):
+    """The probe path on the card: every step launches K7 exactly L = 6
+    times, and its q stays finite."""
+    before = lean_attention.launches
+    r = int4_kernel_probe.run_variant(name, batch=64, seq=256, device=cuda,
+                                      iters=2)
+    assert r["steps"] == 3
+    assert lean_attention.launches - before == int4_kernel_probe.L * 3
+    assert torch.isfinite(r["q"].float()).all()
+    assert r["ms_per_layer"] > 0 and r["floor_ms"] > 0
+
+
+@pytest.mark.cuda
+def test_plain_quantizers_on_cuda_match_cpu_bit_for_bit(cuda):
+    """Every division by 127 in the port's plain code is one IEEE division
+    on the card too (models.gpt.true_divide; PyTorch's CUDA division by a
+    Python number multiplies by its reciprocal): quantize_int8 and the
+    int8_dots row quantizer give the CPU's bits, and the lean8 twin on the
+    card stays within the K7 yardstick of the CPU's at a batch where q8
+    values one ulp apart flipped outputs at near-ties of the top scores."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((4096, 6, 64), generator=g) * (
+        torch.rand((4096, 6, 1), generator=g) * 10)
+    for quantize in (quantize_int8, lambda t: _quantize_rows(t, -127)):
+        for got, want in zip(quantize(x.to(cuda)), quantize(x)):
+            assert torch.equal(got.cpu(), want)
+    x = _lean_inputs(False, 1024, 256, 6, 64, seed=1)
+    got = lean_attention_reference(*(t.to(cuda) for t in x), False).cpu()
+    want = lean_attention_reference(*x, False)
+    assert (got - want).abs().max() <= 2.0 ** -6 * want.abs().max()

@@ -17,12 +17,15 @@ MODULES = [
     "ai_music_generation_tpu_torch",
     "ai_music_generation_tpu_torch.decode.generate",
     "ai_music_generation_tpu_torch.decode.speculative",
+    "ai_music_generation_tpu_torch.experiments",
+    "ai_music_generation_tpu_torch.experiments.int4_kernel_probe",
     "ai_music_generation_tpu_torch.models.convert",
     "ai_music_generation_tpu_torch.models.gpt",
     "ai_music_generation_tpu_torch.ops._build",
     "ai_music_generation_tpu_torch.ops.decode_attention",
     "ai_music_generation_tpu_torch.ops.decode_attention_int8",
     "ai_music_generation_tpu_torch.ops.gqa_decode",
+    "ai_music_generation_tpu_torch.ops.lean_attention",
     "ai_music_generation_tpu_torch.ops.spec_attention",
 ]
 
@@ -69,11 +72,16 @@ def test_port_imports_without_triton_or_nvcc():
         "Generator(GPT(dataclasses.replace(cfg, attn_impl='pallas')), "
         "max_new_tokens=4).generate([[1, 2, 3]])\n"
         "SpecGenerator(GPT(cfg), max_new_tokens=4).generate([[1, 2, 3]])\n"
+        "from ai_music_generation_tpu_torch.experiments.int4_kernel_probe "
+        "import run_variant\n"
+        "from ai_music_generation_tpu_torch.ops.lean_attention import "
+        "lean_attention\n"
+        "run_variant('lean4', batch=2, seq=4, device='cpu')\n"
         "print(_build.load_library.cache_info().currsize, "
         "gqa_decode_update.launches, spec_attention_update.launches, "
-        "decode_attention.launches)\n",
+        "decode_attention.launches, lean_attention.launches)\n",
         PATH=os.path.dirname(sys.executable), CUDA_HOME="/nonexistent")
-    assert out.split() == ["0", "0", "0", "0"]
+    assert out.split() == ["0", "0", "0", "0", "0"]
 
 
 def test_build_key_tracks_sources_and_flags(monkeypatch, tmp_path):
@@ -83,7 +91,8 @@ def test_build_key_tracks_sources_and_flags(monkeypatch, tmp_path):
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert _build.library_path() == path  # stable
     assert [p.name for p in _build.sources()] == [
-        "decode_attention.cu", "gqa_decode.cu", "spec_attention.cu"]
+        "decode_attention.cu", "gqa_decode.cu", "lean_attention.cu",
+        "spec_attention.cu"]
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-g",))
     assert _build.library_path() != path
     assert "--use_fast_math" not in _build.NVCC_FLAGS
