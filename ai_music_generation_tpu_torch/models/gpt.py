@@ -410,23 +410,34 @@ class GPT(nn.Module):
 
     Weights: load a state dict (``models.convert.state_dict_from_jax``) or
     call ``models.convert.init_weights``; the constructor leaves torch's
-    default initialisation.
+    default initialisation. ``device`` None creates the parameters on the
+    card, as ``KVCache.create`` allocates, and raises when there is none;
+    pass ``device="cpu"`` for a CPU model.
     """
 
-    def __init__(self, config: GPTConfig):
+    def __init__(self, config: GPTConfig, device=None):
         super().__init__()
         if config.n_expert > 0 or config.seq_axis is not None:
             raise NotImplementedError(
                 "MoE and sequence parallelism are not ported yet")
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "GPT creates its parameters on the CUDA device by default "
+                    'and none is available; pass device="cpu" for a CPU '
+                    "model")
+            device = torch.device("cuda")
         self.config = config
         C, dt = config.n_embd, config.param_dtype
-        self.transformer = nn.ModuleDict(dict(
-            wte=nn.Embedding(config.vocab_size, C, dtype=dt),
-            wpe=nn.Embedding(config.block_size, C, dtype=dt),
-            h=nn.ModuleList(Block(config) for _ in range(config.n_layer)),
-            ln_f=nn.LayerNorm(C, eps=1e-5, bias=config.bias, dtype=dt),
-        ))
-        self.lm_head = nn.Linear(C, config.vocab_size, bias=False, dtype=dt)
+        with torch.device(device):  # every parameter is created there
+            self.transformer = nn.ModuleDict(dict(
+                wte=nn.Embedding(config.vocab_size, C, dtype=dt),
+                wpe=nn.Embedding(config.block_size, C, dtype=dt),
+                h=nn.ModuleList(Block(config) for _ in range(config.n_layer)),
+                ln_f=nn.LayerNorm(C, eps=1e-5, bias=config.bias, dtype=dt),
+            ))
+            self.lm_head = nn.Linear(C, config.vocab_size, bias=False,
+                                     dtype=dt)
         self.transformer.wte.weight = self.lm_head.weight  # weight tying
 
     def forward(self, idx: torch.Tensor, cache: Optional[KVCache] = None,

@@ -38,6 +38,11 @@ NVCC_FLAGS = (
 )
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
+# what a launcher returns, without launching, when the buffers of one block
+# at the call's shape exceed shared memory (each source computes its own
+# layout); every other non-zero return is a cudaError_t
+TOO_LARGE = -1
+
 
 def sources() -> list[pathlib.Path]:
     return sorted(CSRC.glob("*.cu"))

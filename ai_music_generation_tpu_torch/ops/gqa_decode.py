@@ -29,8 +29,12 @@ Contract (B rows, H query heads, KH kv-heads, G = H // KH, head size D):
 
 Returns ``out`` [B, H, D] in q's dtype.
 
-The CUDA kernel takes a bf16 ``q``/slabs and an int8 or bf16 cache; it
-needs no alignment of S, D or the batch.
+The CUDA kernel takes a bf16 ``q``/slabs and an int8 or bf16 cache with
+k and v on 16-byte boundaries, a head size D that is a multiple of 16 and
+divides 128, and an S whose per-block buffers fit shared memory (it
+streams K and V through a ring of column tiles, so what grows with S is
+only G+3 floats per column: S up to about 8,000 at G=3, 12,000 at MHA). It
+raises on anything else; it does not fall back.
 """
 
 from __future__ import annotations
@@ -78,6 +82,9 @@ def _check_cuda(q, k, v, k_slab, v_slab, k_scale, v_scale, mask_rel, pos):
     KH = KHD // D
     if KH == 0 or H % KH:
         raise ValueError(f"n_head={H} is not a multiple of n_kv_head={KH}")
+    if D % 16 or 128 % D:
+        raise ValueError(f"head size {D} must be a multiple of 16 that "
+                         f"divides 128")
     quantized = k_scale is not None
     want = {
         "q": (q, torch.bfloat16, (B, H, D)),
@@ -103,10 +110,8 @@ def _check_cuda(q, k, v, k_slab, v_slab, k_scale, v_scale, mask_rel, pos):
                 f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    smem = 4 * (H * D + H * S + S)
-    if smem > 227 * 1024:
-        raise ValueError(
-            f"H*(D+S) too large for one block's shared memory ({smem} B)")
+        if name in ("k", "v") and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     return B, S, H, KH, D, quantized
 
 
@@ -134,6 +139,9 @@ def gqa_decode_update(q, k, v, k_slab, v_slab, k_scale, v_scale, mask_rel,
         ptr(v_scale), ptr(mask_rel), ptr(pos), ptr(out),
         B, S, H, KH, D, int(quantized),
         torch.cuda.current_stream(q.device).cuda_stream)
+    if rc == _build.TOO_LARGE:
+        raise ValueError(f"S={S} too large for one block's shared memory "
+                         f"(csrc/gqa_decode.cu smem_bytes)")
     if rc != 0:
         raise RuntimeError(f"gqa_decode kernel launch failed: cudaError {rc}")
     gqa_decode_update.launches += 1

@@ -32,8 +32,13 @@ Contract (B rows, T queries, H heads of size D, S cache columns, HD = H*D):
 Returns [B, T, HD] in q's dtype.
 
 The CUDA kernel takes a bf16 ``q`` and an int8 or bf16 cache, a head size
-D that divides 128 and is a multiple of 16, and any ``cursor`` with
-``0 <= cursor <= S - Tw``.
+D that divides 128 and is a multiple of 16, any ``cursor`` with
+``0 <= cursor <= S - Tw``, and an S whose block buffers fit shared memory
+(S up to about 7,000 at T=5, 2,900 at T >= 16; csrc/spec_attention.cu
+mma_smem_bytes). Outside ``int8_dots`` it runs on the tensor cores in one
+of two regimes that its launcher chooses from T: 16 query rows per block
+for T <= 16 (a verify step), 64 for a refresh where those buffers fit
+(16 over a long cache).
 """
 
 from __future__ import annotations
@@ -105,6 +110,44 @@ def spec_attention_int8_dots_reference(q, k, v, k_scale, v_scale, col_pos,
     return out.transpose(1, 2).reshape(B, T, HD).to(q.dtype)
 
 
+def spec_attention_mma_model(q, k, v, k_scale, v_scale, col_pos, lengths,
+                             *, n_head: int):
+    """The tensor-core kernel's roundings, evaluated on the CPU (tests
+    only): scores and the softmax in fp32 from exact products (as the fp32
+    twin); then the PV operands as ``csrc/spec_attention.cu`` rounds them.
+    With an int8 cache, P x v_scale is scaled per (head, query) row by the
+    power of two that lifts its largest value into [2^14, 2^15), rounded to
+    fp16, multiplied by V (exact in fp16) and divided back. With a bf16
+    cache, P is split into bf16 hi + lo and both are multiplied by V. A row
+    whose every column is dead gives 0. Returns [B, T, HD] in bf16, the
+    kernel's single rounding of its output."""
+    B, T, HD = q.shape
+    S, H = k.shape[1], n_head
+    D = HD // H
+    qh = q.float().reshape(B, T, H, D).transpose(1, 2)  # [B, H, T, D]
+    kh = k.view(B, S, H, D).transpose(1, 2).float()
+    vh = v.view(B, S, H, D).transpose(1, 2).float()
+    scores = qh @ kh.transpose(-1, -2)
+    if k_scale is not None:
+        scores = scores * k_scale[:, :, None, :].float()
+    mask = _query_mask(col_pos, lengths, T)
+    scores = torch.where(mask, scores * (1.0 / math.sqrt(D)), float("-inf"))
+    live = mask.any(dim=-1, keepdim=True)
+    probs = torch.where(live, torch.softmax(scores, dim=-1), 0.0)
+    if k_scale is not None:
+        probs = probs * v_scale[:, :, None, :].float()
+        _, ex = torch.frexp(probs.amax(dim=-1, keepdim=True))
+        factor = torch.where(live, torch.ldexp(torch.ones_like(probs[..., :1]),
+                                               15 - ex), 1.0)
+        p16 = (probs * factor).half().float()
+        out = (p16 @ vh) / factor
+    else:
+        hi = probs.bfloat16().float()
+        lo = (probs - hi).bfloat16().float()
+        out = hi @ vh + lo @ vh
+    return out.transpose(1, 2).reshape(B, T, HD).to(torch.bfloat16)
+
+
 def _twin(q, k, v, k_scale, v_scale, col_pos, lengths, n_head, int8_dots):
     if int8_dots:
         return spec_attention_int8_dots_reference(
@@ -120,10 +163,6 @@ def write_slab(k, v, k_slab, v_slab, cursor):
     cols = (cursor + torch.arange(k_slab.shape[1], device=k.device)).long()
     k[:, cols] = k_slab.to(k.dtype)
     v[:, cols] = v_slab.to(v.dtype)
-
-
-# queries per block of the CUDA kernel (csrc/spec_attention.cu kTQ)
-_QUERY_TILE = 8
 
 
 def _check_cuda(q, k, v, k_slab, v_slab, k_scale, v_scale, col_pos, lengths,
@@ -175,13 +214,6 @@ def _check_cuda(q, k, v, k_slab, v_slab, k_scale, v_scale, col_pos, lengths,
             raise ValueError(f"{name} must be contiguous")
         if name in ("k", "v", "k_slab", "v_slab") and t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
-    # csrc/spec_attention.cu smem_bytes: int8 q, fp32 q, scores (or the
-    # 4 warps' PV partial sums), 2 scale rows, col_pos
-    tq = _QUERY_TILE
-    smem = tq * D + 4 * (tq * D + max(tq * S, 4 * tq * D) + 2 * tq + S)
-    if smem > 227 * 1024:
-        raise ValueError(
-            f"S={S} too large for one block's shared memory ({smem} B)")
     return B, T, S, D, quantized
 
 
@@ -201,6 +233,9 @@ def _launch(q, k, v, k_slab, v_slab, k_scale, v_scale, col_pos, lengths,
         ptr(v_scale), ptr(col_pos), ptr(lengths), ptr(cursor), ptr(out),
         B, T, S, n_head, D, int(quantized), int(int8_dots),
         torch.cuda.current_stream(q.device).cuda_stream)
+    if rc == _build.TOO_LARGE:
+        raise ValueError(f"S={S} too large for one block's shared memory "
+                         f"(csrc/spec_attention.cu mma_smem_bytes)")
     if rc != 0:
         raise RuntimeError(
             f"spec_attention kernel launch failed: cudaError {rc}")

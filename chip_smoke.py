@@ -14,10 +14,12 @@ printing a result):
 2. build: the CUDA kernels, compiled from ``ai_music_generation_tpu_torch/
    ops/csrc`` (nvcc's register/shared-memory report is printed);
 3. kernel vs plain twin at the batched decode shape (B=4096, S=128, H=6,
-   KH=2, D=64) in all four modes (int8/bf16 cache x lockstep/ring mask),
-   pos in {0, 7, 8, 127}, plus a 3-row batch: caches and scales bit-exact,
-   the output within one bf16 ulp of its range of the twin evaluated in
-   fp32; then both timed on the card;
+   KH=2, D=64) and at MHA (KH=6) in all four modes (int8/bf16 cache x
+   lockstep/ring mask), pos in {0, 7, 8, 127}, plus a 3-row batch, and
+   3 rows over a 1024-column cache (GPTConfig's default block_size) at MHA
+   with a bf16 cache and at KH=2 with an int8 one: caches and scales
+   bit-exact, the output within one bf16 ulp of its range of the twin
+   evaluated in fp32; then both timed on the card;
 4. model: the bench-config GPT (6 layers, 6 heads, 384 wide, block 256,
    vocab 128, KH=2, int8 cache) on the card against the same weights on the
    CPU: prefill plus 16 decode steps, logits compared for 8 rows;
@@ -27,10 +29,14 @@ printing a result):
    launches per generate; then decode throughput timed with CUDA events;
 6. spec kernel vs twin: the verify-attention kernel with its slab write
    (K2, ``spec_attention_update``) and without (K3, ``spec_attention``) at
-   B=4096 and B=3, S=256, H=6, D=64, T in {1, 5, 7, 128}, cursor in {0, 8,
-   S-Tw}, int8 and bf16 caches and int8_dots: the write bit-exact, the
-   output within one bf16 ulp of its range of the twin evaluated in fp32
-   (2^-6 with int8_dots); then both timed at T=5 (a verify step) and T=128
+   B=4096 and B=3, S=256, H=6, D=64, T in {1, 5, 7, 128} (at B=3 also the
+   regime edges 8, 16, 17, 64, 65, and an added fourth row that reads
+   nothing: output 0), and at B=3 (+ the dead row) over S=1024, where a
+   refresh runs 16-query tiles, T in {5, 17, 64, 65, 128}; cursor in
+   {0, 8, S-Tw}, int8 and bf16 caches and int8_dots:
+   the write bit-exact, the output within one bf16 ulp of its range of the
+   twin evaluated in fp32 (2^-6 with int8_dots); then both timed at T=5 (a
+   verify step) and T=128
    (a refresh), K3 also with a bf16 cache beside the one PyTorch call that
    computes it (``scaled_dot_product_attention`` under the col_pos mask);
 7. spec model: the ``SPEC`` GPT (the bench config with MHA, which the spec
@@ -105,6 +111,8 @@ BENCH = dict(block_size=256, vocab_size=128, n_layer=6, n_head=6, n_embd=384,
              dropout=0.0, bias=False, dtype=torch.bfloat16, kv_quantized=True,
              n_kv_head=2, flat_kv=True)
 BATCH, PROMPT_LEN, MAX_NEW, WINDOW = 4096, 8, 500, 128
+# GPTConfig's default block_size: the long cache of the kernel checks
+LONG = 1024
 KERNEL_SOURCE = "ai_music_generation_tpu_torch/ops/csrc/gqa_decode.cu"
 KERNEL_REPLACES = "ai_music_generation_tpu/ops/gqa_decode.py:394"
 # speculative decoding: the bench config with MHA (the spec cache refuses
@@ -246,40 +254,45 @@ def phase_kernel_vs_twin(device, B=BATCH, S=WINDOW) -> float:
     )
 
     worst32 = worst16 = 0.0
-    for b in (B, 3):
-        for quant in (True, False):
-            for ring in (False, True):
-                for pos in (0, 7, 8, S - 1):
-                    cpu = _decode_inputs(quant, ring, pos, b, S)
-                    cpu32, dev = _upcast(cpu), _to(cpu, device)
-                    out = gqa_decode_update(*dev, torch.tensor(
-                        pos, dtype=torch.int32, device=device))
-                    pos_cpu = torch.tensor(pos, dtype=torch.int32)
-                    ref = gqa_decode_update(*cpu, pos_cpu)
-                    ref32 = gqa_decode_reference(*cpu32, pos_cpu)
-                    _sync(device)
-                    for name, got, want in zip(
-                            ("k", "v", "k_slab", "v_slab", "k_scale",
-                             "v_scale"), dev[1:7], cpu[1:7]):
-                        if got is not None and not torch.equal(got.cpu(),
-                                                               want):
-                            raise AssertionError(
-                                f"{name} differs: B={b} quant={quant} "
-                                f"ring={ring} pos={pos}")
-                    out = out.float().cpu()
-                    err = (out - ref32).abs().max().item()
-                    tol = 2.0 ** -7 * ref32.abs().max().item()
-                    if not err <= tol:
-                        raise AssertionError(
-                            f"out differs from the fp32 twin by {err} > "
-                            f"{tol}: B={b} quant={quant} ring={ring} "
-                            f"pos={pos}")
-                    worst32 = max(worst32, err)
-                    worst16 = max(worst16,
-                                  (out - ref.float()).abs().max().item())
-    print(f"kernel vs twin: 4 modes x pos (0, 7, 8, {S - 1}) at B={B} and "
-          f"B=3, S={S}: caches and scales bit-exact; out max abs err "
-          f"{worst32} vs the fp32 twin, {worst16} vs the bf16 twin")
+    cases = [(b, S, kh, quant, ring, pos) for b in (B, 3) for kh in (2, 6)
+             for quant in (True, False) for ring in (False, True)
+             for pos in (0, 7, 8, S - 1)]
+    # a long cache (8 staged tiles of columns): MHA bf16 and GQA int8
+    cases += [(3, LONG, kh, quant, ring, pos)
+              for kh, quant in ((6, False), (2, True))
+              for ring in (False, True) for pos in (0, 7, 8, LONG - 1)]
+    for b, s_len, kh, quant, ring, pos in cases:
+        cpu = _decode_inputs(quant, ring, pos, b, s_len, KH=kh)
+        cpu32, dev = _upcast(cpu), _to(cpu, device)
+        out = gqa_decode_update(*dev, torch.tensor(
+            pos, dtype=torch.int32, device=device))
+        pos_cpu = torch.tensor(pos, dtype=torch.int32)
+        ref = gqa_decode_update(*cpu, pos_cpu)
+        ref32 = gqa_decode_reference(*cpu32, pos_cpu)
+        _sync(device)
+        for name, got, want in zip(
+                ("k", "v", "k_slab", "v_slab", "k_scale",
+                 "v_scale"), dev[1:7], cpu[1:7]):
+            if got is not None and not torch.equal(got.cpu(),
+                                                   want):
+                raise AssertionError(
+                    f"{name} differs: B={b} S={s_len} KH={kh} quant="
+                    f"{quant} ring={ring} pos={pos}")
+        out = out.float().cpu()
+        err = (out - ref32).abs().max().item()
+        tol = 2.0 ** -7 * ref32.abs().max().item()
+        if not err <= tol:
+            raise AssertionError(
+                f"out differs from the fp32 twin by {err} > "
+                f"{tol}: B={b} S={s_len} KH={kh} quant={quant} "
+                f"ring={ring} pos={pos}")
+        worst32 = max(worst32, err)
+        worst16 = max(worst16,
+                      (out - ref.float()).abs().max().item())
+    print(f"kernel vs twin: 4 modes x pos (0, 7, 8, {S - 1}) x G (3, 1) at "
+          f"B={B} and B=3, S={S}, and B=3, S={LONG} (MHA bf16, G=3 int8; "
+          f"pos 0, 7, 8, {LONG - 1}): caches and scales bit-exact; out max "
+          f"abs err {worst32} vs the fp32 twin, {worst16} vs the bf16 twin")
     return worst32
 
 
@@ -338,7 +351,7 @@ def _bench_model(device, config=BENCH):
     from ai_music_generation_tpu_torch.models.convert import init_weights
     from ai_music_generation_tpu_torch.models.gpt import GPT, GPTConfig
 
-    model = GPT(GPTConfig(**config))
+    model = GPT(GPTConfig(**config), device="cpu")
     init_weights(model, torch.Generator().manual_seed(0))
     return model.eval(), copy.deepcopy(model).to(device).eval()
 
@@ -497,6 +510,7 @@ def phase_spec_kernel_vs_twin(device, B=BATCH, S=256, H=6, D=64):
     TF32 off) within one bf16 ulp of its range, 2^-7 (2^-6 in int8_dots
     mode, where a probability may quantize to a neighbouring integer).
     Returns the largest error of each kernel."""
+    from ai_music_generation_tpu_torch.models.gpt import KVCache
     from ai_music_generation_tpu_torch.ops.spec_attention import (
         spec_attention, spec_attention_int8_dots_reference,
         spec_attention_reference, spec_attention_update, write_slab,
@@ -504,18 +518,26 @@ def phase_spec_kernel_vs_twin(device, B=BATCH, S=256, H=6, D=64):
 
     worst = {"spec_attention_update": 0.0, "spec_attention": 0.0}
     cases = 0
-    for b in (B, 3):
-        for T in (1, 5, 7, 128):
+    # at B=3 also the edges of the kernel's regimes (verify T <= 16,
+    # refresh tiles of 64 queries), with an added row that reads nothing;
+    # over the long cache a refresh takes 16-query tiles
+    for b, s_len, Ts in ((B, S, (1, 5, 7, 128)),
+                         (3, S, (1, 5, 7, 8, 16, 17, 64, 65, 128)),
+                         (3, LONG, (5, 17, 64, 65, 128))):
+        edges = b == 3
+        for T in Ts:
             Tw = -(-T // 8) * 8
             for mode in ("int8", "bf16", "int8_dots"):
                 quant, dots = mode != "bf16", mode == "int8_dots"
                 twin = (spec_attention_int8_dots_reference if dots
                         else spec_attention_reference)
-                for write, cursors in ((True, (0, 8, S - Tw)),
-                                       (False, (S - Tw,))):
+                for write, cursors in ((True, (0, 8, s_len - Tw)),
+                                       (False, (s_len - Tw,))):
                     for cursor in cursors:
-                        x = _spec_inputs(quant, T, cursor, b, S, H, D,
-                                         seed=T + cursor, device=device)
+                        x = _spec_inputs(quant, T, cursor, b + edges, s_len,
+                                         H, D, seed=T + cursor, device=device)
+                        if edges:  # the added row
+                            x["col_pos"][-1] = KVCache.INVALID_POS
                         ref_k, ref_v = x["k"].clone(), x["v"].clone()
                         if write:
                             out = spec_attention_update(
@@ -530,10 +552,17 @@ def phase_spec_kernel_vs_twin(device, B=BATCH, S=256, H=6, D=64):
                         if not (torch.equal(x["k"], ref_k)
                                 and torch.equal(x["v"], ref_v)):
                             raise AssertionError(
-                                f"cache write differs: B={b} T={T} "
-                                f"cursor={cursor} {mode}")
+                                f"cache write differs: B={b} S={s_len} T={T}"
+                                f" cursor={cursor} {mode}")
                         ref = twin(x["q"].float(), ref_k, ref_v,
                                    *[x[n] for n in SPEC_ATT[3:]], n_head=H)
+                        if edges:  # the dead row: 0 here, NaN in the twin
+                            if not torch.equal(out[-1],
+                                               torch.zeros_like(out[-1])):
+                                raise AssertionError(
+                                    f"dead row not 0: S={s_len} T={T} "
+                                    f"{mode}")
+                            out, ref = out[:-1], ref[:-1]
                         err = (out.float() - ref).abs().max().item()
                         tol = 2.0 ** (-6 if dots else -7) * \
                             ref.abs().max().item()
@@ -542,15 +571,16 @@ def phase_spec_kernel_vs_twin(device, B=BATCH, S=256, H=6, D=64):
                         if not err <= tol:
                             raise AssertionError(
                                 f"{name} differs from the fp32 twin by "
-                                f"{err} > {tol}: B={b} T={T} cursor={cursor}"
-                                f" {mode}")
+                                f"{err} > {tol}: B={b} S={s_len} T={T} "
+                                f"cursor={cursor} {mode}")
                         worst[name] = max(worst[name], err)
                         cases += 1
                         del x, ref_k, ref_v, out, ref
     print(f"spec kernel vs twin: {cases} cases (K2 and K3; int8, bf16, "
-          f"int8_dots; T 1, 5, 7, 128; cursors 0, 8, S-Tw) at B={B} and "
-          f"B=3, S={S}: writes bit-exact; out max abs err vs the fp32 twin "
-          f"{worst}")
+          f"int8_dots; cursors 0, 8, S-Tw) at B={B} (T 1, 5, 7, 128) and "
+          f"B=3 + a dead row (T 1, 5, 7, 8, 16, 17, 64, 65, 128), S={S}, and"
+          f" B=3 + a dead row over S={LONG} (T 5, 17, 64, 65, 128): writes "
+          f"bit-exact; out max abs err vs the fp32 twin {worst}")
     return worst
 
 
@@ -1033,10 +1063,10 @@ def phase_pallas_throughput(gen, prompts):
     from ai_music_generation_tpu_torch.decode.generate import Generator
     from ai_music_generation_tpu_torch.models.gpt import GPT, GPTConfig
 
-    xla_model = GPT(GPTConfig(**dict(PALLAS, attn_impl="xla")))
-    xla_model.load_state_dict(gen.model.state_dict())
     device = gen.model.transformer.wte.weight.device
-    xla = Generator(xla_model.to(device).eval(),
+    xla_model = GPT(GPTConfig(**dict(PALLAS, attn_impl="xla")), device=device)
+    xla_model.load_state_dict(gen.model.state_dict())
+    xla = Generator(xla_model.eval(),
                     max_new_tokens=gen.max_new_tokens, temperature=0.8,
                     top_k=200)
     xla.generate(prompts, seed=99)
@@ -1303,22 +1333,31 @@ def phase_probe_vs_twin(res, rows=3):
     return worst
 
 
+PROFILED = ("pallas", "bench", "spec")
+
+
 @torch.inference_mode()
-def phase_profile(B=BATCH, max_new=MAX_NEW, top=12) -> None:
-    """One generate of the pallas path (phase 12's protocol) under
-    ``torch.profiler`` (CPU and CUDA activities) after a warm-up and an
-    unprofiled generate timed with CUDA events: device self time by kernel,
-    summed only over entries whose device type is not the CPU (a CPU op's
-    entry repeats its kernels' device time), and the device's busy share of
-    the profiled wall."""
+def phase_profile(path="pallas", B=BATCH, max_new=MAX_NEW, top=12) -> None:
+    """One generate of ``path`` (pallas: phase 12's protocol, bench: phase
+    5's, spec: phase 8's) under ``torch.profiler`` (CPU and CUDA
+    activities) after a warm-up and an unprofiled generate timed with CUDA
+    events: device self time by kernel, summed only over entries whose
+    device type is not the CPU (a CPU op's entry repeats its kernels'
+    device time), and the device's busy share of the profiled wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from ai_music_generation_tpu_torch.decode.generate import Generator
+    from ai_music_generation_tpu_torch.decode.speculative import (
+        SpecGenerator,
+    )
 
-    _, model = _bench_model("cuda", PALLAS)
-    gen = Generator(model, max_new_tokens=max_new, temperature=0.8,
-                    top_k=200)
+    _, model = _bench_model("cuda", {"pallas": PALLAS, "bench": BENCH,
+                                     "spec": SPEC}[path])
+    kw = dict(max_new_tokens=max_new, temperature=0.8, top_k=200)
+    gen = (SpecGenerator(model, n_draft=N_DRAFT, **kw) if path == "spec"
+           else Generator(model, window=WINDOW, **kw) if path == "bench"
+           else Generator(model, **kw))
     prompts = torch.randint(0, model.config.vocab_size, (B, PROMPT_LEN),
                             generator=torch.Generator().manual_seed(6),
                             dtype=torch.int32)
@@ -1335,7 +1374,7 @@ def phase_profile(B=BATCH, max_new=MAX_NEW, top=12) -> None:
                    if e.device_type != DeviceType.CPU
                    and e.self_device_time_total > 0), reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    print(f"profile pallas: B={B}, {max_new} new tokens, window "
+    print(f"profile {path}: B={B}, {max_new} new tokens, window "
           f"{gen.window}; unprofiled generate {wall:.3f} s, profiled "
           f"{profiled:.3f} s; device busy {busy_ms:.1f} ms = "
           f"{busy_ms / 1e3 / profiled:.3f} of the profiled wall, "
@@ -1382,10 +1421,15 @@ def _entry(name, source, replaces, launches, err, numbers, **extra):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--profile", action="store_true",
-                        help="only build, then profile one generate of the "
-                             "pallas path (no checks, no JSON result)")
+    parser.add_argument("--profile", nargs="?", const="pallas",
+                        metavar="PATHS",
+                        help="only build, then profile one generate of each "
+                             f"of the comma-separated paths (of "
+                             f"{', '.join(PROFILED)}; default pallas): no "
+                             "checks, no JSON result")
     args = parser.parse_args(argv)
+    if args.profile and not set(args.profile.split(",")) <= set(PROFILED):
+        parser.error(f"--profile takes paths of {PROFILED}")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
@@ -1393,7 +1437,9 @@ def main(argv=None) -> int:
     card = phase_environment()
     phase_build()
     if args.profile:
-        phase_profile()
+        for path in args.profile.split(","):
+            phase_profile(path)
+            torch.cuda.empty_cache()
         return 0
     err = phase_kernel_vs_twin("cuda")
     k1 = phase_kernel_timing()
@@ -1429,7 +1475,7 @@ def main(argv=None) -> int:
     kernels.append(_entry("spec_attention_update", SPEC_SOURCE,
                           SPEC_REPLACES["spec_attention_update"],
                           spec_launches, spec_err["spec_attention_update"],
-                          verify))
+                          verify, refresh=refresh))
     del gen, prompts
     torch.cuda.empty_cache()
 

@@ -8,8 +8,6 @@ without the JAX conftest:
         tests/test_torch_cuda_kernels.py
 """
 
-import dataclasses
-
 import pytest
 import torch
 
@@ -68,7 +66,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(quant, ring, pos, B, S, seed=0):
+def _inputs(quant, ring, pos, B, S, seed=0, KH=KH):
     g = torch.Generator().manual_seed(seed)
     bf = lambda *shape: torch.randn(shape, generator=g).to(torch.bfloat16)  # noqa
     k_scale = v_scale = mask_rel = None
@@ -88,12 +86,18 @@ def _inputs(quant, ring, pos, B, S, seed=0):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kv_heads", [KH, H], ids=["gqa", "mha"])
 @pytest.mark.parametrize("ring", [False, True], ids=["lockstep", "ring"])
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
-def test_gqa_decode_kernel_matches_twin(cuda, quant, ring):
-    for B, S in ((8, 32), (3, 77), (64, 128)):
+def test_gqa_decode_kernel_matches_twin(cuda, quant, ring, kv_heads):
+    """K1 in all four modes, for G = 3 and G = 1 (MHA), pos from 0 to S-1
+    (ring mode wraps through both ends), S from one staged tile of columns
+    to eight (S=1024, the default block_size): caches and scales
+    bit-exact, the output within one bf16 ulp of its range of the twin in
+    fp32."""
+    for B, S in ((8, 32), (3, 77), (64, 128), (3, 256), (3, 1024)):
         for pos in (0, 5, 8, S - 1):
-            cpu = _inputs(quant, ring, pos, B, S)
+            cpu = _inputs(quant, ring, pos, B, S, KH=kv_heads)
             gpu = [None if a is None else a.to(cuda) for a in cpu]
             # the twin evaluated in fp32, the kernel's own precision: q and
             # the slabs upcast exactly, fresh copies of the caches
@@ -130,6 +134,27 @@ def test_gqa_decode_kernel_refuses_what_it_cannot_take(cuda):
         gqa_decode_update(args[0], k, *args[2:], pos)
     with pytest.raises(ValueError, match="pos must be"):
         gqa_decode_update(*args, pos.long())
+    with pytest.raises(ValueError, match="16-byte"):
+        k = torch.empty(args[1].numel() + 1, dtype=args[1].dtype,
+                        device=cuda)[1:].view(args[1].shape)
+        gqa_decode_update(args[0], k, *args[2:], pos)
+    # head sizes the kernel does not take: not a multiple of 16, or not a
+    # divisor of 128
+    for D in (24, 96):
+        q = torch.zeros((4, 2, D), dtype=torch.bfloat16, device=cuda)
+        kv = torch.zeros((4, 16, D), dtype=torch.bfloat16, device=cuda)
+        slab = torch.zeros((4, D), dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError, match="head size"):
+            gqa_decode_update(q, kv, kv.clone(), slab, slab, None, None, None,
+                              pos)
+    # an S whose scores, scales and validity (G + 3 floats a column) pass
+    # one block's shared memory: the launcher refuses before any launch
+    before = gqa_decode_update.launches
+    big = [None if a is None else a.to(cuda)
+           for a in _inputs(False, False, 0, 2, 16384)]
+    with pytest.raises(ValueError, match="shared memory"):
+        gqa_decode_update(*big, pos)
+    assert gqa_decode_update.launches == before
 
 
 @pytest.mark.cuda
@@ -138,16 +163,19 @@ def test_gqa_decode_kernel_refuses_what_it_cannot_take(cuda):
     dict(kv_quantized=False, n_kv_head=2),
     dict(kv_quantized=True, n_kv_head=None),
     dict(kv_quantized=False, n_kv_head=None),
-], ids=["int8-kh2", "bf16-kh2", "int8-mha", "bf16-mha"])
+    dict(block_size=1024, n_head=12, n_embd=768, bias=True),
+], ids=["int8-kh2", "bf16-kh2", "int8-mha", "bf16-mha", "default-1k"])
 def test_model_decode_on_cuda_matches_cpu(cuda, variant):
     """Prefill + 12 teacher-forced decode steps of a 2-layer model at the
-    bench widths: bf16 logits on the card within 2^-4 of their range of the
-    CPU's (8 bf16 ulps at the largest logit), and one kernel launch per
-    layer per step."""
-    cfg = GPTConfig(block_size=64, vocab_size=128, n_layer=2, n_head=6,
-                    n_embd=384, bias=False, **variant)
-    cpu_model = init_weights(GPT(cfg), torch.Generator().manual_seed(0))
-    gpu_model = GPT(dataclasses.replace(cfg)).to(cuda)
+    bench widths, and at GPTConfig's default widths and block_size (1024:
+    K1 at MHA over a 1024-column bf16 cache): bf16 logits on the card
+    within 2^-4 of their range of the CPU's (8 bf16 ulps at the largest
+    logit), and one kernel launch per layer per step."""
+    cfg = GPTConfig(**{**dict(block_size=64, vocab_size=128, n_layer=2,
+                              n_head=6, n_embd=384, bias=False), **variant})
+    cpu_model = init_weights(GPT(cfg, device="cpu"),
+                             torch.Generator().manual_seed(0))
+    gpu_model = GPT(cfg, device=cuda)
     gpu_model.load_state_dict(cpu_model.state_dict())
     ids = torch.randint(0, 128, (16, 20), dtype=torch.int32,
                         generator=torch.Generator().manual_seed(1))
@@ -165,12 +193,15 @@ def test_model_decode_on_cuda_matches_cpu(cuda, variant):
     assert int(caches[0].length) == 20
 
 
-def _spec_inputs(quant, T, cursor, B, S, H, D, seed=0):
+def _spec_inputs(quant, T, cursor, B, S, H, D, seed=0, dead_row=False):
     """CPU tensors for one verify call (the operands of
     spec_attention_update): ragged live histories outside the write window,
     a tenth of them killed, the T fresh columns at ``cursor``, every other
-    column dead (tests/test_torch_spec_attention.py::make_inputs)."""
+    column dead (tests/test_torch_spec_attention.py::make_inputs).
+    ``dead_row`` adds a row B (B + 1 rows in all) whose every column is
+    dead."""
     g = torch.Generator().manual_seed(seed)
+    B += dead_row
     HD, Tw = H * D, -(-T // 8) * 8
     bf = lambda *shape: torch.randn(shape, generator=g).to(torch.bfloat16)  # noqa
     hist = torch.cat([torch.arange(cursor), torch.arange(cursor + Tw, S)])
@@ -181,6 +212,8 @@ def _spec_inputs(quant, T, cursor, B, S, H, D, seed=0):
                                    KVCache.INVALID_POS)
     col_pos[torch.rand((B, S), generator=g) < 0.1] = KVCache.INVALID_POS
     col_pos[:, cursor:cursor + T] = nvalid[:, None] + torch.arange(T)
+    if dead_row:  # the added row reads nothing
+        col_pos[-1] = KVCache.INVALID_POS
     if quant:
         k, v, k_slab, v_slab = (torch.randint(
             -127, 128, (B, n, HD), generator=g, dtype=torch.int8)
@@ -221,19 +254,27 @@ def _spec_fp32_twin(x, n_head, int8_dots):
 @pytest.mark.parametrize("mode", ["bf16", "int8", "int8_dots"])
 @pytest.mark.parametrize("write", [False, True], ids=["k3", "k2"])
 def test_spec_attention_kernel_matches_twin(cuda, write, mode):
-    """K2 (write + attention) and K3 (attention) against the twins: the
-    slab write bit-exact; the output within one bf16 ulp of its range of
-    the twin evaluated in fp32 (2^-7), 2^-6 in int8_dots mode (the kernel
-    and the twin may round a quantized probability to neighbouring
-    integers)."""
+    """K2 (write + attention) and K3 (attention) against the twins, at
+    both regimes of the tensor-core kernel and their edges (T <= 16 verify,
+    T > 16 refresh tiles of 64 queries; over the S=1024 cache the refresh
+    takes 16-query tiles, several per (row, head), since 64 rows of scores
+    do not fit shared memory), with an added row B whose every column is
+    dead (output 0): the slab write bit-exact; the B rows' output within
+    one bf16 ulp of its range of the twin evaluated in fp32 (2^-7), 2^-6 in
+    int8_dots mode (the kernel and the twin may round a quantized
+    probability to neighbouring integers)."""
     quant, dots = mode != "bf16", mode == "int8_dots"
-    for B, S, H, D in ((3, 64, 6, 64), (8, 256, 6, 64), (2, 32, 2, 16)):
-        for T in (1, 5, 7, 13, 128):
+    for B, S, H, D in ((3, 64, 6, 64), (3, 256, 6, 64), (8, 256, 6, 64),
+                       (2, 32, 2, 16), (2, 128, 2, 128), (2, 72, 4, 32),
+                       (3, 1024, 6, 64)):
+        for T in (1, 5, 7, 8, 13, 16, 17, 64, 65, 128):
             Tw = -(-T // 8) * 8
             if Tw > S:
                 continue
-            for cursor in (0, 8, S - Tw) if write else (S - Tw,):
-                cpu = _spec_inputs(quant, T, cursor, B, S, H, D, seed=T)
+            cursors = sorted({c for c in (0, 8, S - Tw) if c <= S - Tw})
+            for cursor in cursors if write else (S - Tw,):
+                cpu = _spec_inputs(quant, T, cursor, B, S, H, D, seed=T,
+                                   dead_row=True)
                 gpu = _on(cpu, cuda)
                 if write:
                     before = spec_attention_update.launches
@@ -250,8 +291,10 @@ def test_spec_attention_kernel_matches_twin(cuda, write, mode):
                 torch.cuda.synchronize()
                 for n in ("k", "v"):  # the write, bit for bit
                     assert torch.equal(gpu[n].cpu(), cpu[n]), (n, B, T)
-                ref = _spec_fp32_twin(cpu, H, dots)
-                err = (out.float().cpu() - ref).abs().max()
+                ref = _spec_fp32_twin(cpu, H, dots)[:-1]
+                out = out.float().cpu()
+                assert torch.equal(out[-1], torch.zeros_like(out[-1]))
+                err = (out[:-1] - ref).abs().max()
                 tol = 2.0 ** (-6 if dots else -7) * ref.abs().max()
                 assert err <= tol, (B, S, T, cursor, err, tol)
 
@@ -297,6 +340,14 @@ def test_spec_attention_kernel_refuses_what_it_cannot_take(cuda):
         k = torch.empty(x["k"].numel() + 1, dtype=x["k"].dtype,
                         device=cuda)[1:].view(x["k"].shape)
         spec_attention_update(*args(k=k), n_head=6)
+    # an S whose score rows pass one block's shared memory: the launcher
+    # refuses before any launch, and the cache is not written
+    big = _on(_spec_inputs(False, 5, 8, 1, 16384, 6, 64), cuda)
+    k0, before = big["k"].clone(), spec_attention_update.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        spec_attention_update(*[big[n] for n in UPD], n_head=6)
+    assert spec_attention_update.launches == before
+    assert torch.equal(big["k"], k0)
 
 
 @pytest.mark.cuda
@@ -308,8 +359,9 @@ def test_spec_model_on_cuda_matches_cpu(cuda, quant):
     range of the CPU's, and one kernel launch per layer per call."""
     cfg = GPTConfig(block_size=64, vocab_size=128, n_layer=2, n_head=6,
                     n_embd=384, bias=False, kv_quantized=quant)
-    cpu_model = init_weights(GPT(cfg), torch.Generator().manual_seed(0))
-    gpu_model = GPT(dataclasses.replace(cfg)).to(cuda)
+    cpu_model = init_weights(GPT(cfg, device="cpu"),
+                             torch.Generator().manual_seed(0))
+    gpu_model = GPT(cfg, device=cuda)
     gpu_model.load_state_dict(cpu_model.state_dict())
     g = torch.Generator().manual_seed(1)
     B = 16
@@ -346,7 +398,8 @@ def test_spec_model_on_cuda_matches_cpu(cuda, quant):
 def test_spec_generator_on_cuda_goes_through_the_kernel(cuda):
     cfg = GPTConfig(block_size=64, vocab_size=128, n_layer=2, n_head=6,
                     n_embd=384, bias=False, kv_quantized=True)
-    model = init_weights(GPT(cfg), torch.Generator().manual_seed(0))
+    model = init_weights(GPT(cfg, device="cpu"),
+                         torch.Generator().manual_seed(0))
     model = model.to(cuda).eval()
     prompts = torch.randint(0, 128, (32, 8), dtype=torch.int32,
                             generator=torch.Generator().manual_seed(2))
@@ -489,8 +542,9 @@ def test_pallas_model_on_cuda_matches_cpu(cuda):
     of their range of the CPU's; every step launches K4 once per layer and
     K1 never."""
     cfg = GPTConfig(**PALLAS_SMALL)
-    cpu_model = init_weights(GPT(cfg), torch.Generator().manual_seed(0))
-    gpu_model = GPT(dataclasses.replace(cfg)).to(cuda)
+    cpu_model = init_weights(GPT(cfg, device="cpu"),
+                             torch.Generator().manual_seed(0))
+    gpu_model = GPT(cfg, device=cuda)
     gpu_model.load_state_dict(cpu_model.state_dict())
     ids = torch.randint(0, 128, (16, 20), dtype=torch.int32,
                         generator=torch.Generator().manual_seed(1))
@@ -512,7 +566,7 @@ def test_pallas_model_on_cuda_matches_cpu(cuda):
 def test_pallas_generator_on_cuda_launches_k4_only(cuda):
     """A Generator run (window 64: 56 steps, a refresh, 32 steps, a refresh,
     12 steps) launches K4 n_layer x 100 times and K1 none."""
-    model = init_weights(GPT(GPTConfig(**PALLAS_SMALL)),
+    model = init_weights(GPT(GPTConfig(**PALLAS_SMALL), device="cpu"),
                          torch.Generator().manual_seed(0)).to(cuda).eval()
     prompts = torch.randint(0, 128, (32, 8), dtype=torch.int32,
                             generator=torch.Generator().manual_seed(2))

@@ -147,7 +147,7 @@ def models():
     params = jax.device_get(jmodel.init(jax.random.PRNGKey(0),
                                         jnp.zeros((2, 8), jnp.int32)))
     cfg = GPTConfig(**COMMON, dtype=torch.float32)
-    model = GPT(cfg)
+    model = GPT(cfg, device="cpu")
     model.load_state_dict(state_dict_from_jax(params, cfg))
     return jmodel, params, model.eval()
 
@@ -213,7 +213,8 @@ def test_decode_dispatch_follows_jax(monkeypatch, name):
         return wrapped
 
     cfg = GPTConfig(**{**COMMON, "block_size": 16, "n_layer": 3, **overrides})
-    model = init_weights(GPT(cfg), torch.Generator().manual_seed(0)).eval()
+    model = init_weights(GPT(cfg, device="cpu"),
+                         torch.Generator().manual_seed(0)).eval()
     monkeypatch.setattr(gpt_module, "decode_attention",
                         spy("k4", gpt_module.decode_attention))
     monkeypatch.setattr(gpt_module, "gqa_decode_update",
@@ -230,7 +231,7 @@ def test_decode_dispatch_follows_jax(monkeypatch, name):
     assert calls["k4" if op == "k1" else "k1"] == 0
     if name == "pallas-mha-bf16":
         # the same weights through K1's twin: the same cache bits
-        xla = GPT(dataclasses.replace(cfg, attn_impl="xla"))
+        xla = GPT(dataclasses.replace(cfg, attn_impl="xla"), device="cpu")
         xla.load_state_dict(model.state_dict())
         ref = KVCache.create(cfg, 2, device="cpu")
         with torch.no_grad():

@@ -38,7 +38,7 @@ def models():
     jmodel = JaxGPT(JaxGPTConfig(**COMMON, dtype=jnp.float32))
     params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((2, 8), jnp.int32))
     cfg = GPTConfig(**COMMON, dtype=torch.float32)
-    model = GPT(cfg)
+    model = GPT(cfg, device="cpu")
     model.load_state_dict(state_dict_from_jax(jax.device_get(params), cfg))
     return jmodel, params, model.eval()
 
@@ -52,6 +52,32 @@ def test_greedy_tokens_equal_jax(models, window):
     want = np.asarray(JaxGenerator(jmodel, **kw).generate(params, prompts))
     got = Generator(model, **kw).generate(prompts)
     assert got.dtype == torch.int32 and got.shape == (4, 48)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_gpt_without_a_card_raises_naming_device_cpu(monkeypatch):
+    """GPT(cfg) with no ``device`` builds on the card; without one it
+    raises and names the CPU argument, as KVCache.create does."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        GPT(GPTConfig(**COMMON))
+
+
+@pytest.mark.parametrize("device", ["cpu", torch.device("cpu")],
+                         ids=["str", "torch.device"])
+def test_cpu_model_generates_on_the_cpu(models, device):
+    """GPT(cfg, device="cpu") holds every parameter on the CPU, and its
+    Generator decodes there with the JAX greedy tokens."""
+    jmodel, params, model = models
+    cpu = GPT(model.config, device=device)
+    assert all(p.device.type == "cpu" for p in cpu.parameters())
+    cpu.load_state_dict(model.state_dict())
+    prompts = np.random.default_rng(6).integers(0, 96, (3, 8)).astype(
+        np.int32)
+    kw = dict(max_new_tokens=12, temperature=0.0, top_k=None)
+    got = Generator(cpu.eval(), **kw).generate(prompts)
+    assert got.device.type == "cpu"
+    want = np.asarray(JaxGenerator(jmodel, **kw).generate(params, prompts))
     np.testing.assert_array_equal(got.numpy(), want)
 
 

@@ -59,7 +59,7 @@ def jax_params(request):
 
 def _port(kh, params, dtype="bf16"):
     _, cfg = _configs(kh, dtype)
-    model = GPT(cfg)
+    model = GPT(cfg, device="cpu")
     model.load_state_dict(state_dict_from_jax(params, cfg))
     return model.eval()
 
@@ -86,7 +86,7 @@ def test_state_dict_matches_nanogpt_export(jax_params):
         np.testing.assert_array_equal(got[name].numpy(), value, err_msg=name)
     assert got["lm_head.weight"] is got["transformer.wte.weight"]
     # the names are the port's own module names (strict load)
-    GPT(cfg).load_state_dict(got)
+    GPT(cfg, device="cpu").load_state_dict(got)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -169,7 +169,8 @@ def test_num_params_matches_jax(jax_params):
 
 def test_crop_block_size_and_length_check():
     _, cfg = _configs("kh2")
-    model = init_weights(GPT(cfg), torch.Generator().manual_seed(0))
+    model = init_weights(GPT(cfg, device="cpu"),
+                         torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="exceeds block_size"):
         model(torch.zeros((1, 33), dtype=torch.int32))
     model.crop_block_size(16)
@@ -184,10 +185,11 @@ def test_crop_block_size_and_length_check():
 
 def test_init_weights_follows_jax_scheme():
     _, cfg = _configs("kh2", bias=True)
-    model = GPT(cfg)
+    model = GPT(cfg, device="cpu")
     a = init_weights(model, torch.Generator().manual_seed(0))
     sd = {k: v.clone() for k, v in a.state_dict().items()}
-    b = init_weights(GPT(cfg), torch.Generator().manual_seed(0))
+    b = init_weights(GPT(cfg, device="cpu"),
+                     torch.Generator().manual_seed(0))
     for k, v in b.state_dict().items():  # seeded: reproducible
         assert torch.equal(v, sd[k]), k
     h0 = model.transformer.h[0]
@@ -203,4 +205,4 @@ def test_init_weights_follows_jax_scheme():
 def test_refuses_unported_features():
     for kw in ({"n_expert": 4}, {"seq_axis": "seq"}):
         with pytest.raises(NotImplementedError):
-            GPT(dataclasses.replace(_configs("kh2")[1], **kw))
+            GPT(dataclasses.replace(_configs("kh2")[1], **kw), device="cpu")

@@ -23,6 +23,7 @@ from ai_music_generation_tpu.ops.gqa_decode import (
 )
 from ai_music_generation_tpu_torch.models.gpt import quantize_int8, scale_write
 from ai_music_generation_tpu_torch.ops.gqa_decode import (
+    _check_cuda,
     gqa_decode_reference,
     gqa_decode_update,
 )
@@ -174,3 +175,58 @@ def test_wrapper_refuses_other_devices():
     with pytest.raises(ValueError, match="cuda or cpu"):
         gqa_decode_update(*x, torch.zeros((), dtype=torch.int32,
                                           device="meta"))
+
+
+def _check_args(S=128, D=64, KH=2, H=6, quant=False, ring=False):
+    """CPU operands of one decode step, zeros, for the wrapper's checks."""
+    bf = torch.bfloat16
+    cache = torch.int8 if quant else bf
+    scale = (torch.zeros((2, KH, S), dtype=bf) if quant else None)
+    return [torch.zeros((2, H, D), dtype=bf),
+            torch.zeros((2, S, KH * D), dtype=cache),
+            torch.zeros((2, S, KH * D), dtype=cache),
+            torch.zeros((2, KH * D), dtype=bf),
+            torch.zeros((2, KH * D), dtype=bf), scale,
+            None if scale is None else scale.clone(),
+            torch.zeros((2, S), dtype=torch.int32) if ring else None,
+            torch.zeros((), dtype=torch.int32)]
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("ring", [False, True], ids=["lockstep", "ring"])
+def test_kernel_checks_pass_what_it_takes(quant, ring):
+    """The wrapper's checks (run before any launch, here on CPU tensors)
+    pass the operands of every mode and return the launch's shape; the
+    kernel's shared memory is its own launcher's to check, so a long S
+    passes here."""
+    for S in (128, 1024, 4096):
+        got = _check_cuda(*_check_args(S, quant=quant, ring=ring))
+        assert got == (2, S, 6, 2, 64, quant)
+
+
+@pytest.mark.parametrize("edit,match", [
+    (dict(D=24), "head size"),   # not a multiple of 16
+    (dict(D=96), "head size"),   # not a divisor of 128
+    (dict(KH=4), "multiple of n_kv_head"),
+    (dict(k_scale_only=True), "both be given"),
+    (dict(dtype=True), "q must be"),
+    (dict(misaligned=True), "16-byte"),
+], ids=["D24", "D96", "KH4", "one-scale", "q-fp32", "misaligned"])
+def test_kernel_limits_are_checked_before_launch(edit, match):
+    """What the kernel cannot take raises before any launch: a head size
+    that is not a multiple of 16 dividing 128, n_head not a multiple of
+    n_kv_head, one scale without the other, a q that is not bf16, a cache
+    off a 16-byte boundary."""
+    edit = dict(edit)
+    flags = {n: edit.pop(n, False)
+             for n in ("k_scale_only", "dtype", "misaligned")}
+    args = _check_args(**edit)
+    if flags["k_scale_only"]:
+        args[6] = torch.zeros((2, 2, 128), dtype=torch.bfloat16)
+    if flags["dtype"]:
+        args[0] = args[0].float()
+    if flags["misaligned"]:
+        k = args[1]
+        args[1] = torch.empty(k.numel() + 1, dtype=k.dtype)[1:].view(k.shape)
+    with pytest.raises(ValueError, match=match):
+        _check_cuda(*args)

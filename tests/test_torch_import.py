@@ -68,10 +68,11 @@ def test_port_imports_without_triton_or_nvcc():
         "decode_attention\n"
         "cfg = GPTConfig(block_size=16, vocab_size=16, n_layer=1, n_head=2, "
         "n_embd=32)\n"
-        "GPT(cfg)(torch.zeros((1, 4), dtype=torch.int32))\n"
-        "Generator(GPT(dataclasses.replace(cfg, attn_impl='pallas')), "
-        "max_new_tokens=4).generate([[1, 2, 3]])\n"
-        "SpecGenerator(GPT(cfg), max_new_tokens=4).generate([[1, 2, 3]])\n"
+        "GPT(cfg, device='cpu')(torch.zeros((1, 4), dtype=torch.int32))\n"
+        "Generator(GPT(dataclasses.replace(cfg, attn_impl='pallas'), "
+        "device='cpu'), max_new_tokens=4).generate([[1, 2, 3]])\n"
+        "SpecGenerator(GPT(cfg, device='cpu'), max_new_tokens=4).generate("
+        "[[1, 2, 3]])\n"
         "from ai_music_generation_tpu_torch.experiments.int4_kernel_probe "
         "import run_variant\n"
         "from ai_music_generation_tpu_torch.ops.lean_attention import "

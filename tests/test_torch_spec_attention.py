@@ -39,8 +39,10 @@ from ai_music_generation_tpu_torch.models.gpt import (
     scale_write,
 )
 from ai_music_generation_tpu_torch.ops.spec_attention import (
+    _check_cuda,
     spec_attention,
     spec_attention_int8_dots_reference,
+    spec_attention_mma_model,
     spec_attention_reference,
     spec_attention_update,
 )
@@ -274,3 +276,93 @@ def test_padded_slab_quantize_and_scale_window_bit_exact(T, cursor, dtype):
     got = scale_write(torch.from_numpy(buf).to(torch.bfloat16), s,
                       torch.tensor(cursor, dtype=torch.int32))
     np.testing.assert_array_equal(_np(got), _np(want))
+
+
+@pytest.mark.parametrize("softmax", ["sharp", "flat"])
+@pytest.mark.parametrize("quant", [True, False], ids=["int8", "bf16cache"])
+@pytest.mark.parametrize("T", [5, 128])
+def test_mma_numerics_model_within_the_kernel_yardstick(T, quant, softmax):
+    """The PV roundings of the tensor-core kernel (fp16 P x row factor
+    over int8 V; bf16 hi + lo P over bf16 V), evaluated on the CPU, stay
+    within chip_smoke's yardstick of the fp32 twin: one bf16 ulp, 2^-7, of
+    the output's range. Inputs have phase 6's distributions (int8 values
+    over [-127, 127] with scales 0.002-0.02, or normal bf16 caches; normal
+    q), q scaled by 16 (sharp) or 1/64 (flat); a row whose every column is
+    dead gives 0."""
+    x = make_inputs(B=4, T=T, H=2, S=256, quant=quant, cursor=0 if T > 8
+                    else None, seed=T + quant)
+    x["q"] = _bf16(x["q"] * (16.0 if softmax == "sharp" else 1 / 64))
+    x["col_pos"][0] = INVALID  # row 0 reads nothing
+    t = _torch(x)
+    args = _args(t, *ATT)
+    got = spec_attention_mma_model(*args, n_head=2).float()
+    args[0] = args[0].float()
+    want = spec_attention_reference(*args, n_head=2)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    assert torch.isnan(want[0]).all()  # the twin has no dead-row rule
+    err = (got[1:] - want[1:]).abs().max()
+    assert err <= 2.0 ** -7 * want[1:].abs().max(), err
+
+
+def _check_args(T=5, S=64, H=2, D=64, quant=True, write=True):
+    """CPU operands of one verify call, zeros, for the wrapper's checks,
+    as a dict of spec_attention_update's arguments."""
+    bf, Tw, HD = torch.bfloat16, -(-T // 8) * 8, H * D
+    cache = torch.int8 if quant else bf
+    scale = (lambda: torch.zeros((2, H, S), dtype=bf)) if quant else None
+    return dict(
+        q=torch.zeros((2, T, HD), dtype=bf),
+        k=torch.zeros((2, S, HD), dtype=cache),
+        v=torch.zeros((2, S, HD), dtype=cache),
+        k_slab=torch.zeros((2, Tw, HD), dtype=cache) if write else None,
+        v_slab=torch.zeros((2, Tw, HD), dtype=cache) if write else None,
+        k_scale=scale and scale(), v_scale=scale and scale(),
+        col_pos=torch.zeros((2, S), dtype=torch.int32),
+        lengths=torch.zeros((2,), dtype=torch.int32),
+        cursor=torch.zeros((), dtype=torch.int32) if write else None)
+
+
+@pytest.mark.parametrize("write", [True, False], ids=["k2", "k3"])
+@pytest.mark.parametrize("quant", [True, False], ids=["int8", "bf16cache"])
+def test_kernel_checks_pass_what_it_takes(quant, write):
+    """The wrapper's checks (run before any launch, here on CPU tensors)
+    pass the operands of both regimes, verify and refresh, and return the
+    launch's shape; the regime and the shared memory are the launcher's
+    (csrc/spec_attention.cu), so a long cache passes here."""
+    for T, S in ((5, 256), (16, 256), (17, 256), (128, 256), (128, 1024)):
+        x = _check_args(T, S, quant=quant, write=write)
+        got = _check_cuda(*x.values(), 2, False)
+        assert got == (2, T, S, 64, quant)
+
+
+@pytest.mark.parametrize("edit,match", [
+    (dict(D=24), "head size"),     # not a multiple of 16
+    (dict(D=96), "head size"),     # not a divisor of 128
+    (dict(n_head=5), "multiple of n_head"),
+    (dict(quant=False, int8_dots=True), "int8_dots needs"),
+    (dict(T=13, S=8), "write width"),
+    (dict(slab_dtype=True), "k_slab must be"),
+    (dict(misaligned=True), "16-byte"),
+    (dict(int_cursor=True), "cursor must be a tensor"),
+], ids=["D24", "D96", "n_head5", "dots-bf16", "Tw>S", "slab-dtype",
+        "misaligned", "int-cursor"])
+def test_kernel_limits_are_checked_before_launch(edit, match):
+    """What the kernel cannot take raises before any launch: a head size
+    that is not a multiple of 16 dividing 128, HD not a multiple of n_head,
+    int8_dots over a bf16 cache, a write wider than the cache, a slab not
+    in the cache's dtype, a cache off a 16-byte boundary, a cursor that is
+    not a device scalar."""
+    edit = dict(edit)
+    n_head, dots = edit.pop("n_head", 2), edit.pop("int8_dots", False)
+    flags = {n: edit.pop(n, False)
+             for n in ("slab_dtype", "misaligned", "int_cursor")}
+    x = _check_args(**edit)
+    if flags["slab_dtype"]:
+        x["k_slab"] = x["k_slab"].to(torch.bfloat16)
+    if flags["misaligned"]:
+        v = x["v"]
+        x["v"] = torch.empty(v.numel() + 1, dtype=v.dtype)[1:].view(v.shape)
+    if flags["int_cursor"]:
+        x["cursor"] = 0
+    with pytest.raises(ValueError, match=match):
+        _check_cuda(*x.values(), n_head, dots)

@@ -66,7 +66,7 @@ def _models(params, dtype="fp32", **kw):
     jd, td = DTYPES[dtype]
     jmodel = JaxGPT(JaxGPTConfig(**COMMON, dtype=jd, **kw))
     cfg = GPTConfig(**COMMON, dtype=td, **kw)
-    model = GPT(cfg)
+    model = GPT(cfg, device="cpu")
     model.load_state_dict(state_dict_from_jax(params, cfg))
     return jmodel, model.eval()
 
@@ -181,13 +181,14 @@ def test_spec_cache_refuses_gqa_and_unaligned_length():
     with pytest.raises(ValueError, match="multi-head"):
         KVCache.create(cfg, 2, device="cpu", spec=True)
     with pytest.raises(ValueError, match="multi-head"):
-        SpecGenerator(GPT(cfg), max_new_tokens=4).generate(
+        SpecGenerator(GPT(cfg, device="cpu"), max_new_tokens=4).generate(
             np.zeros((1, 4), np.int32))
     with pytest.raises(ValueError, match="8-aligned"):
         KVCache.create(GPTConfig(**COMMON), 2, max_len=60, device="cpu",
                        spec=True)
     with pytest.raises(ValueError, match="no room"):
-        SpecGenerator(GPT(GPTConfig(**COMMON)), n_draft=4, refresh=4)
+        SpecGenerator(GPT(GPTConfig(**COMMON), device="cpu"), n_draft=4,
+                      refresh=4)
 
 
 def test_prompt_lookup_drafts_bit_exact_vs_jax():
