@@ -1,2 +1,3 @@
-"""Measurement harnesses of the port, each a counterpart of a script in
-``docs/experiments/``; run with ``python -m``."""
+"""Measurement harnesses of the port: counterparts of scripts in
+``docs/experiments/``, and measurements of its kernels' build choices; run
+with ``python -m``."""

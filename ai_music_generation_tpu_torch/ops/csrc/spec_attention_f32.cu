@@ -1,313 +1,30 @@
-// Speculative-verify attention for an fp32 model: fp32 q, an fp32 or int8
-// spec KV cache, T query tokens per row, column s readable by query t iff
-// col_pos[b, s] <= lengths[b] + t, optionally preceded by the write of the
-// step's Tw-column K/V slab at the shared cursor.
+// Speculative-verify attention for an fp32 model: fp32 q and output over an
+// int8 spec KV cache (bf16 scales) or an fp32 one. This source instantiates
+// the tensor-core kernel of spec_attention_mma.cuh for fp32 q and output;
+// its note gives the design, what bounds it and the split passes that keep
+// the products at fp32 accuracy on the tensor cores (fp16 hi + lo of q and
+// P over an int8 cache, 3xTF32 over an fp32 one). spec_attention.cu
+// instantiates the same kernel for bf16, in its own nvcc process.
 //
 // Replaces, at fp32, the TPU kernels ai_music_generation_tpu/ops/
 // spec_attention.py::_spec_attention_update (slab write + attention) and
 // _spec_attention (attention alone): the Pallas kernel computes in q's
-// dtype, so an fp32 model runs its dots in fp32. The bf16 model's kernel
-// (tensor cores) is csrc/spec_attention.cu; the contract and the plain
-// PyTorch twin live in ai_music_generation_tpu_torch/ops/spec_attention.py.
-//
-// What bounds it: at a verify step (T=5) device-memory bytes, as the bf16
-// kernel: 2T FLOP per cache value. At a refresh (T=128) the fp32 products,
-// which have no tensor-core path at full fp32 precision: 2 * T * live
-// columns * D FLOP per (row, head) for each of QK^T and PV, on CUDA cores at
-// their 67 TFLOP/s. No repo configuration decodes in fp32 at scale (the CLIs
-// select fp32 for correctness runs and tests), so the design is the simple
-// CUDA-core one of the int8_dots kernel (csrc/spec_attention.cu), not a
-// tuned one.
-//
-// Design: one block of 128 threads per (row b, head h, tile of 8 queries);
-// - the slab write: the first query tile of (b, h) copies head h's slice of
-//   the Tw fresh columns into the cache with 16-byte vectors; every block
-//   reads the fresh columns from the slab, never from the cache being
-//   written (no write-then-read race);
-// - scores: one thread per column, q read from shared memory (a broadcast),
-//   the column's K slice streamed in 16-byte pieces; columns no query of the
-//   tile may read are never loaded;
-// - softmax: fp32, one warp per query row, exact (max, exp, sum); x v_scale
-//   with an int8 cache. A query whose every column is dead gets 0;
-// - PV: warp w sums the columns s = w (mod 4), lane l the D/32 values from
-//   l*D/32 (lanes past the head idle when D = 16); the warps' sums meet in
-//   shared memory (reusing the score buffer).
-//
-// Numerics: every product and sum in fp32; int8 cache values are exact in
-// fp32 and the scales factor onto the scores (x k_scale) and the
-// probabilities (x v_scale), as the twin does; the output is fp32. The slab
-// write is a bit-exact copy.
+// dtype, so an fp32 model runs its products at fp32. The contract and the
+// plain PyTorch twin live in ai_music_generation_tpu_torch/ops/
+// spec_attention.py.
 //
 // Build with nvcc -gencode arch=compute_90a,code=sm_90a and WITHOUT
-// --use_fast_math (expf at full accuracy).
+// --use_fast_math (exp2f, and the IEEE 1/sum).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "spec_attention_mma.cuh"
 
-#include <climits>
-#include <type_traits>
-
-#include "common.cuh"
-
-namespace {
-
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTQ = 8;  // queries per block
-constexpr size_t kSmemLimit = 227 * 1024;
-constexpr int kTooLarge = -1;  // returned when a block's buffers exceed shared memory
-
-// floats of the [kTQ*S] score region, which PV's partial sums reuse
-__host__ __device__ constexpr int p_len(int S, int D) {
-  return kTQ * S > kWarps * kTQ * D ? kTQ * S : kWarps * kTQ * D;
-}
-
-// Grid: one block per (query tile, head, row), the query tile fastest.
-// Dynamic shared memory: fp32 q [kTQ*D], p [p_len] (scores, probabilities,
-// then PV partial sums), the row's col_pos [S] as int.
-template <typename CacheT, int kD>
-__global__ void __launch_bounds__(kThreads) spec_attention_f32_kernel(
-    const float* __restrict__ q,             // [B, T, H*D]
-    CacheT* __restrict__ k,                  // [B, S, H*D], slab written at cursor
-    CacheT* __restrict__ v,                  // [B, S, H*D], slab written at cursor
-    const CacheT* __restrict__ k_slab,       // [B, Tw, H*D] or null (no write)
-    const CacheT* __restrict__ v_slab,       // [B, Tw, H*D] or null
-    const __nv_bfloat16* __restrict__ k_scale,  // [B, H, S] (int8 cache) or null
-    const __nv_bfloat16* __restrict__ v_scale,  // [B, H, S] (int8 cache) or null
-    const int32_t* __restrict__ col_pos,     // [B, S]
-    const int32_t* __restrict__ lengths,     // [B]
-    const int32_t* __restrict__ cursor_ptr,  // scalar, or null without a slab
-    float* __restrict__ out,                 // [B, T, H*D]
-    int T, int S, int H) {
-  constexpr bool kQuant = std::is_same<CacheT, int8_t>::value;
-  constexpr int kElems = 16 / sizeof(CacheT);  // cache values per 16 bytes
-  constexpr int kChunks = kD / kElems;         // 16-byte pieces per column slice
-  constexpr int kE = kD >= 32 ? kD / 32 : 1;   // values per lane in PV
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* q_s = reinterpret_cast<float*>(smem_raw);
-  float* p_s = q_s + kTQ * kD;
-  int* cp_s = reinterpret_cast<int*>(p_s + p_len(S, kD));
-
-  const int n_qt = (T + kTQ - 1) / kTQ;
-  int blk = blockIdx.x;
-  const int qt = blk % n_qt;
-  blk /= n_qt;
-  const int h = blk % H;
-  const int b = blk / H;
-  const int t0 = qt * kTQ;
-  const int nq = min(kTQ, T - t0);
-  const int HD = H * kD;
-  const int hoff = h * kD;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  float* ob = out + (static_cast<int64_t>(b) * T + t0) * HD + hoff;
-
-  int cursor = 0, Tw = 0;
-  if (k_slab != nullptr) {
-    cursor = *cursor_ptr;
-    Tw = (T + 7) / 8 * 8;
-    if (cursor < 0 || cursor > S - Tw) {
-      // no window to write: write nothing and make the output NaN, so a
-      // caller that broke the cursor + Tw <= S invariant cannot miss it
-      for (int i = tid; i < nq * kD; i += kThreads)
-        ob[static_cast<int64_t>(i / kD) * HD + i % kD] = NAN;
-      return;
-    }
-  }
-  CacheT* kb = k + static_cast<int64_t>(b) * S * HD;
-  CacheT* vb = v + static_cast<int64_t>(b) * S * HD;
-  const CacheT* ksb = k_slab ? k_slab + static_cast<int64_t>(b) * Tw * HD : nullptr;
-  const CacheT* vsb = v_slab ? v_slab + static_cast<int64_t>(b) * Tw * HD : nullptr;
-  // where column s of this row is read from: the slab inside the write
-  // window (Tw == 0 without a slab), the cache elsewhere
-  auto col = [&](const CacheT* cache_row, const CacheT* slab_row, int s) -> const CacheT* {
-    const unsigned j = static_cast<unsigned>(s - cursor);
-    return j < static_cast<unsigned>(Tw) ? slab_row + static_cast<int64_t>(j) * HD + hoff
-                                         : cache_row + static_cast<int64_t>(s) * HD + hoff;
-  };
-
-  // ---- 1. the slab write: head h's slice of the Tw columns, by tile 0
-  if (ksb != nullptr && qt == 0) {
-    for (int i = tid; i < Tw * kChunks; i += kThreads) {
-      const int j = i / kChunks;
-      const int64_t src = static_cast<int64_t>(j) * HD + hoff + (i % kChunks) * kElems;
-      const int64_t dst = static_cast<int64_t>(cursor + j) * HD + hoff + (i % kChunks) * kElems;
-      *reinterpret_cast<int4*>(kb + dst) = *reinterpret_cast<const int4*>(ksb + src);
-      *reinterpret_cast<int4*>(vb + dst) = *reinterpret_cast<const int4*>(vsb + src);
-    }
-  }
-
-  // ---- 2. the query tile (rows past nq zeroed) and the row's col_pos
-  const float* qb = q + (static_cast<int64_t>(b) * T + t0) * HD + hoff;
-  for (int i = tid; i < kTQ * kD; i += kThreads) {
-    const int t = i / kD;
-    q_s[i] = t < nq ? qb[static_cast<int64_t>(t) * HD + i % kD] : 0.f;
-  }
-  const int len = lengths[b];
-  for (int s = tid; s < S; s += kThreads) cp_s[s] = col_pos[static_cast<int64_t>(b) * S + s];
-  __syncthreads();
-
-  // ---- 3. scores, one thread per column; columns no query of the tile
-  // may read are never loaded
-  const float sm_scale = 1.f / sqrtf(static_cast<float>(kD));
-  const int q_last = len + t0 + nq - 1;  // position of the tile's last query
-  const int64_t srow = (static_cast<int64_t>(b) * H + h) * S;
-  for (int s = tid; s < S; s += kThreads) {
-    const int cp = cp_s[s];
-    if (cp > q_last) {
-#pragma unroll
-      for (int t = 0; t < kTQ; ++t) p_s[t * S + s] = -INFINITY;
-      continue;
-    }
-    const int4* kc = reinterpret_cast<const int4*>(col(kb, ksb, s));
-    float acc[kTQ];
-#pragma unroll
-    for (int t = 0; t < kTQ; ++t) acc[t] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < kChunks; ++c) {
-      float kv[kElems];
-      unpack(kc[c], kv);
-#pragma unroll
-      for (int t = 0; t < kTQ; ++t) {
-        const float* qr = q_s + t * kD + c * kElems;
-        float a = acc[t];
-#pragma unroll
-        for (int e = 0; e < kElems; ++e) a = fmaf(qr[e], kv[e], a);
-        acc[t] = a;
-      }
-    }
-    const float ks = kQuant ? __bfloat162float(k_scale[srow + s]) : 1.f;
-#pragma unroll
-    for (int t = 0; t < kTQ; ++t)
-      p_s[t * S + s] = cp <= len + t0 + t ? acc[t] * sm_scale * ks : -INFINITY;
-  }
-  __syncthreads();
-
-  // ---- 4. fp32 softmax per query (one warp per row), x v_scale
-  for (int t = warp; t < nq; t += kWarps) {
-    float* pr = p_s + t * S;
-    float m = -INFINITY;
-    for (int s = lane; s < S; s += 32) m = fmaxf(m, pr[s]);
-    m = warp_max(m);
-    if (m == -INFINITY) {  // every column dead: the query reads nothing
-      for (int s = lane; s < S; s += 32) pr[s] = 0.f;
-      continue;
-    }
-    float sum = 0.f;
-    for (int s = lane; s < S; s += 32) {
-      const float e = expf(pr[s] - m);  // exp(-inf) = 0 for masked columns
-      pr[s] = e;
-      sum += e;
-    }
-    const float inv = 1.f / warp_sum(sum);
-    for (int s = lane; s < S; s += 32) {
-      float p = pr[s] * inv;
-      if constexpr (kQuant) p *= __bfloat162float(v_scale[srow + s]);
-      pr[s] = p;
-    }
-  }
-  __syncthreads();
-
-  // ---- 5. PV: warp w sums the columns s = w (mod kWarps), lane l the kE
-  // values of V from l*kE; columns no query of the tile may read are
-  // neither loaded nor multiplied
-  const int d_lane = lane * kE;
-  const bool lane_on = d_lane < kD;
-  float acc[kTQ][kE];
-#pragma unroll
-  for (int t = 0; t < kTQ; ++t)
-#pragma unroll
-    for (int e = 0; e < kE; ++e) acc[t][e] = 0.f;
-  for (int s = warp; s < S; s += kWarps) {
-    if (cp_s[s] > q_last || !lane_on) continue;
-    const CacheT* vc = col(vb, vsb, s) + d_lane;
-    float vv[kE];
-#pragma unroll
-    for (int e = 0; e < kE; ++e) vv[e] = static_cast<float>(vc[e]);
-#pragma unroll
-    for (int t = 0; t < kTQ; ++t) {
-      const float p = p_s[t * S + s];
-#pragma unroll
-      for (int e = 0; e < kE; ++e) acc[t][e] = fmaf(p, vv[e], acc[t][e]);
-    }
-  }
-  __syncthreads();  // every warp is done reading p_s: reuse it for the sums
-  float* red_s = p_s;  // [kWarps][kTQ][kD]
-  if (lane_on) {
-#pragma unroll
-    for (int t = 0; t < kTQ; ++t)
-#pragma unroll
-      for (int e = 0; e < kE; ++e) red_s[(warp * kTQ + t) * kD + d_lane + e] = acc[t][e];
-  }
-  __syncthreads();
-  for (int i = tid; i < nq * kD; i += kThreads) {
-    float y = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) y += red_s[w * kTQ * kD + i];
-    ob[static_cast<int64_t>(i / kD) * HD + i % kD] = y;
-  }
-}
-
-size_t smem_bytes(int S, int D) {
-  return sizeof(float) * (static_cast<size_t>(kTQ) * D + p_len(S, D) + static_cast<size_t>(S));
-}
-
-template <typename CacheT, int kD>
-int launch_d(const void* q, void* k, void* v, const void* k_slab, const void* v_slab,
-             const void* k_scale, const void* v_scale, const void* col_pos, const void* lengths,
-             const void* cursor, void* out, int B, int T, int S, int H, cudaStream_t stream) {
-  const size_t smem = smem_bytes(S, kD);
-  if (smem > kSmemLimit) return kTooLarge;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(spec_attention_f32_kernel<CacheT, kD>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  const int64_t blocks = static_cast<int64_t>((T + kTQ - 1) / kTQ) * H * B;
-  if (blocks < 1 || blocks > INT_MAX) return cudaErrorInvalidConfiguration;
-  spec_attention_f32_kernel<CacheT, kD><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<CacheT*>(k), static_cast<CacheT*>(v),
-      static_cast<const CacheT*>(k_slab), static_cast<const CacheT*>(v_slab),
-      static_cast<const __nv_bfloat16*>(k_scale), static_cast<const __nv_bfloat16*>(v_scale),
-      static_cast<const int32_t*>(col_pos), static_cast<const int32_t*>(lengths),
-      static_cast<const int32_t*>(cursor), static_cast<float*>(out), T, S, H);
-  return cudaGetLastError();
-}
-
-// the head size is a template parameter: 16, 32, 64 or 128
-template <typename CacheT>
-int launch(const void* q, void* k, void* v, const void* k_slab, const void* v_slab,
-           const void* k_scale, const void* v_scale, const void* col_pos, const void* lengths,
-           const void* cursor, void* out, int B, int T, int S, int H, int D,
-           cudaStream_t stream) {
-#define SPEC_F32_LAUNCH(DD)                                                                   \
-  case DD:                                                                                    \
-    return launch_d<CacheT, DD>(q, k, v, k_slab, v_slab, k_scale, v_scale, col_pos, lengths, \
-                                cursor, out, B, T, S, H, stream);
-  switch (D) {
-    SPEC_F32_LAUNCH(16)
-    SPEC_F32_LAUNCH(32)
-    SPEC_F32_LAUNCH(64)
-    SPEC_F32_LAUNCH(128)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef SPEC_F32_LAUNCH
-}
-
-}  // namespace
-
-// Plain C entry point (loaded with ctypes). Every pointer is a device
-// pointer to a contiguous tensor: q and out fp32, the cache and the slabs
-// int8 when quantized is set (k_scale/v_scale bf16 then, else null), fp32
-// otherwise. k_slab, v_slab and cursor are null for the attention alone and
-// all set for the write + attention. Returns the cudaError_t of the launch
-// (0 = launched), or -1 without launching when the block's buffers exceed
-// shared memory.
+// Plain C entry point of an fp32 q (loaded with ctypes). Every pointer is a
+// device pointer to a contiguous tensor: q and out fp32, the cache and the
+// slabs int8 when quantized is set (k_scale/v_scale bf16 then, else null),
+// fp32 otherwise. k_slab, v_slab and cursor are null for the attention
+// alone and all set for the write + attention. Returns the cudaError_t of
+// the launch (0 = launched), or -1 without launching when the block's
+// buffers exceed shared memory.
 extern "C" int spec_attention_f32_launch(const void* q, void* k, void* v, const void* k_slab,
                                          const void* v_slab, const void* k_scale,
                                          const void* v_scale, const void* col_pos,
@@ -316,8 +33,8 @@ extern "C" int spec_attention_f32_launch(const void* q, void* k, void* v, const 
                                          void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (quantized)
-    return launch<int8_t>(q, k, v, k_slab, v_slab, k_scale, v_scale, col_pos, lengths, cursor,
-                          out, B, T, S, H, D, st);
-  return launch<float>(q, k, v, k_slab, v_slab, k_scale, v_scale, col_pos, lengths, cursor, out,
-                       B, T, S, H, D, st);
+    return launch_mma<float, int8_t>(q, k, v, k_slab, v_slab, k_scale, v_scale, col_pos,
+                                     lengths, cursor, out, B, T, S, H, D, st);
+  return launch_mma<float, float>(q, k, v, k_slab, v_slab, k_scale, v_scale, col_pos, lengths,
+                                  cursor, out, B, T, S, H, D, st);
 }

@@ -4,7 +4,7 @@ per row, each column readable under its logical position.
 Port of ``ai_music_generation_tpu/ops/spec_attention.py`` (the Pallas
 kernels ``_spec_attention`` and ``_spec_attention_update``). On CUDA tensors
 :func:`spec_attention` and :func:`spec_attention_update` launch the
-hand-written kernel in ``csrc/spec_attention.cu``; on CPU tensors they run
+hand-written kernels of ``csrc/spec_attention*``; on CPU tensors they run
 the plain twins below. Nothing falls back: a CUDA call that the kernel
 cannot take raises.
 
@@ -35,14 +35,19 @@ The CUDA kernels take ``q`` (and the slabs of an unquantized cache) in one
 type, bf16 or fp32 (an fp32 model: the Pallas kernel computes in q's
 dtype), an int8 cache or one in that type, a head size D that divides 128
 and is a multiple of 16, any ``cursor`` with ``0 <= cursor <= S - Tw``, and
-an S whose block buffers fit shared memory. A bf16 ``q`` goes to
-``csrc/spec_attention.cu`` (S up to about 7,000 at T=5, 2,900 at T >= 16;
-mma_smem_bytes): outside ``int8_dots`` it runs on the tensor cores in one of
-two regimes that its launcher chooses from T, 16 query rows per block for
-T <= 16 (a verify step), 64 for a refresh where those buffers fit (16 over
-a long cache). An fp32 ``q`` goes to the CUDA-core kernel of
-``csrc/spec_attention_f32.cu`` (S up to about 7,000), which computes in
-fp32 throughout; ``int8_dots`` takes a bf16 ``q`` only.
+an S whose block buffers fit shared memory. Outside ``int8_dots`` both
+types run the tensor-core kernel of ``csrc/spec_attention_mma.cuh`` in one
+of two regimes that its launcher chooses from T, 16 query rows per block
+for T <= 16 (a verify step), 64 for a refresh where those buffers fit (16
+over a long cache); S goes up to about 7,000 at T=5 and 2,900 at T >= 16
+(6,200 and 2,500 over an fp32 cache; mma_smem_bytes). A bf16 ``q`` enters
+through ``csrc/spec_attention.cu``. An fp32 ``q`` enters through
+``csrc/spec_attention_f32.cu`` and keeps fp32 accuracy on the tensor cores
+with split operands: over an int8 cache q and the probabilities each as two
+fp16 parts, hi and lo (two passes per product), over an fp32 cache 3xTF32
+(three);
+:func:`spec_attention_f32_mma_model` evaluates those roundings on the CPU.
+``int8_dots`` takes a bf16 ``q`` only.
 """
 
 from __future__ import annotations
@@ -152,6 +157,79 @@ def spec_attention_mma_model(q, k, v, k_scale, v_scale, col_pos, lengths,
     return out.transpose(1, 2).reshape(B, T, HD).to(torch.bfloat16)
 
 
+def split_f16(x):
+    """fp32 ``x`` as fp16 hi + lo (returned as fp32): hi the rounding of
+    x, lo that of the exact rest x - hi. The kernel's two-pass operand for
+    an fp32 q or P over an int8 cache, taken after the row's power-of-two
+    scaling: within 2^-22 |x|, or 2^-25 where lo falls among fp16's
+    subnormals."""
+    hi = x.half().float()
+    return hi, (x - hi).half().float()
+
+
+def to_tf32(x):
+    """fp32 ``x`` rounded to tf32 (10 fraction bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds: half a tf32 ulp added to
+    the magnitude's bits, the 13 low bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x):
+    """fp32 ``x`` as tf32 hi + lo: the kernel's 3xTF32 operand over an fp32
+    cache (within 2^-22 |x|)."""
+    hi = to_tf32(x)
+    return hi, to_tf32(x - hi)
+
+
+def spec_attention_f32_mma_model(q, k, v, k_scale, v_scale, col_pos, lengths,
+                                 *, n_head: int):
+    """The tensor-core kernel's roundings for an fp32 q, evaluated on the
+    CPU (tests only): its split operands, their products and sums exact
+    (float64), the softmax in fp32. Over an int8 cache each (head, query)
+    row of q is scaled by the power of two that lifts its largest |q| into
+    [2^14, 2^15) and split into fp16 hi + lo (:func:`split_f16`) against K;
+    P x v_scale is scaled per row the same way and split against V; both
+    scalings are divided back exactly. Over an fp32 cache, 3xTF32: q, K, P
+    and V split into tf32 hi + lo (:func:`split_tf32`), the products
+    lo.hi + hi.lo + hi.hi. A row whose every column is dead gives 0.
+    Returns [B, T, HD] fp32, the kernel's single rounding of its output."""
+    B, T, HD = q.shape
+    S, H = k.shape[1], n_head
+    D = HD // H
+    qh = q.float().reshape(B, T, H, D).transpose(1, 2)  # [B, H, T, D]
+    kh = k.view(B, S, H, D).transpose(1, 2).float()
+    vh = v.view(B, S, H, D).transpose(1, 2).float()
+
+    def scaled_split(x):  # per-row power of two, fp16 hi + lo, exact sum
+        _, ex = torch.frexp(x.abs().amax(dim=-1, keepdim=True))
+        f = torch.ldexp(torch.ones_like(x[..., :1]), 15 - ex.clamp_min(-100))
+        hi, lo = split_f16(x * f)
+        return hi.double() + lo.double(), f
+
+    def tf32_product(a, b):  # a @ b as the 3xTF32 passes
+        (ah, al), (bh, bl) = (tuple(p.double() for p in split_tf32(t))
+                              for t in (a, b))
+        return (al @ bh + ah @ bl + ah @ bh).float()
+
+    if k_scale is not None:
+        qs, f = scaled_split(qh)
+        scores = (qs @ kh.double().transpose(-1, -2)).float() / f
+        scores = scores * k_scale[:, :, None, :].float()
+    else:
+        scores = tf32_product(qh, kh.transpose(-1, -2))
+    mask = _query_mask(col_pos, lengths, T)
+    scores = torch.where(mask, scores * (1.0 / math.sqrt(D)), float("-inf"))
+    live = mask.any(dim=-1, keepdim=True)
+    probs = torch.where(live, torch.softmax(scores, dim=-1), 0.0)
+    if k_scale is not None:
+        ps, f = scaled_split(probs * v_scale[:, :, None, :].float())
+        out = (ps @ vh.double()).float() / f
+    else:
+        out = tf32_product(probs, vh)
+    return out.transpose(1, 2).reshape(B, T, HD)
+
+
 def _twin(q, k, v, k_scale, v_scale, col_pos, lengths, n_head, int8_dots):
     if int8_dots:
         return spec_attention_int8_dots_reference(
@@ -246,14 +324,12 @@ def _launch(q, k, v, k_slab, v_slab, k_scale, v_scale, col_pos, lengths,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lib = _build.load_library()
     if q.dtype == torch.float32:
-        rc, source = (lib.spec_attention_f32_launch(*args, stream),
-                      "csrc/spec_attention_f32.cu smem_bytes")
+        rc = lib.spec_attention_f32_launch(*args, stream)
     else:
-        rc, source = (lib.spec_attention_launch(*args, int(int8_dots), stream),
-                      "csrc/spec_attention.cu mma_smem_bytes")
+        rc = lib.spec_attention_launch(*args, int(int8_dots), stream)
     if rc == _build.TOO_LARGE:
         raise ValueError(f"S={S} too large for one block's shared memory "
-                         f"({source})")
+                         f"(csrc/spec_attention_mma.cuh mma_smem_bytes)")
     if rc != 0:
         raise RuntimeError(
             f"spec_attention kernel launch failed: cudaError {rc}")

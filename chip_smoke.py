@@ -86,11 +86,15 @@ printing a result):
 16. fp32 kernels vs twin: K1's fp32 instantiation (fp32 q and slabs over
     an int8 or fp32 cache) at B=4096, S=128 and 3 rows over S=1024, KH 2
     and 6, lockstep and ring, pos {0, 7, S-1}; the fp32 verify kernel
-    (K2, ``csrc/spec_attention_f32.cu``) at B=4096 and B=3 (+ a dead row),
-    S=256, T in {1, 5, 128}: caches, scales and writes bit-exact, the
-    output within FP32_KERNEL_FRAC of its range of the twin on the card;
-    then fp32 K1, fp32 K2 (verify and refresh) and K1's ring mode at the
-    serving tick's B=8192 timed beside their twins;
+    (K2, the tensor-core kernel of ``csrc/spec_attention_mma.cuh`` with
+    split passes) at B=4096 and B=3 (+ a dead row), S=256, T in {1, 5,
+    128}, and B=3 (+ the dead row) over S=1024, T in {5, 17, 64, 65, 128},
+    int8 and fp32 caches, full fp32 operands: caches, scales and writes
+    bit-exact, the output within FP32_KERNEL_FRAC of its range of the twin
+    on the card; then fp32 K1, fp32 K2 (verify, refresh, and the sampling
+    CLI's B=64 verify), fp32 K3 (beside fp32
+    ``scaled_dot_product_attention`` over an fp32 cache) and K1's ring
+    mode at the serving tick's B=8192 timed beside their twins;
 17. fp32 models: the bench widths at fp32 (flat_kv KH=2 int8, MHA with an
     fp32 cache, spec MHA int8) on the card against the CPU, logits within
     FP32_MODEL_FRAC of their range (FP32_INT8_MODEL_FRAC over an int8
@@ -127,13 +131,16 @@ with no caller on any path (K3, K5, K6) shows its count summed over those
 six runs there, and its kernel-vs-twin launches as ``check_launches``.
 K1's entry carries its ring mode (``ring``: phase 19's launches, the
 B=8192 timing) and its fp32 mode (``fp32``: phase 20's fp32 run), K2's its
-fp32 mode (``fp32``: phase 20's fp32 speculative run), each with its own
+fp32 mode (``fp32``: phase 20's fp32 speculative run, with the refresh and
+the CLI's B=64 shape), K3's its fp32 mode (``fp32``), each with its own
 numbers.
 ``bound_ms`` is the least time the card could take for the timed call: its
 bytes (each input read once, each output written once) over 3.35 TB/s or
-its operations over 989 TFLOP/s (1979 TOP/s for int8 x int8 products), the
-larger; ``library_ms`` the time of one PyTorch call computing the same
-function, where there is one (else null).
+its operations over 989 TFLOP/s (1979 TOP/s for int8 x int8 products; the
+fp32 K1's over 67 TFLOP/s, its CUDA cores; the fp32 K2/K3's split passes
+over the tensor cores' 989 TFLOP/s for fp16, 495 for TF32), the larger;
+``library_ms`` the time of one PyTorch call computing the same function,
+where there is one (else null).
 """
 
 from __future__ import annotations
@@ -188,8 +195,10 @@ LEAN_MODES = ("lean8", "lean4")
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12
-# ... and float32 outside the tensor cores (the fp32 kernels' products)
+# ... float32 outside the tensor cores (the fp32 K1's products), and the
+# dense TF32 tensor-core rate (the fp32 K2's passes over an fp32 cache)
 FP32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 # fp32 models (phases 16, 17): the bench widths at fp32. The fp32 kernels
 # compute in fp32 throughout and round nothing, so they are held to 1e-5 of
 # the output's range of the fp32 twin (summation order only); fp32 models
@@ -205,6 +214,8 @@ FP32_BENCH = dict(BENCH, dtype=torch.float32)
 FP32_MHA = dict(BENCH, dtype=torch.float32, n_kv_head=None,
                 kv_quantized=False, flat_kv=False)
 FP32_SPEC = dict(SPEC, dtype=torch.float32)
+# the fp32 K2/K3: the tensor-core kernel's fp32 instantiation (its body in
+# csrc/spec_attention_mma.cuh)
 SPEC_F32_SOURCE = "ai_music_generation_tpu_torch/ops/csrc/spec_attention_f32.cu"
 # serving (phases 18, 19): docs/SERVING.md's headline configuration (the
 # bench model, 8192 slots, a 128-column ring, waves of 512, 64 ticks a
@@ -1467,14 +1478,14 @@ def _clone(args):
 
 def _fp32_spec_inputs(quant, T, cursor, B, S, H=6, D=64, seed=0,
                       device="cpu", n_live=None):
-    """The phase-6 verify operands with an fp32 q (and an fp32 cache and
-    slab when not quantized)."""
+    """The phase-6 verify operands with a full fp32 q (and an fp32 cache and
+    slab when not quantized, full fp32 values too: bf16 ones would leave
+    every split part past the first 0)."""
     x = _spec_inputs(quant, T, cursor, B, S, H, D, seed=seed, device=device,
                      n_live=n_live)
-    x["q"] = x["q"].float()
-    if not quant:
-        for n in ("k", "v", "k_slab", "v_slab"):
-            x[n] = x[n].float()
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    for n in ("q",) if quant else ("q", "k", "v", "k_slab", "v_slab"):
+        x[n] = torch.randn(x[n].shape, generator=g, device=device)
     return x
 
 
@@ -1485,7 +1496,9 @@ def phase_fp32_kernel_vs_twin(device, B=BATCH, S=WINDOW, spec_S=256, H=6,
     S columns and 3 rows over LONG, KH 2 and 6, int8 and fp32 caches,
     lockstep and ring, pos in {0, 7, S-1}; K2 (with its slab write) at B and
     3 rows (+ a row that reads nothing), S=256, T in {1, 5, 128}, cursors 0
-    and S-Tw, int8 and fp32 caches. Caches, scales and the slab write
+    and S-Tw, int8 and fp32 caches, and at 3 rows (+ the dead row) over
+    LONG at T in {5, 17, 64, 65, 128}, the regime edges of phase 6 (a
+    refresh there runs 16-query tiles). Caches, scales and the slab write
     bit-exact; the output within FP32_KERNEL_FRAC of its range. Returns the
     largest error of each."""
     from ai_music_generation_tpu_torch.models.gpt import KVCache
@@ -1523,13 +1536,14 @@ def phase_fp32_kernel_vs_twin(device, B=BATCH, S=WINDOW, spec_S=256, H=6,
                 f"ring={ring} pos={pos}", FP32_KERNEL_FRAC))
         del x, ref_x, out, ref
     n_spec = 0
-    for b in (B, 3):
+    for b, s_len, Ts in ((B, spec_S, (1, 5, 128)), (3, spec_S, (1, 5, 128)),
+                         (3, LONG, (5, 17, 64, 65, 128))):
         edges = b == 3
-        for T in (1, 5, 128):
+        for T in Ts:
             Tw = -(-T // 8) * 8
             for quant in (True, False):
-                for cursor in (0, spec_S - Tw):
-                    x = _fp32_spec_inputs(quant, T, cursor, b + edges, spec_S,
+                for cursor in (0, s_len - Tw):
+                    x = _fp32_spec_inputs(quant, T, cursor, b + edges, s_len,
                                           H, D, seed=T + cursor,
                                           device=device)
                     if edges:
@@ -1546,27 +1560,31 @@ def phase_fp32_kernel_vs_twin(device, B=BATCH, S=WINDOW, spec_S=256, H=6,
                     if not (torch.equal(x["k"], ref_k)
                             and torch.equal(x["v"], ref_v)):
                         raise AssertionError(
-                            f"fp32 K2 write differs: B={b} T={T} "
+                            f"fp32 K2 write differs: B={b} S={s_len} T={T} "
                             f"cursor={cursor} quant={quant}")
                     if edges:  # the dead row: 0 from the kernel, NaN in
                         # the twin (which is what runs on the CPU)
                         if torch.device(device).type == "cuda" and not \
                                 torch.equal(out[-1], torch.zeros_like(out[-1])):
                             raise AssertionError(f"fp32 K2 dead row not 0: "
-                                                 f"T={T} quant={quant}")
+                                                 f"S={s_len} T={T} "
+                                                 f"quant={quant}")
                         out, ref = out[:-1], ref[:-1]
                     worst["spec_attention_update"] = max(
                         worst["spec_attention_update"], _check_close(
-                            out, ref, f"fp32 K2 B={b} T={T} cursor={cursor} "
-                            f"quant={quant}", FP32_KERNEL_FRAC))
+                            out, ref, f"fp32 K2 B={b} S={s_len} T={T} "
+                            f"cursor={cursor} quant={quant}",
+                            FP32_KERNEL_FRAC))
                     n_spec += 1
                     del x, ref_k, ref_v, out, ref
     print(f"fp32 kernels vs twin: K1 {len(cases)} cases (B={B}, S={S} and "
           f"B=3, S={LONG}; KH 2, 6; int8 and fp32 caches; lockstep and "
           f"ring; pos 0, 7, S-1; and B={CLI_SAMPLES}, S={CLI_S}, KH 2 int8 "
           f"lockstep), K2 {n_spec} cases (B={B} and B=3 + a dead "
-          f"row, S={spec_S}, T 1, 5, 128, cursors 0 and S-Tw, int8 and fp32 "
-          f"caches): caches, scales and writes bit-exact; out max abs err "
+          f"row, S={spec_S}, T 1, 5, 128; B=3 + a dead row, S={LONG}, T 5, "
+          f"17, 64, 65, 128; cursors 0 and S-Tw, int8 and fp32 caches, full "
+          f"fp32 operands): caches, scales and writes bit-exact; out max abs "
+          f"err "
           f"{worst} (within {FP32_KERNEL_FRAC} of the range)")
     return worst
 
@@ -1600,23 +1618,43 @@ def _k1_work(x, S, ops_per_s):
     return bound(n, 4 * q.numel() * S, ops_per_s)
 
 
+def _f32_spec_bound(x, T, n_live, H, write):
+    """(bound ms, bound by) of one fp32 K2/K3 call: the bytes of
+    ``_spec_work``, its operations as the split passes that the tensor-core
+    kernel runs, two fp16 passes per product over an int8 cache at 989
+    TFLOP/s, three TF32 passes over an fp32 one at 495."""
+    n_bytes, n_ops = _spec_work(x, T, n_live, H, write)
+    if x["k_scale"] is not None:
+        return bound(n_bytes, 2 * n_ops, BF16_OPS_PER_S)
+    return bound(n_bytes, 3 * n_ops, TF32_OPS_PER_S)
+
+
 def phase_fp32_kernel_timing(B=BATCH, S=WINDOW, spec_S=256, H=6, D=64,
-                             serve_B=SERVE_SLOTS):
+                             serve_B=SERVE_SLOTS, cli_B=CLI_SPEC_SAMPLES):
     """ms per call of the fp32 kernels and their twins on the card (plain,
     kernel, kernel, plain): K1 fp32 at the bench decode shape (int8 cache,
     lockstep, pos S-1); K2 fp32 at a verify step (T=5, every history column
-    live) and a refresh (T=128 at cursor 0), int8 cache; and K1 in ring
-    mode at the serving tick's shape (bf16 q, B=8192 slots, S=128, int8,
-    every row at a random length). Each is first held against its twin on
-    copies of the same inputs (caches, scales and writes bit-exact, the
-    output within the yardstick of its type). No one PyTorch call fuses
-    their writes with the attention, so there is no library time. Returns
-    {name: the kernel's JSON numbers}."""
+    live) and a refresh (T=128 at cursor 0), int8 cache, and at the
+    sampling CLI's verify step (B=64); K3 fp32 at the verify step over the
+    int8 cache and over an fp32 one, the latter beside fp32
+    ``scaled_dot_product_attention`` under the col_pos mask (plain,
+    library, kernel, kernel, library, plain); and K1 in ring mode at the
+    serving tick's shape (bf16 q, B=8192 slots, S=128, int8, every row at
+    a random length). Each is first held against its twin on copies of the
+    same inputs (caches, scales and writes bit-exact, the output within the
+    yardstick of its type). No one PyTorch call fuses K1's or K2's writes
+    with the attention, so they have no library time. The fp32 K2/K3 bound
+    counts their split passes on the tensor cores (``_f32_spec_bound``);
+    the CUDA-core bound of fp32 operations at 67 TFLOP/s is printed beside
+    it. Returns {name: the kernel's JSON numbers}."""
+    import torch.nn.functional as F
+
     from ai_music_generation_tpu_torch.ops.gqa_decode import (
         gqa_decode_reference, gqa_decode_update,
     )
     from ai_music_generation_tpu_torch.ops.spec_attention import (
-        spec_attention_reference, spec_attention_update, write_slab,
+        spec_attention, spec_attention_reference, spec_attention_update,
+        write_slab,
     )
 
     res = {}
@@ -1660,9 +1698,30 @@ def phase_fp32_kernel_timing(B=BATCH, S=WINDOW, spec_S=256, H=6, D=64,
         write_slab(x["k"], x["v"], x["k_slab"], x["v_slab"], x["cursor"])
         return spec_attention_reference(*[x[n] for n in SPEC_ATT], n_head=H)
 
-    for label, T, cursor, n_live in (("k2_fp32", 5, spec_S - 8, spec_S - 8),
-                                     ("k2_fp32_refresh", 128, 0, 0)):
-        x = _fp32_spec_inputs(True, T, cursor, B, spec_S, H, D, seed=1,
+    def report(label, what, x, T, n_live, write, kernel, plain, err,
+               library=None):
+        bound_ms, bound_by = _f32_spec_bound(x, T, n_live, H, write)
+        core_ms, core_by = bound(*_spec_work(x, T, n_live, H, write),
+                                 FP32_OPS_PER_S)
+        res[label] = r = dict(ms=min(kernel), plain_ms=min(plain),
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              library_ms=min(library) if library else None,
+                              max_abs_err=err, cuda_core_bound_ms=core_ms)
+        print(f"{what} (B={x['q'].shape[0]} S={x['k'].shape[1]} T={T} "
+              f"{'int8' if x['k_scale'] is not None else 'fp32'} cache, "
+              f"fp32 q, {n_live} live history columns): out max abs err "
+              f"{err}; kernel {kernel} ms/call, twin {plain}"
+              + (f", scaled_dot_product_attention {library}"
+                 if library else "")
+              + f"; bound {bound_ms:.4f} ms ({bound_by}, split passes on "
+              f"the tensor cores), {bound_ms / r['ms']:.3f} of it; CUDA-core "
+              f"bound {core_ms:.4f} ms ({core_by})")
+
+    for label, b, T, cursor, n_live in (
+            ("k2_fp32", B, 5, spec_S - 8, spec_S - 8),
+            ("k2_fp32_refresh", B, 128, 0, 0),
+            ("k2_fp32_cli", cli_B, 5, spec_S - 8, spec_S - 8)):
+        x = _fp32_spec_inputs(True, T, cursor, b, spec_S, H, D, seed=1,
                               device="cuda", n_live=n_live)
         kx, rx = ({n: t.clone() if torch.is_tensor(t) else t
                    for n, t in x.items()} for _ in range(2))
@@ -1678,18 +1737,47 @@ def phase_fp32_kernel_timing(B=BATCH, S=WINDOW, spec_S=256, H=6, D=64,
         kernel, plain = _timed(
             lambda: spec_attention_update(*[x[n] for n in SPEC_UPD],
                                           n_head=H),
-            lambda: plain_update(x), 10, 3)
-        bound_ms, bound_by = bound(*_spec_work(x, T, n_live, H, True),
-                                   FP32_OPS_PER_S)
-        res[label] = r = dict(ms=min(kernel), plain_ms=min(plain),
-                              bound_ms=bound_ms, bound_by=bound_by,
-                              library_ms=None, max_abs_err=err)
-        print(f"spec_attention_update {label} (B={B} S={spec_S} T={T} int8,"
-              f" fp32 q, {n_live} live history columns): write bit-exact "
-              f"with the twin, out max abs err {err}; kernel {kernel} "
-              f"ms/call, twin {plain}; bound {bound_ms:.4f} ms ({bound_by}),"
-              f" {bound_ms / r['ms']:.3f} of it")
+            lambda: plain_update(x), 10 if b == B else 200, 3)
+        report(label, f"spec_attention_update {label}", x, T, n_live, True,
+               kernel, plain, err)
         del x
+
+    T, cursor, n_live = 5, spec_S - 8, spec_S - 8
+    for quant in (True, False):
+        x = _fp32_spec_inputs(quant, T, cursor, B, spec_S, H, D, seed=1,
+                              device="cuda", n_live=n_live)
+        att = [x[n] for n in SPEC_ATT]
+        err = _check_close(spec_attention(*att, n_head=H),
+                           spec_attention_reference(*att, n_head=H),
+                           "spec_attention fp32", FP32_KERNEL_FRAC)
+        lib_call = None
+        if not quant:  # the same function as one PyTorch call
+            qv, kv, vv = (x[n].view(B, -1, H, D).transpose(1, 2)
+                          for n in ("q", "k", "v"))
+            mask = (x["col_pos"][:, None, None, :] <= (
+                x["lengths"][:, None] + torch.arange(
+                    T, device="cuda"))[:, None, :, None])
+            lib_call = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qv, kv, vv, attn_mask=mask)
+            lib_err = (lib_call().transpose(1, 2).reshape(B, T, -1)
+                       - spec_attention_reference(*att, n_head=H)).abs().max()
+            print(f"scaled_dot_product_attention fp32 vs the fp32 twin: max "
+                  f"abs err {lib_err.item()}")
+        k3, p3, lib = [], [], []
+        for order in ("plain", "library", "kernel", "kernel", "library",
+                      "plain"):
+            if order == "plain":
+                p3.append(_cuda_ms(lambda: spec_attention_reference(
+                    *att, n_head=H), 3))
+            elif order == "kernel":
+                k3.append(_cuda_ms(lambda: spec_attention(*att, n_head=H),
+                                   20))
+            elif lib_call is not None:
+                lib.append(_cuda_ms(lib_call, 20))
+        label = "k3_fp32" if quant else "k3_fp32_cache"
+        report(label, f"spec_attention {label}", x, T, n_live, False, k3, p3,
+               err, lib)
+        del x, att, lib_call
     return res
 
 
@@ -2331,10 +2419,15 @@ def main(argv=None) -> int:
           f"ms/call, K1 ring at B={SERVE_SLOTS} "
           f"{fp32_ms['k1_ring']['ms']:.4f}, fp32 K2 verify "
           f"{fp32_ms['k2_fp32']['ms']:.4f}, refresh "
-          f"{fp32_ms['k2_fp32_refresh']['ms']:.4f}")
+          f"{fp32_ms['k2_fp32_refresh']['ms']:.4f}, at the CLI's B="
+          f"{CLI_SPEC_SAMPLES} {fp32_ms['k2_fp32_cli']['ms']:.4f}; fp32 K3 "
+          f"{fp32_ms['k3_fp32']['ms']:.4f} (int8 cache), "
+          f"{fp32_ms['k3_fp32_cache']['ms']:.4f} (fp32 cache; fp32 SDPA "
+          f"{fp32_ms['k3_fp32_cache']['library_ms']:.4f})")
     # K1's ring mode (the serving tick, phase 19) and fp32 mode (phase 20's
     # --dtype=float32 run), K2's fp32 mode (phase 20's fp32 --speculative
-    # run): their own launches and numbers
+    # run; its refresh and its verify at that run's B=64 beside): their own
+    # launches and numbers
     kernels[0]["ring"] = dict(fp32_ms["k1_ring"], launches=serve_launches)
     kernels[0]["fp32"] = dict(fp32_ms["k1_fp32"], launches=cli["fp32"][0],
                               max_abs_err=max(
@@ -2345,9 +2438,11 @@ def main(argv=None) -> int:
                               max_abs_err=max(
                                   fp32_err["spec_attention_update"],
                                   fp32_ms["k2_fp32"]["max_abs_err"],
-                                  fp32_ms["k2_fp32_refresh"]["max_abs_err"]),
+                                  fp32_ms["k2_fp32_refresh"]["max_abs_err"],
+                                  fp32_ms["k2_fp32_cli"]["max_abs_err"]),
                               source=SPEC_F32_SOURCE,
-                              refresh=fp32_ms["k2_fp32_refresh"])
+                              refresh=fp32_ms["k2_fp32_refresh"],
+                              cli=fp32_ms["k2_fp32_cli"])
     # K3, K5 and K6 have no caller on any path: their launches are the sum
     # of their counts over the six main paths (phases 5, 8, 12, 15, 19, 20)
     kernels.append(_entry("spec_attention", SPEC_SOURCE,
@@ -2355,6 +2450,10 @@ def main(argv=None) -> int:
                           on_path["spec_attention"],
                           spec_err["spec_attention"],
                           spec_ms["spec_attention"], check_launches=k3_checks))
+    # K3's fp32 mode over the int8 cache (no one PyTorch call computes it)
+    # and over an fp32 cache, beside fp32 scaled_dot_product_attention
+    kernels[-1]["fp32"] = dict(fp32_ms["k3_fp32"], source=SPEC_F32_SOURCE,
+                               fp32_cache=fp32_ms["k3_fp32_cache"])
     for name in int8_err:
         kernels.append(_entry(name, PREFIX_SOURCE, PREFIX_REPLACES[name],
                               on_path[name], int8_err[name], int8_ms[name],

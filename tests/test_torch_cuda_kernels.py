@@ -724,13 +724,14 @@ def test_gqa_decode_fp32_kernel_matches_twin(cuda, quant, ring, kv_heads):
 
 
 def _spec_inputs32(quant, T, cursor, B, S, H, D, seed=0):
-    """fp32 q (and an fp32 cache and slab when not quantized), a dead row
-    added."""
+    """The verify operands with a full fp32 q (and an fp32 cache and slab
+    when not quantized, full fp32 values too: not bf16 ones, whose every
+    split part past the first would be 0), a dead row added."""
     x = _spec_inputs(quant, T, cursor, B, S, H, D, seed=seed, dead_row=True)
-    x["q"] = x["q"].float()
-    if not quant:
-        for n in ("k", "v", "k_slab", "v_slab"):
-            x[n] = x[n].float()
+    g = torch.Generator().manual_seed(seed + 1)
+    names = ("q",) if quant else ("q", "k", "v", "k_slab", "v_slab")
+    for n in names:
+        x[n] = torch.randn(x[n].shape, generator=g)
     return x
 
 
@@ -738,9 +739,11 @@ def _spec_inputs32(quant, T, cursor, B, S, H, D, seed=0):
 @pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
 @pytest.mark.parametrize("write", [False, True], ids=["k3", "k2"])
 def test_spec_attention_fp32_kernel_matches_twin(cuda, write, quant):
-    """The fp32 verify kernel (csrc/spec_attention_f32.cu) against the twin
-    in fp32: the slab write bit-exact, the dead row 0, the rest within
-    1e-5 of its range."""
+    """The fp32 verify kernel (the tensor-core kernel of
+    csrc/spec_attention_mma.cuh for an fp32 q, split passes: fp16 hi + lo
+    over an int8 cache, 3xTF32 over an fp32 one) against the twin in fp32,
+    at both regimes and over the long cache: the slab write bit-exact, the
+    dead row 0, the rest within 1e-5 of its range."""
     for B, S, H, D in ((3, 64, 6, 64), (3, 256, 6, 64), (2, 32, 2, 16),
                        (2, 128, 2, 128), (2, 72, 4, 32), (3, 1024, 6, 64)):
         for T in (1, 5, 8, 17, 128):
@@ -769,6 +772,32 @@ def test_spec_attention_fp32_kernel_matches_twin(cuda, write, quant):
                 assert torch.equal(out[-1], torch.zeros_like(out[-1]))
                 err = (out[:-1] - ref).abs().max()
                 assert err <= 1e-5 * ref.abs().max(), (B, S, T, cursor, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [5, 128])
+def test_spec_attention_fp32_kernel_at_the_sample_cli_shape(cuda, T):
+    """The fp32 kernel at the shape of its only user path, cli/sample.py
+    --speculative --dtype=float32 (64 rows, S = block_size 256, MHA at the
+    bench widths, an int8 cache): a verify step (T=5) and a refresh
+    (T=128), with the write; bit-exact write, dead row 0, the rest within
+    1e-5 of its range of the fp32 twin."""
+    Tw = -(-T // 8) * 8
+    for cursor in (0, 256 - Tw):
+        cpu = _spec_inputs32(True, T, cursor, 64, 256, H, D, seed=T + cursor)
+        gpu = _on(cpu, cuda)
+        before = spec_attention_update.launches
+        out = spec_attention_update(*[gpu[n] for n in UPD], n_head=H)
+        assert spec_attention_update.launches == before + 1
+        write_slab(cpu["k"], cpu["v"], cpu["k_slab"], cpu["v_slab"], cursor)
+        torch.cuda.synchronize()
+        for n in ("k", "v"):
+            assert torch.equal(gpu[n].cpu(), cpu[n]), (n, T, cursor)
+        ref = spec_attention_reference(*[cpu[n] for n in ATT], n_head=H)[:-1]
+        out = out.cpu()
+        assert torch.equal(out[-1], torch.zeros_like(out[-1]))
+        err = (out[:-1] - ref).abs().max()
+        assert err <= 1e-5 * ref.abs().max(), (T, cursor, err)
 
 
 @pytest.mark.cuda

@@ -25,6 +25,7 @@ MODULES = [
     "ai_music_generation_tpu_torch.decode.speculative",
     "ai_music_generation_tpu_torch.experiments",
     "ai_music_generation_tpu_torch.experiments.int4_kernel_probe",
+    "ai_music_generation_tpu_torch.experiments.register_caps",
     "ai_music_generation_tpu_torch.models.convert",
     "ai_music_generation_tpu_torch.models.gpt",
     "ai_music_generation_tpu_torch.models.nanogpt_ckpt",
@@ -121,8 +122,9 @@ def test_build_key_tracks_sources_and_flags(monkeypatch, tmp_path):
     before = _build.library_path()
     src.write_text("// edited again")
     assert _build.library_path() != before
-    # the shared header is part of the key
-    assert [p.name for p in _build.headers()] == ["common.cuh"]
+    # the shared headers are part of the key
+    assert [p.name for p in _build.headers()] == [
+        "common.cuh", "spec_attention_mma.cuh"]
     header = tmp_path / "common.cuh"
     header.write_text("// shared")
     monkeypatch.setattr(_build, "headers", lambda: [header])

@@ -33,18 +33,24 @@ from ai_music_generation_tpu.ops.spec_attention import (
 from ai_music_generation_tpu.ops.spec_attention import (
     spec_attention_update as jax_spec_attention_update,
 )
+from ai_music_generation_tpu_torch.experiments import register_caps
 from ai_music_generation_tpu_torch.models.gpt import (
     KVCache,
     quantize_int8,
     scale_write,
 )
+from ai_music_generation_tpu_torch.ops import _build
 from ai_music_generation_tpu_torch.ops.spec_attention import (
     _check_cuda,
     spec_attention,
+    spec_attention_f32_mma_model,
     spec_attention_int8_dots_reference,
     spec_attention_mma_model,
     spec_attention_reference,
     spec_attention_update,
+    split_f16,
+    split_tf32,
+    to_tf32,
 )
 
 torch.set_num_threads(1)
@@ -302,6 +308,145 @@ def test_mma_numerics_model_within_the_kernel_yardstick(T, quant, softmax):
     assert torch.isnan(want[0]).all()  # the twin has no dead-row rule
     err = (got[1:] - want[1:]).abs().max()
     assert err <= 2.0 ** -7 * want[1:].abs().max(), err
+
+
+def _fp32_args(T, quant, softmax):
+    """The operands of spec_attention in fp32, at phase 16's distributions
+    with every operand a full fp32 value: q normal (x16 sharp, x1/64
+    flat), an int8 cache with its scales or a normal fp32 cache; row 0
+    reads nothing."""
+    x = make_inputs(B=4, T=T, H=2, S=256, quant=quant, cursor=0 if T > 8
+                    else None, seed=T + quant)
+    rng = np.random.default_rng(100 + T + quant)
+    x["q"] = (rng.standard_normal(x["q"].shape)
+              * (16.0 if softmax == "sharp" else 1 / 64)).astype(np.float32)
+    if not quant:
+        for n in ("k", "v"):
+            x[n] = rng.standard_normal(x[n].shape).astype(np.float32)
+    x["col_pos"][0] = INVALID  # row 0 reads nothing
+    return _args(_torch(x, torch.float32), *ATT)
+
+
+def _fp32_error(got, want):
+    """max |got - want| over the live rows, as a share of want's range."""
+    return ((got[1:] - want[1:]).abs().max()
+            / want[1:].abs().max()).item()
+
+
+@pytest.mark.parametrize("softmax", ["sharp", "flat"])
+@pytest.mark.parametrize("quant", [True, False], ids=["int8", "fp32cache"])
+@pytest.mark.parametrize("T", [5, 128])
+def test_f32_mma_numerics_model_within_the_kernel_yardstick(T, quant,
+                                                            softmax):
+    """The split operands of the tensor-core kernel for an fp32 q (fp16 hi
+    + lo of q and of P over an int8 cache, 3xTF32 over an fp32 one),
+    evaluated on the CPU, stay within chip_smoke's fp32 yardstick of the
+    fp32 twin: 1e-5 of the output's range. A row whose every column is dead
+    gives 0."""
+    args = _fp32_args(T, quant, softmax)
+    got = spec_attention_f32_mma_model(*args, n_head=2)
+    want = spec_attention_reference(*args, n_head=2)
+    assert got.dtype == torch.float32
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    assert torch.isnan(want[0]).all()  # the twin has no dead-row rule
+    assert _fp32_error(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("softmax", ["sharp", "flat"])
+@pytest.mark.parametrize("quant", [True, False], ids=["int8", "fp32cache"])
+def test_f32_yardstick_fails_a_single_rounding_pass(quant, softmax):
+    """The 1e-5 yardstick has teeth: q rounded once to bf16 (the bf16
+    kernel's single pass over an int8 cache), or q, K and V rounded once to
+    tf32 (a single TF32 pass over an fp32 cache), lands outside it."""
+    args = _fp32_args(128, quant, softmax)
+    want = spec_attention_reference(*args, n_head=2)
+    single = list(args)
+    if quant:
+        single[0] = args[0].bfloat16().float()
+    else:
+        single[:3] = (to_tf32(a) for a in args[:3])
+    assert _fp32_error(spec_attention_reference(*single, n_head=2),
+                       want) > 1e-5
+
+
+def _across_exponents(rng, shape, lo, hi):
+    """fp32 values of random sign and full 24-bit significands whose
+    exponents are uniform over [lo, hi)."""
+    m = rng.integers(1 << 23, 1 << 24, shape) / float(1 << 23)
+    x = np.ldexp(m, rng.integers(lo, hi, shape)) * rng.choice([-1, 1], shape)
+    return torch.from_numpy(x.astype(np.float32))
+
+
+@pytest.mark.parametrize("operand", ["q", "p"])
+def test_fp16_split_is_within_2_22(operand):
+    """The kernel's two-pass fp16 operand over an int8 cache: each row
+    (a (head, query) row of q, or of P x v_scale) scaled by the power of two
+    that lifts its largest |x| into [2^14, 2^15), then split into fp16 hi +
+    lo. Rows whose largest values sit anywhere in 2^-40..2^10 (q) or
+    2^-12..2^-5 (P x v_scale, non-negative), each holding values down to
+    2^-30 of its largest: hi and lo are fp16 values and hi + lo is within
+    2^-22 of each scaled value, or 2^-25 (2^-39 of the row's largest) where
+    lo falls among fp16's subnormals."""
+    rng = np.random.default_rng(7 if operand == "q" else 8)
+    rows, width = 256, 64
+    base = rng.integers(-40, 10, (rows, 1)) if operand == "q" else \
+        rng.integers(-12, -5, (rows, 1))
+    x = _across_exponents(rng, (rows, width), -30, 1) * torch.from_numpy(
+        np.ldexp(1.0, base).astype(np.float32))
+    if operand == "p":
+        x = x.abs()
+    _, ex = torch.frexp(x.abs().amax(dim=-1, keepdim=True))
+    y = x * torch.ldexp(torch.ones_like(x[:, :1]), 15 - ex)  # exact
+    assert (y.abs().amax(dim=-1) >= 2 ** 14).all()
+    assert (y.abs() < 2 ** 15).all()
+    hi, lo = split_f16(y)
+    for part in (hi, lo):
+        assert torch.equal(part.half().float(), part)
+    err = (hi.double() + lo.double() - y.double()).abs()
+    bound = torch.maximum(y.double().abs() * 2.0 ** -22,
+                          torch.full_like(err, 2.0 ** -25))
+    assert (err <= bound).all()
+    # most values sit where the relative bound holds, and a bf16 or fp16
+    # single pass would miss it there
+    rel = y.abs() >= 2 ** -3
+    assert rel.float().mean() > 0.5
+    assert ((y.half().float() - y).abs() > 2.0 ** -22 * y.abs())[rel].any()
+
+
+def test_tf32_split_is_within_2_22():
+    """The 3xTF32 operand over an fp32 cache: fp32 values across exponents
+    2^-60..2^60 split into tf32 hi + lo (13 low bits clear, rounded to
+    nearest with ties away from zero, as cvt.rna.tf32.f32); hi + lo within
+    2^-22 of each value; and a product taken as the three passes lo.hi +
+    hi.lo + hi.hi within 2^-21 of the exact product."""
+    rng = np.random.default_rng(9)
+    a, b = (_across_exponents(rng, (4096,), -60, 60) for _ in range(2))
+    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
+    for part in (ah, al, bh, bl):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    assert ((ah.double() + al.double() - a.double()).abs()
+            <= 2.0 ** -22 * a.double().abs()).all()
+    exact = a.double() * b.double()
+    three = (al.double() * bh.double() + ah.double() * bl.double()
+             + ah.double() * bh.double())
+    assert ((three - exact).abs() <= 2.0 ** -21 * exact.abs()).all()
+    # one pass would not do: hi.hi alone misses the bound
+    assert ((ah.double() * bh.double() - exact).abs()
+            > 2.0 ** -21 * exact.abs()).any()
+    # ties round away from zero, others to nearest
+    ulp = 2.0 ** -10
+    got = to_tf32(torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 4,
+                                1 + 3 * ulp / 4]))
+    assert got.tolist() == [1 + ulp, -(1 + ulp), 1.0, 1 + ulp]
+
+
+def test_register_caps_finds_the_fp32_verify_cap():
+    """experiments/register_caps.py varies one cap of the kernel source:
+    the fp32 verify blocks' over an int8 cache in mma_min_blocks, which it
+    finds exactly once."""
+    header = (_build.CSRC / "spec_attention_mma.cuh").read_text()
+    caps = register_caps.CAP.findall(header)
+    assert len(caps) == 1 and caps[0][1] == "6"
 
 
 def _check_args(T=5, S=64, H=2, D=64, quant=True, write=True):
