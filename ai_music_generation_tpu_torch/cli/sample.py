@@ -41,6 +41,7 @@ import torch
 
 from ai_music_generation_tpu_torch.data.memmap import load_meta
 from ai_music_generation_tpu_torch.utils.configurator import apply_overrides
+from ai_music_generation_tpu_torch.utils.device import resolve_device
 
 DEFAULTS = dict(
     use_validation_prefixes=True,
@@ -70,17 +71,6 @@ DEFAULTS = dict(
 )
 
 IRISHMAN_BAR_REGEX = re.compile(r"(:\||::|\s\||\|\])")
-
-
-def resolve_device(device: str) -> torch.device:
-    """The run's device: the card unless ``device`` says ``cpu``; a CUDA
-    device without a card raises (no silent fallback to the CPU)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass --device=cpu to run on the "
-            "CPU")
-    return device
 
 
 def load_model(out_dir: str, dtype: str = "bfloat16",

@@ -1,0 +1,33 @@
+"""Training CLI of the port, flag-compatible with
+``ai_music_generation_tpu/cli/train.py`` (and, through it, with the
+reference trainer):
+
+    python -m ai_music_generation_tpu_torch.cli.train \\
+        ai_music_generation_tpu_torch/configs/<exp>.py --batch_size=32
+
+A positional argument is a Python config file executed over the defaults;
+``--key=value`` flags override single keys. The run trains on the CUDA card;
+``--device=cpu`` trains on the CPU (the tests do), and without a card and
+without that flag it raises. It writes ``<out_dir>/ckpt.pt``,
+``last_iter_ckpt.pt`` and ``losses.jsonl``; ``--init_from=resume``
+continues from ``last_iter_ckpt.pt``.
+"""
+
+import sys
+
+from ai_music_generation_tpu_torch.train.trainer import DEFAULTS, Trainer
+from ai_music_generation_tpu_torch.utils.configurator import apply_overrides
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    config = apply_overrides(dict(DEFAULTS), argv)
+    trainer = Trainer(config)
+    print(f"tokens per iteration will be: {trainer.tokens_per_iter:,}")
+    best = trainer.run()
+    print(f"best val loss: {best:.4f}")
+    return best
+
+
+if __name__ == "__main__":
+    main()

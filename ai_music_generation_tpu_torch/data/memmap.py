@@ -1,7 +1,15 @@
-"""Dataset file helpers: a copy of the host helpers of
-``ai_music_generation_tpu/data/memmap.py`` (``load_meta``, ``write_meta``,
-``write_bin``; tests/test_torch_host_copies.py holds them to the originals).
-The batch loader (``BinDataset``) comes with the training slice.
+"""Memmap token datasets and batch sampling: a copy of
+``ai_music_generation_tpu/data/memmap.py`` without ``sharded_sample`` (a
+mesh feature; the port's trainer calls ``sample``). tests/test_torch_host_copies.py
+holds the file helpers to the originals, tests/test_torch_train_pieces.py
+the batches.
+
+- The token dtype is recorded in ``meta.pkl`` (key ``bin_dtype``), uint16
+  when it is not there.
+- Batches are drawn for a whole optimizer iteration at once
+  ([grad_accum, micro_batch, T]).
+- Sampling is a deterministic function of (seed, iter): resume-stable, and
+  the same batches as the JAX package's for the same arguments.
 """
 
 from __future__ import annotations
@@ -11,6 +19,49 @@ import pickle
 from typing import Optional
 
 import numpy as np
+
+
+class BinDataset:
+    """Random-offset sampler over a flat token bin file."""
+
+    def __init__(self, path: str, dtype: Optional[np.dtype] = None):
+        if dtype is None:
+            meta = load_meta(os.path.join(os.path.dirname(path), "meta.pkl"))
+            dtype = (np.dtype(meta["bin_dtype"])
+                     if meta and "bin_dtype" in meta else np.uint16)
+        self.path = path
+        self.dtype = np.dtype(dtype)
+        # the memmap is re-opened per batch, so a long run does not page
+        # the whole file into resident memory
+        self._len = os.path.getsize(path) // self.dtype.itemsize
+
+    def __len__(self) -> int:
+        return self._len
+
+    def global_indices(self, seed: int, it: int, n: int,
+                       block_size: int) -> np.ndarray:
+        """Deterministic batch offsets for (seed, it)."""
+        rng = np.random.default_rng(np.random.SeedSequence([seed, it]))
+        # high is exclusive: window starts 0..len-block-1, so that
+        # y = data[i+1 : i+1+block] fits
+        return rng.integers(0, self._len - block_size, size=n)
+
+    def gather(self, ix: np.ndarray, block_size: int):
+        """(x, y) int32 windows at the given flat offsets."""
+        data = np.memmap(self.path, dtype=self.dtype, mode="r")
+        flat = np.asarray(ix).reshape(-1)
+        x = np.stack([data[i: i + block_size] for i in flat]).astype(np.int32)
+        y = np.stack([data[i + 1: i + 1 + block_size]
+                      for i in flat]).astype(np.int32)
+        shape = (*np.shape(ix), block_size)
+        return x.reshape(shape), y.reshape(shape)
+
+    def sample(self, seed: int, it: int, batch_shape: tuple[int, ...],
+               block_size: int):
+        """(x, y) int32 arrays of shape [*batch_shape, block_size]."""
+        n = int(np.prod(batch_shape))
+        ix = self.global_indices(seed, it, n, block_size).reshape(batch_shape)
+        return self.gather(ix, block_size)
 
 
 def load_meta(meta_path: str) -> Optional[dict]:

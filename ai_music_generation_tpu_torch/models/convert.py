@@ -1,5 +1,6 @@
 """Weights for the port's GPT: converted from the JAX package's params, or
-initialised with the JAX package's scheme.
+initialised with the JAX package's scheme; and the JAX optimizer state
+converted to the port's AdamW state.
 
 The state dict uses nanoGPT's names and torch layouts, the same keys and
 values as the JAX package's ``models/nanogpt_ckpt.py::
@@ -78,3 +79,42 @@ def init_weights(model: GPT, generator: torch.Generator) -> GPT:
             if module.bias is not None:
                 module.bias.zero_()
     return model
+
+
+def _adam_state(opt_state):
+    """The ``ScaleByAdamState`` (count, mu, nu) inside an optax state."""
+    if all(hasattr(opt_state, a) for a in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def optimizer_state_from_jax(opt_state, model: GPT,
+                             optimizer: torch.optim.Optimizer) -> dict:
+    """The JAX trainer's optax state (``train/optimizer.py``'s chain of
+    clip, ``scale_by_adam``, masked decay and the schedule; numpy leaves,
+    e.g. from ``jax.device_get``) -> a ``state_dict`` for ``optimizer``
+    (the port's AdamW over ``model``, ``train/optimizer.py``): each
+    parameter's ``exp_avg`` and ``exp_avg_sq`` are the adam state's ``mu``
+    and ``nu`` in the port's layout (kernels transposed, as
+    :func:`state_dict_from_jax`), ``step`` its ``count``."""
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState (count, mu, nu) in opt_state")
+    mu = state_dict_from_jax(adam.mu, model.config)
+    nu = state_dict_from_jax(adam.nu, model.config)
+    step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
+    name = {id(p): n for n, p in model.named_parameters()}
+    state, i = {}, 0
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            n = name[id(p)]
+            state[i] = {"step": step.clone(), "exp_avg": mu[n].clone(),
+                        "exp_avg_sq": nu[n].clone()}
+            i += 1
+    return {"state": state,
+            "param_groups": optimizer.state_dict()["param_groups"]}

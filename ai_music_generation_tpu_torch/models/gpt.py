@@ -1,5 +1,5 @@
 """GPT-2 style decoder in PyTorch: the port of
-``ai_music_generation_tpu/models/gpt.py`` (inference path).
+``ai_music_generation_tpu/models/gpt.py``.
 
 Module names follow nanoGPT (``transformer.wte``, ``transformer.h.{i}.attn.
 c_attn``, ..., ``lm_head`` tied to ``wte``), so a state dict converted from
@@ -28,8 +28,17 @@ write at the shared cursor and the attention under per-column logical
 positions. Each op is the CUDA kernel on a GPU and its plain twin on the
 CPU.
 
-Not ported yet: training (loss, MFU, remat, dropout), MoE and sequence
-parallelism.
+Training (JAX gpt.py:745-815, 930-1050, 1070-1095): ``GPT.forward(idx,
+targets)`` returns all positions' logits and the mean cross-entropy
+(:func:`cross_entropy_ignore_index`); dropout acts at the JAX model's four
+sites in ``train()`` mode, each mask a counter hash of (the micro-step's
+``dropout_key``, layer, site, element index) (:func:`dropout`), so it needs
+no generator state and gives the same bits on the CPU and the card and
+when ``remat`` recomputes a block; ``remat`` checkpoints each block
+(``torch.utils.checkpoint``); :func:`estimate_mfu` is the PaLM formula over
+:func:`peak_flops_for`'s peak of the card.
+
+Not ported yet: MoE and sequence parallelism.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from typing import ClassVar, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ai_music_generation_tpu_torch.ops.decode_attention import (
     decode_attention,
@@ -49,23 +59,27 @@ from ai_music_generation_tpu_torch.ops.gqa_decode import gqa_decode_update
 from ai_music_generation_tpu_torch.ops.spec_attention import (
     spec_attention_update,
 )
+from ai_music_generation_tpu_torch.utils.hash32 import GOLDEN, M32, mix32, mul32
 
 
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
     """Same fields and defaults as the JAX ``GPTConfig``; ``dtype`` and
-    ``param_dtype`` are torch dtypes. The port runs inference only, so
-    ``dropout`` and ``remat`` have no effect. Its cache buffers are always
+    ``param_dtype`` are torch dtypes. ``dropout`` acts in ``train()`` mode
+    on the no-cache forward; ``remat`` checkpoints each block there while
+    gradients are recorded. ``attn_impl="flash"`` runs that forward's
+    attention as ``scaled_dot_product_attention`` (JAX's stock TPU flash
+    kernel) unless dropout is active. Its cache buffers are always
     flat [B, S, KH*D]; ``flat_kv`` and ``attn_impl`` pick the T=1 decode op
     as in the JAX model: ``flat_kv`` sends every T=1 step to
     ``ops.gqa_decode`` (K1) whatever ``attn_impl`` is; otherwise
     ``attn_impl="pallas"`` with MHA (``n_kv_head`` None or ``n_head``) and
     an unquantized cache sends it to ``ops.decode_attention`` (K4), and
     every other T=1 step goes to K1. ``attn_impl`` does not change the
-    prefill or the no-cache forward (plain torch ops, as XLA einsums in
-    JAX). ``spec_int8_dots`` selects the int8 x int8 products of the
-    speculative verify attention on an int8 spec cache (on the CPU as
-    well: there the op runs that mode's plain twin). ``n_expert > 0`` and
+    prefill (plain torch ops, as XLA einsums in JAX), and of the no-cache
+    forward only ``"flash"`` does. ``spec_int8_dots`` selects the int8 x
+    int8 products of the speculative verify attention on an int8 spec
+    cache (on the CPU as well: there the op runs that mode's plain twin). ``n_expert > 0`` and
     ``seq_axis`` are refused by :class:`GPT`."""
 
     block_size: int = 1024
@@ -281,6 +295,44 @@ def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
                         ln.eps).to(x.dtype)
 
 
+# dropout sites: the embedding sum (JAX gpt.py:937), the attention
+# probabilities (:784), after the attention's c_proj (:377) and after the
+# MLP's c_proj (:815)
+SITE_EMBED, SITE_ATTN_PROBS, SITE_ATTN_OUT, SITE_MLP_OUT = range(4)
+
+
+def dropout_key(seed: int, it: int, micro: int = 0) -> int:
+    """The 32-bit key of one micro-step's dropout masks, a hash of (seed,
+    iteration, micro-step): the port's ``fold_in(fold_in(PRNGKey(seed),
+    it), micro)`` (JAX train/trainer.py, train/step.py:71)."""
+    h = mix32(mix32((seed & M32) ^ 0x243F6A88) ^ (it & M32))
+    return mix32(h ^ mul32(micro & M32, GOLDEN))
+
+
+def dropout_keep(shape, p: float, key: int, layer: int, site: int,
+                 device=None) -> torch.Tensor:
+    """The keep mask (bool, ``shape``) of one dropout site: element i is
+    kept iff ``mix32(mul32(i, GOLDEN) ^ k) >= p * 2^32``, ``k`` a hash of
+    (key, layer, site) and i the row-major index, so each element is kept
+    with probability 1 - p. Integer ops only: the same bits on every
+    device."""
+    n = math.prod(shape)
+    if n >= 1 << 32:
+        raise ValueError(f"a dropout site of {n} elements passes 2^32")
+    k = mix32(key ^ mul32(layer * 4 + site + 1, GOLDEN))
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    bits = mix32(mul32(idx, GOLDEN) ^ k)
+    return (bits >= round(p * 2.0 ** 32)).view(shape)
+
+
+def dropout(x: torch.Tensor, p: float, key: int, layer: int,
+            site: int) -> torch.Tensor:
+    """Flax ``nn.Dropout`` with the mask of :func:`dropout_keep`: kept
+    values divided by 1 - p in x's dtype, the rest 0."""
+    keep = dropout_keep(x.shape, p, key, layer, site, x.device)
+    return torch.where(keep, true_divide(x, 1.0 - p), 0.0)
+
+
 class CausalSelfAttention(nn.Module):
     def __init__(self, config: GPTConfig):
         super().__init__()
@@ -292,12 +344,13 @@ class CausalSelfAttention(nn.Module):
                                 dtype=config.param_dtype)
 
     def forward(self, x, layer_cache=None, cache_len=None, cursor=None,
-                spec_col_pos=None, mask_rel=None):
+                spec_col_pos=None, mask_rel=None, drop=None):
         """``layer_cache`` = (k, v, k_scale, v_scale) of this layer (scales
         None for a bf16 cache), updated in place at ``cache_len`` or, in
         speculative mode (``spec_col_pos`` given) and ring mode
         (``mask_rel`` [B, S] given: column s of row b is valid iff
-        ``mask_rel[b, s] >= 0``), at ``cursor``."""
+        ``mask_rel[b, s] >= 0``), at ``cursor``. ``drop`` = (p, key, layer)
+        turns dropout on (no-cache forward only)."""
         cfg = self.config
         B, T, C = x.shape
         H, KH, D = cfg.n_head, cfg.kv_heads, cfg.head_dim
@@ -307,12 +360,12 @@ class CausalSelfAttention(nn.Module):
             return self._spec_forward(q, k, v, layer_cache, cache_len,
                                       cursor, spec_col_pos)
         if layer_cache is None:
-            # no-cache causal forward (JAX repeats K/V to H heads first;
-            # attend groups the queries instead: the same dot products)
-            mask = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
-            y = attend(q.reshape(B, T, H, D), k.reshape(B, T, KH, D),
-                       v.reshape(B, T, KH, D), None, None, mask[None, None])
-            return _linear(y, self.c_proj)
+            y = self._causal(q.reshape(B, T, H, D), k.reshape(B, T, KH, D),
+                             v.reshape(B, T, KH, D), drop)
+            y = _linear(y, self.c_proj)
+            if drop is not None:
+                y = dropout(y, *drop, SITE_ATTN_OUT)
+            return y
         ck, cv, ck_scale, cv_scale = layer_cache
         S = ck.shape[1]
         # K4 (JAX gpt.py:719-734, reached only off the flat branch)
@@ -355,6 +408,31 @@ class CausalSelfAttention(nn.Module):
                    cv.view(B, S, KH, D), ck_scale, cv_scale, mask[None, None])
         return _linear(y, self.c_proj)
 
+    def _causal(self, q, k, v, drop):
+        """No-cache causal attention (JAX gpt.py:745-786): K/V repeated to
+        the H query heads, then ``scaled_dot_product_attention`` for
+        ``attn_impl="flash"`` without active dropout (the counterpart of
+        JAX's stock flash kernel), else the einsum chain with fp32 softmax
+        and dropout on the probabilities. [B, T, H, D] -> [B, T, H*D]."""
+        cfg = self.config
+        B, T, H, D = q.shape
+        G = H // k.shape[2]
+        if G > 1:
+            k, v = k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)
+        if cfg.attn_impl == "flash" and drop is None:
+            y = F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True)
+            return y.transpose(1, 2).reshape(B, T, H * D)
+        scale = torch.tensor(1.0 / math.sqrt(D), dtype=q.dtype).item()
+        att = torch.einsum("bthd,bshd->bhts", q, k) * scale
+        mask = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+        att = att.masked_fill(~mask, float("-inf"))
+        att = torch.softmax(att.float(), dim=-1).to(q.dtype)
+        if drop is not None:
+            att = dropout(att, *drop, SITE_ATTN_PROBS)
+        return torch.einsum("bhts,bshd->bthd", att, v).reshape(B, T, H * D)
+
     def _spec_forward(self, q, k, v, layer_cache, lengths, cursor, col_pos):
         """Speculative mode (JAX models/gpt.py:515-589): the fresh K/V slab,
         padded with zero columns to Tw = ceil(T/8)*8 and (int8 mode)
@@ -393,10 +471,13 @@ class MLP(nn.Module):
         self.c_proj = nn.Linear(4 * C, C, bias=config.bias,
                                 dtype=config.param_dtype)
 
-    def forward(self, x):
+    def forward(self, x, drop=None):
         # Flax's nn.gelu is the tanh approximation
-        return _linear(F.gelu(_linear(x, self.c_fc), approximate="tanh"),
-                       self.c_proj)
+        y = _linear(F.gelu(_linear(x, self.c_fc), approximate="tanh"),
+                    self.c_proj)
+        if drop is not None:
+            y = dropout(y, *drop, SITE_MLP_OUT)
+        return y
 
 
 class Block(nn.Module):
@@ -413,21 +494,31 @@ class Block(nn.Module):
         self.mlp = MLP(config)
 
     def forward(self, x, layer_cache=None, cache_len=None, cursor=None,
-                spec_col_pos=None, mask_rel=None):
+                spec_col_pos=None, mask_rel=None, drop=None):
         x = x + self.attn(_layer_norm(x, self.ln_1), layer_cache, cache_len,
-                          cursor, spec_col_pos, mask_rel)
-        return x + self.mlp(_layer_norm(x, self.ln_2))
+                          cursor, spec_col_pos, mask_rel, drop)
+        return x + self.mlp(_layer_norm(x, self.ln_2), drop)
 
 
 class GPT(nn.Module):
     """Decoder-only LM with a weight-tied head.
 
-    ``forward(idx, cache=None, return_all_logits=False)`` returns
-    ``(logits, cache)``: logits in the compute dtype for the last position
-    (or all positions with ``return_all_logits``); with a cache, the new
-    tokens are written at ``cache.length`` (speculative and ring mode: at
-    ``cache.cursor``, see :class:`KVCache`) and the same cache, updated in
-    place, is returned.
+    ``forward(idx, targets=None, cache=None, return_all_logits=False,
+    dropout_key=None)`` returns two values, as nanoGPT's ``model.py``:
+
+    - without ``targets``, ``(logits, cache)``: logits in the compute dtype
+      for the last position (or all positions with ``return_all_logits``);
+      with a cache, the new tokens are written at ``cache.length``
+      (speculative and ring mode: at ``cache.cursor``, see
+      :class:`KVCache`) and the same cache, updated in place, is returned;
+    - with ``targets`` [B, T] (no cache), ``(logits, loss)``: logits for
+      every position and the fp32 mean cross-entropy over the targets that
+      are not -1 (:func:`cross_entropy_ignore_index`).
+
+    In ``train()`` mode with ``config.dropout > 0`` the no-cache forward
+    drops at the JAX model's four sites with the masks of
+    ``dropout_key`` (:func:`dropout_key`; required then); in ``eval()``
+    mode, and on every cached call, nothing is dropped.
 
     Weights: load a state dict (``models.convert.state_dict_from_jax``) or
     call ``models.convert.init_weights``; the constructor leaves torch's
@@ -461,13 +552,25 @@ class GPT(nn.Module):
                                      dtype=dt)
         self.transformer.wte.weight = self.lm_head.weight  # weight tying
 
-    def forward(self, idx: torch.Tensor, cache: Optional[KVCache] = None,
-                return_all_logits: bool = False):
+    def forward(self, idx: torch.Tensor,
+                targets: Optional[torch.Tensor] = None,
+                cache: Optional[KVCache] = None,
+                return_all_logits: bool = False,
+                dropout_key: Optional[int] = None):
         cfg = self.config
         B, T = idx.shape
         if T > cfg.block_size:
             raise ValueError(
                 f"sequence length {T} exceeds block_size {cfg.block_size}")
+        if targets is not None and cache is not None:
+            raise ValueError("targets take the no-cache forward")
+        drop = None
+        if self.training and cfg.dropout > 0 and cache is None:
+            if dropout_key is None:
+                raise ValueError(
+                    "dropout is active in train() mode: pass dropout_key "
+                    "(models.gpt.dropout_key), or call eval()")
+            drop = (cfg.dropout, dropout_key)
         wte = self.transformer.wte.weight.to(cfg.dtype)
         pos = torch.arange(T, device=idx.device)
         spec_col_pos = mask_rel = None
@@ -502,16 +605,32 @@ class GPT(nn.Module):
             pos = pos + cache.length
         x = (F.embedding(idx, wte)
              + F.embedding(pos, self.transformer.wpe.weight.to(cfg.dtype)))
+        if drop is not None:
+            x = dropout(x, *drop, 0, SITE_EMBED)
+        # remat (JAX gpt.py:945-948): each block's activations are
+        # recomputed in the backward pass; the masks are counter hashes, so
+        # no RNG state needs restoring
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, block in enumerate(self.transformer.h):
-            layer_cache = None if cache is None else (
+            if cache is None:
+                layer_drop = None if drop is None else (*drop, i)
+                if remat:
+                    x = checkpoint(block, x, drop=layer_drop,
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+                else:
+                    x = block(x, drop=layer_drop)
+                continue
+            layer_cache = (
                 cache.k[i], cache.v[i],
                 None if cache.k_scale is None else cache.k_scale[i],
                 None if cache.v_scale is None else cache.v_scale[i])
-            x = block(x, layer_cache,
-                      None if cache is None else cache.length,
-                      None if cache is None else cache.cursor, spec_col_pos,
-                      mask_rel)
+            x = block(x, layer_cache, cache.length, cache.cursor,
+                      spec_col_pos, mask_rel)
         x = _layer_norm(x, self.transformer.ln_f)
+        if targets is not None:
+            logits = F.linear(x, wte)  # weight tying
+            return logits, cross_entropy_ignore_index(logits, targets)
         if spec_col_pos is not None:
             # JAX gpt.py:981-998: the cursor advances by the 8-aligned
             # write width, the length as if every token were accepted
@@ -544,3 +663,55 @@ class GPT(nn.Module):
         wpe = self.transformer.wpe
         wpe.weight = nn.Parameter(wpe.weight[:block_size].clone())
         wpe.num_embeddings = block_size
+
+
+def cross_entropy_ignore_index(logits: torch.Tensor, targets: torch.Tensor,
+                               ignore_index: int = -1) -> torch.Tensor:
+    """Mean token cross-entropy over the targets that are not
+    ``ignore_index`` (JAX gpt.py:1019-1050): ``logsumexp - logit[target]``
+    in fp32 (the logits are upcast here, not before the head), masked,
+    divided by ``max(count, 1)``, so a batch whose every target is ignored
+    gives 0 (``F.cross_entropy(..., ignore_index=-1)`` gives nan there)."""
+    logits = logits.float()
+    mask = targets != ignore_index
+    safe = torch.where(mask, targets, 0).long()
+    tgt = logits.gather(-1, safe[..., None])[..., 0]
+    nll = torch.logsumexp(logits, dim=-1) - tgt
+    return (nll * mask).sum() / mask.sum().clamp_min(1)
+
+
+# dense bf16 peak per card for MFU, by a substring of its CUDA name (the
+# same peak whatever the compute dtype, as the JAX table): NVIDIA's H100
+# data sheet; the CPU's is the JAX table's nominal 1 TFLOP/s
+PEAK_FLOPS = {"h100": 989e12}
+CPU_PEAK_FLOPS = 1e12
+
+
+def peak_flops_for(device=None) -> float:
+    """Peak FLOP/s of ``device`` (default: the card, else the CPU) for MFU
+    accounting (JAX gpt.py:1081-1086): the table entry whose key is in
+    ``torch.cuda.get_device_name``; a card that is not in the table
+    raises."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(device)
+    if device.type == "cpu":
+        return CPU_PEAK_FLOPS
+    name = torch.cuda.get_device_name(device)
+    for key, peak in PEAK_FLOPS.items():
+        if key in name.lower():
+            return peak
+    raise ValueError(f"no peak FLOP/s is known for {name!r}: add it to "
+                     "models.gpt.PEAK_FLOPS")
+
+
+def estimate_mfu(config: GPTConfig, n_params: int, fwdbwd_per_iter: float,
+                 dt: float, peak_flops: Optional[float] = None) -> float:
+    """PaLM-appendix-B MFU estimate (JAX gpt.py:1089-1095): ``n_params``
+    without the position table (``GPT.num_params()``), ``fwdbwd_per_iter``
+    sequences of block_size tokens per iteration of ``dt`` seconds."""
+    L, H, Q, T = (config.n_layer, config.n_head, config.head_dim,
+                  config.block_size)
+    flops_per_token = 6 * n_params + 12 * L * H * Q * T
+    flops_per_iter = flops_per_token * T * fwdbwd_per_iter
+    return (flops_per_iter / dt) / (peak_flops or peak_flops_for())

@@ -14,8 +14,9 @@ format around them:
 - the config comes from ``model_args`` (``n_kv_head`` too, when a GQA
   checkpoint carries it);
 - save writes the full key set with the tied ``lm_head.weight`` sharing
-  ``transformer.wte.weight``'s storage, a fresh AdamW state with nanoGPT's
-  decay / no-decay groups (so a reference resume loads it), ``model_args``
+  ``transformer.wte.weight``'s storage, the trainer's AdamW state (on the
+  CPU) or, without one, a fresh AdamW state with nanoGPT's decay /
+  no-decay groups (so a reference resume loads it), ``model_args``
   (with ``n_kv_head`` for a GQA model, which the JAX
   ``load_reference_ckpt`` reads with an ``n_kv_head`` override), and
   ``iter_num``, ``best_val_loss`` and the training ``config`` (whose
@@ -61,6 +62,19 @@ def config_from_model_args(model_args: Mapping[str, Any],
     return GPTConfig(**kwargs)
 
 
+def read_ckpt(path: str) -> dict:
+    """The ``ckpt.pt`` dict, every tensor on the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def model_state(ckpt: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The checkpoint's model state as the port's GPT loads it."""
+    state = {k: v for k, v in strip_compile_prefix(ckpt["model"]).items()
+             if not k.endswith(_MASK_BUFFERS)}
+    state.setdefault("lm_head.weight", state["transformer.wte.weight"])
+    return state
+
+
 def load_ckpt(path: str, device=None, **config_overrides):
     """Read a ``ckpt.pt`` -> (GPT with its weights on ``device``, meta).
 
@@ -68,13 +82,10 @@ def load_ckpt(path: str, device=None, **config_overrides):
     ``kv_quantized``, ``flat_kv``, ...); ``device`` None is the card, as
     :class:`GPT`. meta carries {model_args, iter_num, best_val_loss,
     config} as the JAX ``load_reference_ckpt`` returns them."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    ckpt = read_ckpt(path)
     config = config_from_model_args(ckpt["model_args"], **config_overrides)
-    state = {k: v for k, v in strip_compile_prefix(ckpt["model"]).items()
-             if not k.endswith(_MASK_BUFFERS)}
-    state.setdefault("lm_head.weight", state["transformer.wte.weight"])
     model = GPT(config, device=device)
-    model.load_state_dict(state)
+    model.load_state_dict(model_state(ckpt))
     meta = {
         "model_args": {k: ckpt["model_args"][k] for k in MODEL_ARGS_KEYS},
         "iter_num": int(ckpt.get("iter_num", 0)),
@@ -99,14 +110,28 @@ def _fresh_adamw_state_dict(params: list[torch.Tensor], learning_rate: float,
     return opt.state_dict()
 
 
+def _to_cpu(obj):
+    """``obj`` with every tensor in it copied to the CPU."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
 def save_ckpt(path: str, model: GPT, iter_num: int = 0,
               best_val_loss: float = 1e9,
-              train_config: Optional[Mapping[str, Any]] = None) -> None:
+              train_config: Optional[Mapping[str, Any]] = None,
+              optimizer: Optional[torch.optim.Optimizer] = None) -> None:
     """Write ``model`` as a ``ckpt.pt`` (fp32 weights on the CPU).
     ``train_config`` is stored as the checkpoint's ``config`` (its
-    ``dataset`` names the meta.pkl the sampling CLI decodes with). GQA
-    models are written too: their ``c_attn`` is [C + 2*KH*D, C] and
-    ``model_args`` carries ``n_kv_head``."""
+    ``dataset`` names the meta.pkl the sampling CLI decodes with).
+    ``optimizer`` (the trainer's AdamW, ``train/optimizer.py``) is stored
+    as its ``state_dict`` on the CPU; without one the checkpoint holds a
+    fresh AdamW state. GQA models are written too: their ``c_attn`` is
+    [C + 2*KH*D, C] and ``model_args`` carries ``n_kv_head``."""
     config = model.config
     train_config = dict(train_config or {})
     model_args = {k: getattr(config, k) for k in MODEL_ARGS_KEYS}
@@ -128,7 +153,8 @@ def save_ckpt(path: str, model: GPT, iter_num: int = 0,
             learning_rate=float(train_config.get("learning_rate", 6e-4)),
             weight_decay=float(train_config.get("weight_decay", 0.1)),
             beta1=float(train_config.get("beta1", 0.9)),
-            beta2=float(train_config.get("beta2", 0.95))),
+            beta2=float(train_config.get("beta2", 0.95)))
+        if optimizer is None else _to_cpu(optimizer.state_dict()),
         "model_args": model_args,
         "iter_num": int(iter_num),
         "best_val_loss": float(best_val_loss),

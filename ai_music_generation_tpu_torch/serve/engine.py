@@ -65,8 +65,10 @@ import numpy as np
 import torch
 
 from ai_music_generation_tpu_torch.models.gpt import GPT, KVCache
-
-_M32 = 0xFFFFFFFF
+from ai_music_generation_tpu_torch.utils.hash32 import GOLDEN
+from ai_music_generation_tpu_torch.utils.hash32 import M32 as _M32
+from ai_music_generation_tpu_torch.utils.hash32 import mix32 as _mix32
+from ai_music_generation_tpu_torch.utils.hash32 import mul32 as _mul32
 
 
 @dataclasses.dataclass(eq=False)  # identity equality: queue removal must
@@ -90,22 +92,6 @@ class Request:                    # never confuse two same-parameter requests
         return self.prompt + self.generated
 
 
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """``x * c mod 2^32`` for int64 ``x`` in [0, 2^32): the constant is split
-    in 16-bit halves so no product reaches 2^63."""
-    lo, hi = c & 0xFFFF, c >> 16
-    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
-
-
-def _mix32(h: torch.Tensor) -> torch.Tensor:
-    """murmur3's 32-bit finalizer on int64 values in [0, 2^32)."""
-    h = h ^ (h >> 16)
-    h = _mul32(h, 0x85EBCA6B)
-    h = h ^ (h >> 13)
-    h = _mul32(h, 0xC2B2AE35)
-    return h ^ (h >> 16)
-
-
 def noise_bits(seed: torch.Tensor, gen: torch.Tensor, vocab: int) -> torch.Tensor:
     """The 32 random bits of each (row, vocabulary index), int64 [B, V]:
     a function of (seed[b], gen[b], v) only (module docstring). ``seed``
@@ -113,7 +99,7 @@ def noise_bits(seed: torch.Tensor, gen: torch.Tensor, vocab: int) -> torch.Tenso
     seed = seed.to(torch.int64) & _M32
     row = _mix32(_mix32(seed ^ 0x243F6A88) ^ (gen.to(torch.int64) & _M32))
     v = torch.arange(vocab, dtype=torch.int64, device=seed.device)
-    return _mix32(row[:, None] ^ _mul32(v, 0x9E3779B1)[None, :])
+    return _mix32(row[:, None] ^ _mul32(v, GOLDEN)[None, :])
 
 
 def gumbel_noise(seed: torch.Tensor, gen: torch.Tensor, vocab: int) -> torch.Tensor:

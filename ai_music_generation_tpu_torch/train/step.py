@@ -1,0 +1,76 @@
+"""Train and eval steps with gradient accumulation: the port of
+``ai_music_generation_tpu/train/step.py``.
+
+The JAX step is one jitted program that scans the micro-steps, sums their
+gradients in fp32 and scales the sum by 1/accum. Here the micro-steps are a
+Python loop of ``backward()`` calls on the unscaled loss: autograd sums
+each micro-step's gradients into ``.grad`` in the same order, and the sum
+is then scaled by 1/accum, as in JAX. Nothing is read back to the host:
+the metrics are device tensors (and the lr, a Python float).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from ai_music_generation_tpu_torch.models.gpt import GPT, dropout_key
+from ai_music_generation_tpu_torch.train.optimizer import (
+    clip_by_global_norm_,
+    global_norm,
+)
+
+
+def make_train_step(model: GPT, optimizer: torch.optim.Optimizer,
+                    schedule: Optional[Callable[[int], float]] = None,
+                    grad_clip: Optional[float] = 1.0) -> Callable:
+    """Build ``train_step(x, y, step, seed=0) -> metrics``.
+
+    x, y: [grad_accum, micro_batch, T] integer tensors on the model's
+    device. ``step`` is the step index: the schedule's argument (JAX
+    ``TrainState.step``) and, with ``seed``, the dropout masks' key (micro
+    step i of step s drops with ``dropout_key(seed, s, i)``). The loss and
+    the gradients are means over the micro-steps; the gradients are
+    clipped to ``grad_clip`` (None or 0: no clip) after ``grad_norm`` is
+    taken. metrics: ``loss`` and ``grad_norm`` (fp32 0-dim tensors) and
+    ``lr``."""
+    params = list(model.parameters())
+
+    def train_step(x: torch.Tensor, y: torch.Tensor, step: int,
+                   seed: int = 0) -> dict:
+        model.train()
+        accum = x.shape[0]
+        loss = None
+        for i in range(accum):
+            _, micro = model(x[i], y[i], dropout_key=dropout_key(seed, step, i))
+            micro.backward()
+            loss = micro.detach() if loss is None else loss + micro.detach()
+        grads = [p.grad for p in params]
+        if accum > 1:  # the fast path (accum 1) scales by nothing
+            torch._foreach_mul_(grads, 1.0 / accum)
+            loss = loss * (1.0 / accum)
+        grad_norm = global_norm(grads)
+        if grad_clip:
+            clip_by_global_norm_(grads, grad_clip, grad_norm)
+        lr = (schedule(step) if schedule is not None
+              else optimizer.param_groups[0]["lr"])
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
+        return {"loss": loss, "grad_norm": grad_norm, "lr": lr}
+
+    return train_step
+
+
+def make_eval_step(model: GPT) -> Callable:
+    """``eval_step(x, y) -> loss``: the mean loss in ``eval()`` mode (no
+    dropout), without gradients."""
+
+    @torch.no_grad()
+    def eval_step(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        model.eval()
+        return model(x, y)[1]
+
+    return eval_step

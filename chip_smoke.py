@@ -1,7 +1,8 @@
-"""Drive the PyTorch port's batched ABC decode paths once on an NVIDIA GPU:
-the plain decode path, speculative decoding, the attn_impl="pallas" decode
-path, the lean int8 / int4 decode-attention probe path, fp32 models, the
-continuous-batching server and the sampling CLI.
+"""Drive the PyTorch port's paths once on an NVIDIA GPU: the batched ABC
+decode paths (the plain decode path, speculative decoding, the
+attn_impl="pallas" decode path, the lean int8 / int4 decode-attention probe
+path, fp32 models, the continuous-batching server and the sampling CLI) and
+the training path (the train step, cli/train.py, cli/train_bench.py).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -121,14 +122,35 @@ printing a result):
     new tokens, T 0.8, top_k 200, --kv_quantized --flat_kv, twice at one
     seed (identical files), at --dtype=float32, and --speculative over an
     MHA checkpoint at fp32 (64 samples): file names, X: headers;
-    samples/s and tok/s printed.
+    samples/s and tok/s printed;
+21. train step: the music config (configs/irishman_char.py's widths, the
+    corpus's vocabulary) on the card against the CPU from the same init
+    weights and batch (accum 2 x batch 4, lr 1e-3): loss and grad_norm
+    within 1e-4 of their value and the parameters within 1e-4 of their
+    range at fp32, 2^-6 at bf16; at dropout 0.2 the masks of layer 0 at its
+    four sites bit-equal card vs CPU and an fp32 step within 1e-4;
+22. train CLI: ``cli/train.py configs/irishman_char.py`` (batch 64, block
+    256, dropout 0.2, bf16) on phase 20's corpus for 30 iterations, an
+    eval every 10 (5 batches): the val loss falls, ckpt.pt and
+    last_iter_ckpt.pt exist, ``--init_from=resume`` continues from the
+    checkpoint's iteration with its model_args to 40; ms/iter and MFU
+    printed; then ``cli/sample.py`` samples 64 tunes from its ckpt.pt
+    (200 new tokens), each file with its X: header;
+23. train bench: ``cli/train_bench.py`` at GPT-2 124M (12 layers, 12
+    heads, 768 wide, block 1024, batch 12, vocab 50304, bf16), 3 burn-in
+    and 10 timed steps, without and with remat, then with
+    ``--attn_impl=flash``: ms/iter, MFU against 989 TFLOP/s, peak memory
+    printed. Phases 21-23 launch none of K1-K7 (their
+    counts are set to 0 before each and read after; any launch fails the
+    run). ``--profile train`` profiles one 124M step and one step at the
+    music widths.
 
 The last two lines are a JSON summary of each kernel and
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` counts its
-launches in its path's main-path run (phases 5, 8, 12, 15, 19, 20; every
-count is set to 0 just before each of them and read just after); a kernel
-with no caller on any path (K3, K5, K6) shows its count summed over those
-six runs there, and its kernel-vs-twin launches as ``check_launches``.
+launches in its path's main-path run (phases 5, 8, 12, 15, 19, 20, 22;
+every count is set to 0 just before each of them and read just after); a
+kernel with no caller on any path (K3, K5, K6) shows its count summed over
+those runs there, and its kernel-vs-twin launches as ``check_launches``.
 K1's entry carries its ring mode (``ring``: phase 19's launches, the
 B=8192 timing) and its fp32 mode (``fp32``: phase 20's fp32 run), K2's its
 fp32 mode (``fp32``: phase 20's fp32 speculative run, with the refresh and
@@ -228,6 +250,17 @@ SERVE_REQUESTS, SERVE_MAX_NEW = 16384, 256
 # measures, 1,000 samples at batch 1,000, 500 new tokens, T 0.8, top_k 200)
 CLI_SAMPLES, CLI_NEW, CLI_SPEC_SAMPLES = 1000, 500, 64
 CLI_S = BENCH["block_size"]  # its decode window (--window=0: block_size)
+# training (phases 21-23): the music config (configs/irishman_char.py: 6
+# layers, 6 heads, 384 wide, block 256, no bias, batch 64, dropout 0.2) on
+# phase 20's corpus, and GPT-2 124M (cli/train_bench.py's defaults: 12
+# layers, 12 heads, 768 wide, block 1024, batch 12, vocab 50304, bf16).
+# A train step on the card is held to the CPU's within 1e-4 of the value
+# (loss, grad_norm) or of the range (parameters) in fp32 (cuBLAS and the
+# CPU sum in other orders), 2^-6 in bf16
+MUSIC_CONFIG = "ai_music_generation_tpu_torch/configs/irishman_char.py"
+TRAIN_STEP_FRAC = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
+TRAIN_ITERS, TRAIN_EVAL, TRAIN_EVAL_ITERS = 30, 10, 5
+BENCH_BURN_IN, BENCH_STEPS = 3, 10
 
 
 def bound(n_bytes, n_ops, ops_per_s=BF16_OPS_PER_S) -> tuple[float, str]:
@@ -2191,7 +2224,301 @@ def phase_sample_cli(ws, device, samples=CLI_SAMPLES, new=CLI_NEW):
     return res
 
 
-PROFILED = ("pallas", "bench", "spec", "serve")
+def _music_arch(data_root) -> tuple[dict, dict]:
+    """(the music config's trainer config, its model_args on the corpus
+    under ``data_root``)."""
+    import os
+
+    from ai_music_generation_tpu_torch.data.memmap import load_meta
+    from ai_music_generation_tpu_torch.train.trainer import (
+        ARCH_KEYS,
+        DEFAULTS,
+    )
+    from ai_music_generation_tpu_torch.utils.configurator import (
+        apply_overrides,
+    )
+
+    c = apply_overrides(DEFAULTS, [MUSIC_CONFIG])
+    meta = load_meta(os.path.join(data_root, c["dataset"], "meta.pkl"))
+    c["vocab_size"] = meta["vocab_size"]
+    return c, {k: c[k] for k in ARCH_KEYS}
+
+
+def phase_train_step(ws, device, B=4, accum=2) -> dict:
+    """One train step (train/step.py: accum 2 of batch 4, AdamW, the clip)
+    of the music config on ``device`` against the CPU from the same init
+    weights and batch, at fp32 and bf16, dropout 0: loss and grad_norm
+    within TRAIN_STEP_FRAC of their value, every parameter within it of the
+    parameters' range. The step index is the end of the warmup (lr 1e-3),
+    so the update is not a rounding of nothing. Then at dropout 0.2: the
+    masks of layer 0 at its four sites bit-equal card vs CPU, and one fp32
+    step with them within the fp32 yardstick. Returns each error as a
+    share of its yardstick's scale."""
+    import os
+
+    from ai_music_generation_tpu_torch.data.memmap import BinDataset
+    from ai_music_generation_tpu_torch.models import gpt
+    from ai_music_generation_tpu_torch.models.convert import init_weights
+    from ai_music_generation_tpu_torch.train.optimizer import (
+        cosine_warmup_schedule,
+        make_optimizer,
+    )
+    from ai_music_generation_tpu_torch.train.step import make_train_step
+
+    c, arch = _music_arch(ws[0])
+    T = c["block_size"]
+    ds = BinDataset(os.path.join(ws[0], c["dataset"], "train.bin"))
+    x, y = (torch.from_numpy(a) for a in ds.sample(c["seed"], 0, (accum, B),
+                                                   T))
+    it = c["warmup_iters"]
+    schedule = cosine_warmup_schedule(c["learning_rate"], c["warmup_iters"],
+                                      c["lr_decay_iters"], c["min_lr"])
+    errs = {}
+    for name, dtype, dropout in (("fp32", torch.float32, 0.0),
+                                 ("bf16", torch.bfloat16, 0.0),
+                                 ("fp32 dropout", torch.float32,
+                                  c["dropout"])):
+        cfg = gpt.GPTConfig(**arch, dtype=dtype, dropout=dropout)
+        cpu = init_weights(gpt.GPT(cfg, device="cpu"),
+                           torch.Generator().manual_seed(0))
+        models = (cpu, copy.deepcopy(cpu).to(device))
+        metrics = []
+        for m in models:
+            dev = m.lm_head.weight.device
+            step = make_train_step(m, make_optimizer(
+                m, c["learning_rate"], c["weight_decay"], c["beta1"],
+                c["beta2"]), schedule, c["grad_clip"])
+            metrics.append(step(x.to(dev), y.to(dev), it, c["seed"]))
+        frac = TRAIN_STEP_FRAC[dtype]
+        err = {key: abs(float(metrics[1][key]) - float(metrics[0][key]))
+               / abs(float(metrics[0][key])) for key in ("loss", "grad_norm")}
+        ref = models[0].state_dict()
+        span = max(float(v.abs().max()) for v in ref.values())
+        err["params"] = max(float((v.cpu() - ref[k]).abs().max())
+                            for k, v in models[1].state_dict().items()) / span
+        print(f"train step {name} ({device} vs cpu, accum {accum} x batch "
+              f"{B}, T {T}): loss {float(metrics[1]['loss']):.6f} vs "
+              f"{float(metrics[0]['loss']):.6f}; errors "
+              + ", ".join(f"{k} {v:.3g}" for k, v in err.items())
+              + f" (yardstick {frac:.3g})")
+        if not all(v <= frac for v in err.values()):
+            raise AssertionError(f"train step {name}: {err} over {frac}")
+        errs[name] = max(err.values())
+    key = gpt.dropout_key(c["seed"], it, 0)
+    C, H = arch["n_embd"], arch["n_head"]
+    shapes = {gpt.SITE_EMBED: (B, T, C), gpt.SITE_ATTN_PROBS: (B, H, T, T),
+              gpt.SITE_ATTN_OUT: (B, T, C), gpt.SITE_MLP_OUT: (B, T, C)}
+    kept = {}
+    for site, shape in shapes.items():
+        card = gpt.dropout_keep(shape, c["dropout"], key, 0, site, device)
+        if not torch.equal(card.cpu(), gpt.dropout_keep(shape, c["dropout"],
+                                                        key, 0, site)):
+            raise AssertionError(f"dropout site {site}: card != CPU")
+        kept[site] = float(card.float().mean())
+    print(f"dropout masks of layer 0 (p {c['dropout']}) bit-equal card vs "
+          f"CPU at its four sites; kept shares {kept}")
+    return errs
+
+
+class _Tee:
+    """A stdout that also keeps what is written."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _tee(fn, *args) -> str:
+    import contextlib
+
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        fn(*args)
+    return "".join(tee.parts)
+
+
+def _iter_lines(log):
+    """(iter, ms, mfu %) of each ``iter N: ...`` line of a trainer log."""
+    import re
+
+    return [(int(a), float(b), float(c)) for a, b, c in re.findall(
+        r"iter (\d+): loss [\d.]+, time ([\d.]+)ms, mfu (-?[\d.]+)%", log)]
+
+
+def phase_train_cli(ws, device, iters=TRAIN_ITERS) -> dict:
+    """``cli/train.py configs/irishman_char.py`` (batch 64, block 256,
+    dropout 0.2, bf16) on phase 20's corpus for ``iters`` iterations with an
+    eval every TRAIN_EVAL (TRAIN_EVAL_ITERS batches): the val loss falls
+    below its first reading (the JAX gate, tests/test_trainer.py), ckpt.pt
+    and last_iter_ckpt.pt exist; then ``--init_from=resume`` continues from
+    the checkpoint's iteration with its model_args to iters + TRAIN_EVAL.
+    ms/iter: the median over the iterations after the fifth whose window
+    holds no eval; MFU: the trainer's EMA at the end. Returns the numbers
+    and the out_dir."""
+    import json
+    import os
+    import statistics
+
+    from ai_music_generation_tpu_torch.cli import train as train_cli
+    from ai_music_generation_tpu_torch.train import checkpoint as ckpt_lib
+
+    data_root = ws[0]
+    out = os.path.join(os.path.dirname(data_root), "train-music")
+    base = [MUSIC_CONFIG, f"--data_root={data_root}", f"--out_dir={out}",
+            f"--eval_interval={TRAIN_EVAL}",
+            f"--eval_iters={TRAIN_EVAL_ITERS}", "--log_interval=1",
+            f"--device={device}"]
+    t0 = time.perf_counter()
+    log = _tee(train_cli.main, base + [f"--max_iters={iters}"])
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out, "losses.jsonl")) as f:
+        evals = [json.loads(line) for line in f]
+    best = min(r["val/loss"] for r in evals[1:])
+    if not best < evals[0]["val/loss"]:
+        raise AssertionError(f"the music run's val loss did not fall: {evals}")
+    for name in (ckpt_lib.BEST, ckpt_lib.LAST):
+        if not ckpt_lib.checkpoint_exists(out, name):
+            raise AssertionError(f"the music run wrote no {name}")
+    lines = _iter_lines(log)
+    steady = [ms for i, ms, _ in lines if i >= 5 and i % TRAIN_EVAL]
+    ms = statistics.median(steady)
+    mfu = lines[-1][2]
+    last = ckpt_lib.load_checkpoint(out, ckpt_lib.LAST)
+    resumed = _iter_lines(_tee(train_cli.main, base + [
+        f"--max_iters={iters + TRAIN_EVAL}", "--init_from=resume"]))
+    after = ckpt_lib.load_checkpoint(out, ckpt_lib.LAST)
+    if (resumed[0][0] != last["iter_num"]
+            or after["iter_num"] != iters + TRAIN_EVAL
+            or after["model_args"] != last["model_args"]):
+        raise AssertionError(
+            f"resume: first iteration {resumed[0][0]}, checkpoint "
+            f"{last['iter_num']} -> {after['iter_num']}")
+    print(f"train CLI (music config, {device}): {iters} iterations in "
+          f"{wall:.1f} s, val loss {evals[0]['val/loss']:.4f} -> {best:.4f} "
+          f"({[round(r['val/loss'], 4) for r in evals]}); {ms:.2f} ms/iter "
+          f"(median of {len(steady)}), MFU {mfu:.2f}%; resumed at iteration "
+          f"{resumed[0][0]} to {after['iter_num']} with model_args "
+          f"{after['model_args']}")
+    return dict(out_dir=out, ms=ms, mfu=mfu, val=[r["val/loss"]
+                                                  for r in evals])
+
+
+def phase_sample_trained(ws, out_dir, device) -> float:
+    """cli/sample.py from the music run's ckpt.pt: CLI_SPEC_SAMPLES tunes
+    (4 conditioning measures, 200 new tokens, T 0.8, top_k 200), one file
+    each with its X: header. Returns samples/s."""
+    import shutil
+
+    from ai_music_generation_tpu_torch.cli import sample as cli
+
+    data_root, _, _, val_small = ws
+    shutil.rmtree(f"{out_dir}/samples", ignore_errors=True)
+    t0 = time.perf_counter()
+    cli.main([f"--out_dir={out_dir}", f"--data_root={data_root}",
+              "--dataset=irishman", "--tokens_format=char",
+              f"--validation_path={val_small}", "--n_conditional_measures=4",
+              "--max_new_tokens=200", "--temperature=0.8", "--top_k=200",
+              f"--batch_size={CLI_SPEC_SAMPLES}", f"--device={device}"])
+    wall = time.perf_counter() - t0
+    files = _sample_files(out_dir)
+    if sorted(files) != sorted(f"sample_{i}.abc"
+                               for i in range(CLI_SPEC_SAMPLES)) or any(
+            not text.startswith(f"X:{f[7:-4]}\n") for f, text in files.items()):
+        raise AssertionError(f"samples of the trained model: {sorted(files)}")
+    print(f"sample CLI from the trained ckpt.pt: {len(files)} tunes x 200 "
+          f"new tokens in {wall:.2f} s; first: {files['sample_0.abc'][:80]!r}")
+    return len(files) / wall
+
+
+def phase_train_bench() -> dict:
+    """cli/train_bench.py at GPT-2 124M (its defaults) on the card,
+    BENCH_BURN_IN burn-in and BENCH_STEPS timed steps, without and with
+    remat, then with ``--attn_impl=flash`` (the library counterpart of the
+    einsum chain, ``scaled_dot_product_attention``): ms/iter, MFU against
+    989 TFLOP/s, peak memory."""
+    from ai_music_generation_tpu_torch.cli import train_bench
+
+    res = {}
+    for name, flag in (("plain", "--remat=False"), ("remat", "--remat=True"),
+                       ("flash", "--attn_impl=flash")):
+        res[name] = train_bench.main([
+            f"--burn_in={BENCH_BURN_IN}", f"--num_steps={BENCH_STEPS}", flag,
+            "--device=cuda"])
+        torch.cuda.empty_cache()
+    for name, r in res.items():
+        if not (r["mfu"] > 0 and r["loss"] == r["loss"]):
+            raise AssertionError(f"train_bench {name}: {r}")
+    return res
+
+
+# the music config's widths for --profile train (vocab 128: no corpus there)
+MUSIC_PROFILED = dict(n_layer=6, n_head=6, n_embd=384, block_size=256,
+                      batch_size=64, vocab_size=128, dropout=0.2)
+
+
+def phase_profile_train(top=12) -> None:
+    """One train step of cli/train_bench.py at GPT-2 124M, then at the
+    music config's widths (MUSIC_PROFILED, dropout 0.2), under
+    ``torch.profiler`` after 3 warm-up steps and one unprofiled step (host
+    clock between synchronizes): device self time by kernel (entries whose
+    device type is not the CPU), the busy share, and the device time under
+    the optimizer step (``aten::_fused_adamw_``) and the dtype casts
+    (``aten::_to_copy``: the fp32 weights cast to bf16 at each use and the
+    upcasts to fp32, forward and backward); with dropout, the time of the
+    step's masks alone (``models/gpt.py::dropout_keep`` at its four sites'
+    shapes in every layer, CUDA events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ai_music_generation_tpu_torch.cli import train_bench
+    from ai_music_generation_tpu_torch.models import gpt
+
+    for name, widths in (("GPT-2 124M", {}), ("music", MUSIC_PROFILED)):
+        c = dict(train_bench.DEFAULTS, device="cuda", **widths)
+        b = train_bench.setup(c)
+        train_bench.timed_steps(b, 0, 3, c["seed"])
+        wall, _ = train_bench.timed_steps(b, 3, 1, c["seed"])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            profiled, _ = train_bench.timed_steps(b, 4, 1, c["seed"])
+        events = prof.key_averages()
+        rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                       for e in events if e.device_type != DeviceType.CPU
+                       and e.self_device_time_total > 0), reverse=True)
+        busy_ms = sum(r[0] for r in rows)
+        under = {op: sum(e.device_time_total for e in events
+                         if e.key == op) / 1e3
+                 for op in ("aten::_fused_adamw_", "aten::_to_copy")}
+        B, T, C, H = (c["batch_size"], c["block_size"], c["n_embd"],
+                      c["n_head"])
+        shapes = [(B, T, C)] + [(B, H, T, T), (B, T, C), (B, T, C)] * c[
+            "n_layer"]
+        dropout_ms = 0.0 if not c["dropout"] else _cuda_ms(lambda: [
+            gpt.dropout_keep(shape, c["dropout"], 0, 0, 0, "cuda")
+            for shape in shapes], 3)
+        print(f"profile train, {name}: batch {c['batch_size']} x "
+              f"{c['block_size']}, dropout {c['dropout']}, bf16; unprofiled "
+              f"step {wall * 1e3:.1f} ms, profiled {profiled * 1e3:.1f} ms; "
+              f"device busy {busy_ms:.1f} ms = {busy_ms / 1e3 / profiled:.3f}"
+              f" of the profiled wall, {busy_ms / 1e3 / wall:.3f} of the "
+              f"unprofiled one; AdamW (aten::_fused_adamw_) "
+              f"{under['aten::_fused_adamw_']:.2f} ms, dtype casts "
+              f"(aten::_to_copy) {under['aten::_to_copy']:.2f} ms, dropout "
+              f"masks {dropout_ms:.2f} ms")
+        for ms, count, key in rows[:top]:
+            print(f"  {ms:10.2f} ms {count:7d} calls  {ms / count:.4f} "
+                  f"ms/call  {key[:90]}")
+        del b
+        torch.cuda.empty_cache()
+
+
+PROFILED = ("pallas", "bench", "spec", "serve", "train")
 
 
 @torch.inference_mode()
@@ -2299,7 +2626,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", nargs="?", const="pallas",
                         metavar="PATHS",
-                        help="only build, then profile one generate of each "
+                        help="only build, then profile one generate (train: "
+                             "one train step at 124M and at the music "
+                             "widths) of each "
                              f"of the comma-separated paths (of "
                              f"{', '.join(PROFILED)}; default pallas): no "
                              "checks, no JSON result")
@@ -2314,7 +2643,10 @@ def main(argv=None) -> int:
     phase_build()
     if args.profile:
         for path in args.profile.split(","):
-            phase_profile(path)
+            if path == "train":
+                phase_profile_train()
+            else:
+                phase_profile(path)
             torch.cuda.empty_cache()
         return 0
     err = phase_kernel_vs_twin("cuda")
@@ -2410,7 +2742,31 @@ def main(argv=None) -> int:
         ws = _cli_workspace(tmp)
         phase_http(ws, "cuda")
         cli, counts = _main_path(phase_sample_cli, ws, "cuda")
+        on_path = {k: n + counts[k] for k, n in on_path.items()}
+        # the training path (phases 21-23) runs no kernel of the port
+        step_errs, train_launches = _main_path(phase_train_step, ws, "cuda")
+        music, counts = _main_path(phase_train_cli, ws, "cuda")
+        train_launches = {k: n + counts[k] for k, n in train_launches.items()}
+        gpt2, counts = _main_path(phase_train_bench)
+        train_launches = {k: n + counts[k] for k, n in train_launches.items()}
+        if any(train_launches.values()):
+            raise AssertionError(f"the training path launched kernels of "
+                                 f"the port: {train_launches}")
+        trained_s, counts = _main_path(phase_sample_trained, ws,
+                                       music["out_dir"], "cuda")
     on_path = {k: n + counts[k] for k, n in on_path.items()}
+    print(f"[{card}] training: launches of K1-K7 {train_launches}; music "
+          f"config {music['ms']:.2f} ms/iter, MFU {music['mfu']:.2f}%; "
+          f"GPT-2 124M {gpt2['plain']['ms']:.2f} ms/iter, MFU "
+          f"{gpt2['plain']['mfu'] * 100:.2f}%, peak "
+          f"{gpt2['plain']['peak_bytes'] / 2**30:.2f} GiB; with remat "
+          f"{gpt2['remat']['ms']:.2f} ms/iter, MFU "
+          f"{gpt2['remat']['mfu'] * 100:.2f}%, peak "
+          f"{gpt2['remat']['peak_bytes'] / 2**30:.2f} GiB; with "
+          f"--attn_impl=flash (SDPA) {gpt2['flash']['ms']:.2f} ms/iter, "
+          f"peak {gpt2['flash']['peak_bytes'] / 2**30:.2f} GiB; train step card "
+          f"vs CPU {step_errs}; sampling the trained model "
+          f"{trained_s:.2f} samples/s")
     print(f"[{card}] serving {serve_tok_s:.1f} tok/s at {SERVE_SLOTS} slots "
           f"(p50 {latency['p50_s']} s, p95 {latency['p95_s']} s, p99 "
           f"{latency['p99_s']} s); sample CLI {cli['bf16'][2]:.2f} samples/s"

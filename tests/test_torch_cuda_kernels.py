@@ -20,6 +20,7 @@ from ai_music_generation_tpu_torch.decode.speculative import (
     reset_spec_cache,
 )
 from ai_music_generation_tpu_torch.experiments import int4_kernel_probe
+from ai_music_generation_tpu_torch.models import gpt as gpt_module
 from ai_music_generation_tpu_torch.models.convert import init_weights
 from ai_music_generation_tpu_torch.models.gpt import (
     GPT,
@@ -54,6 +55,8 @@ from ai_music_generation_tpu_torch.ops.spec_attention import (
     spec_attention_update,
     write_slab,
 )
+from ai_music_generation_tpu_torch.train.optimizer import make_optimizer
+from ai_music_generation_tpu_torch.train.step import make_train_step
 
 torch.set_num_threads(1)
 
@@ -919,3 +922,92 @@ def test_ring_model_ticks_on_cuda_match_cpu(cuda, dtype):
                 c.length.remainder_(S - 1)
     assert gqa_decode_update.launches - before == cfg.n_layer * ticks
     assert int(caches[0].cursor) == int(caches[1].cursor) == (25 + ticks) % S
+
+
+# -- the training path (no kernel of the port: plain torch ops, cuBLAS) ------
+
+TRAIN_SMALL = dict(block_size=64, vocab_size=96, n_layer=2, n_head=6,
+                   n_embd=384, bias=False)
+
+
+def _train_pair(cuda, dtype, **kw):
+    cfg = GPTConfig(**{**TRAIN_SMALL, "dtype": dtype, **kw})
+    cpu = init_weights(GPT(cfg, device="cpu"),
+                       torch.Generator().manual_seed(0))
+    return cpu, copy.deepcopy(cpu).to(cuda)
+
+
+def _train_batch(accum=2, B=4, T=64, seed=5):
+    g = torch.Generator().manual_seed(seed)
+    x, y = (torch.randint(0, 96, (accum, B, T), generator=g,
+                          dtype=torch.int32) for _ in range(2))
+    y[..., -4:] = -1
+    return x, y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_kv_head", [None, 2], ids=["mha", "gqa"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2.0 ** -6)],
+                         ids=["fp32", "bf16"])
+def test_train_step_on_cuda_matches_cpu(cuda, dtype, tol, n_kv_head):
+    """Two steps of train/step.py (accum 2, AdamW fused on the card, the
+    clip) on the card and the CPU from the same weights and batches: loss
+    and grad_norm within ``tol`` of their value, parameters within ``tol``
+    of their range (fp32 1e-4: cuBLAS and the CPU sum in other orders; bf16
+    2^-6)."""
+    models = _train_pair(cuda, dtype, n_kv_head=n_kv_head)
+    steps = [make_train_step(m, make_optimizer(m, 1e-3), grad_clip=1.0)
+             for m in models]
+    for it in range(2):
+        x, y = _train_batch(seed=it)
+        want = steps[0](x, y, it)
+        got = steps[1](x.to(cuda), y.to(cuda), it)
+        for key in ("loss", "grad_norm"):
+            w = float(want[key])
+            assert abs(float(got[key]) - w) <= tol * abs(w), (it, key)
+    ref = models[0].state_dict()
+    span = max(float(v.abs().max()) for v in ref.values())
+    for name, value in models[1].state_dict().items():
+        err = float((value.cpu() - ref[name]).abs().max())
+        assert err <= tol * span, (name, err / span)
+
+
+@pytest.mark.cuda
+def test_dropout_masks_on_cuda_equal_cpu(cuda):
+    """The counter-hash masks (and the kept values, divided by 1 - p as one
+    IEEE division) are bit-equal on the card and the CPU."""
+    key = gpt_module.dropout_key(1337, 12, 1)
+    x = torch.randn((4, 6, 64, 64), generator=torch.Generator().manual_seed(1))
+    for layer in range(3):
+        for site in range(4):
+            got = gpt_module.dropout_keep(x.shape, 0.2, key, layer, site,
+                                          cuda)
+            assert torch.equal(got.cpu(), gpt_module.dropout_keep(
+                x.shape, 0.2, key, layer, site))
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype)
+        assert torch.equal(
+            gpt_module.dropout(xd.to(cuda), 0.2, key, 1, 2).cpu(),
+            gpt_module.dropout(xd, 0.2, key, 1, 2))
+
+
+@pytest.mark.cuda
+def test_remat_on_cuda_gives_the_same_gradients(cuda):
+    """With dropout 0.2, one forward and backward with ``remat`` on the
+    card gives the loss of one without, bit for bit, and its gradients
+    within 1e-6 of their range (the recompute replays the same kernels)."""
+    x, y = _train_batch(accum=1)
+    grads = []
+    for remat in (False, True):
+        _, model = _train_pair(cuda, torch.bfloat16, dropout=0.2,
+                               remat=remat)
+        _, loss = model(x[0].to(cuda), y[0].to(cuda),
+                        dropout_key=gpt_module.dropout_key(3, 0, 0))
+        loss.backward()
+        grads.append((loss.detach(), [p.grad.clone()
+                                      for p in model.parameters()]))
+    (l0, g0), (l1, g1) = grads
+    assert torch.equal(l0, l1)
+    for a, b in zip(g0, g1):
+        assert (a - b).abs().max() <= 1e-6 * a.abs().max()

@@ -1,8 +1,10 @@
 """The port's copies of JAX-package host code against their originals (the
 port imports nothing of the JAX package, so it keeps its own copies; these
 tests show when either side changes): the configurator, the memmap file
-helpers, the random-note corpus helpers and ``prepare_char``. Everything
-here is deterministic, so every comparison is exact.
+helpers, the random-note corpus helpers, ``prepare_char`` and the training
+configs that chip_smoke.py and the tests run. Everything here is
+deterministic, so every comparison is exact (the batch sampler's copy is
+held to its original in tests/test_torch_train_pieces.py).
 """
 
 import filecmp
@@ -115,3 +117,27 @@ def test_prepare_char_writes_the_same_files(tmp_path):
                            shallow=False), name
     assert prepare.entries_to_text(entries[:3]) == \
         jax_prepare.entries_to_text(entries[:3])
+
+
+@pytest.mark.parametrize("name", ["irishman_char.py", "train_gpt2.py"])
+def test_training_config_copies_equal_jax(name):
+    """Each copy sets the same keys to the same values as its original, and
+    both apply to the trainers' defaults alike."""
+    from ai_music_generation_tpu.train.trainer import DEFAULTS as JAX_DEFAULTS
+    from ai_music_generation_tpu_torch.train.trainer import DEFAULTS
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    paths = [os.path.join(root, pkg, "configs", name) for pkg in
+             ("ai_music_generation_tpu_torch", "ai_music_generation_tpu")]
+    spaces = []
+    for path in paths:
+        space = {}
+        with open(path) as f:
+            exec(compile(f.read(), path, "exec"), space)
+        space.pop("__builtins__")
+        spaces.append(space)
+    assert spaces[0] == spaces[1] and spaces[0]
+    ours = conf.apply_overrides(DEFAULTS, [paths[0]])
+    theirs = jax_conf.apply_overrides(JAX_DEFAULTS, [paths[1]])
+    assert {k: ours[k] for k in spaces[0]} == {k: theirs[k] for k in
+                                               spaces[1]}

@@ -19,6 +19,9 @@ MODULES = [
     "ai_music_generation_tpu_torch.cli.sample",
     "ai_music_generation_tpu_torch.cli.serve",
     "ai_music_generation_tpu_torch.cli.serve_bench",
+    "ai_music_generation_tpu_torch.cli.train",
+    "ai_music_generation_tpu_torch.cli.train_bench",
+    "ai_music_generation_tpu_torch.configs",
     "ai_music_generation_tpu_torch.data.memmap",
     "ai_music_generation_tpu_torch.data.prepare",
     "ai_music_generation_tpu_torch.decode.generate",
@@ -37,7 +40,14 @@ MODULES = [
     "ai_music_generation_tpu_torch.ops.spec_attention",
     "ai_music_generation_tpu_torch.serve.engine",
     "ai_music_generation_tpu_torch.serve.http",
+    "ai_music_generation_tpu_torch.train",
+    "ai_music_generation_tpu_torch.train.checkpoint",
+    "ai_music_generation_tpu_torch.train.optimizer",
+    "ai_music_generation_tpu_torch.train.step",
+    "ai_music_generation_tpu_torch.train.trainer",
     "ai_music_generation_tpu_torch.utils.configurator",
+    "ai_music_generation_tpu_torch.utils.device",
+    "ai_music_generation_tpu_torch.utils.hash32",
 ]
 
 
@@ -95,6 +105,13 @@ def test_port_imports_without_triton_or_nvcc():
         "kv_quantized=True), device='cpu'), n_slots=2, ticks_per_call=4)\n"
         "srv.submit([1, 2], max_new_tokens=6)\n"
         "assert len(srv.run_until_idle()[0].generated) == 6\n"
+        "import contextlib, io\n"
+        "from ai_music_generation_tpu_torch.cli import train_bench\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    train_bench.main(['--device=cpu', '--n_layer=1', '--n_head=2', "
+        "'--n_embd=32', '--block_size=16', '--batch_size=2', "
+        "'--vocab_size=16', '--burn_in=1', '--num_steps=1', "
+        "'--dropout=0.1'])\n"
         "print(_build.load_library.cache_info().currsize, "
         "gqa_decode_update.launches, spec_attention_update.launches, "
         "decode_attention.launches, lean_attention.launches)\n",
