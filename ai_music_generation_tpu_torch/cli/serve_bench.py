@@ -16,7 +16,15 @@ the card). Weights are random (``models/convert.py::init_weights`` from
 ``--seed``). Prints one JSON line: tok/s, the phase breakdown and the
 latency percentiles.
 
-``--engine tunes`` waits for the TunesFormer slice and raises.
+``--engine tunes`` (the JAX ``bench_tunes`` protocol) measures tunes/min of
+``serve.tunes_engine.TunesServer`` over the reference TunesFormer
+(``TUNES_CONFIG``, ``TunesFormerConfig()``: 9+3 layers, 768 wide, 12
+heads, bf16) with random weights
+(``init_tunesformer_weights`` from ``--seed``): a warm pass of ``n_slots``
+requests (seeds 10,000 + i), then ``--requests`` requests (seed i), every
+one the prompt ``S:2 B:9 E:4 B:9 L:1/8 M:3/4 K:D de|`` at ``--max_patch``
+(32) patches, top_p 0.8, top_k 8, T 1.2. One JSON line: tunes/min, the
+latency percentiles and the step phases.
 """
 
 from __future__ import annotations
@@ -28,9 +36,18 @@ import time
 import numpy as np
 import torch
 
-from ai_music_generation_tpu_torch.models.convert import init_weights
+from ai_music_generation_tpu_torch.models.convert import (
+    init_tunesformer_weights,
+    init_weights,
+)
 from ai_music_generation_tpu_torch.models.gpt import GPT, GPTConfig
+from ai_music_generation_tpu_torch.models.tunesformer import (
+    TunesFormer,
+    TunesFormerConfig,
+)
 from ai_music_generation_tpu_torch.serve.engine import GenerationServer
+from ai_music_generation_tpu_torch.serve.tunes_engine import TunesServer
+from ai_music_generation_tpu_torch.utils.device import resolve_device
 
 
 def submit_load(srv: GenerationServer, n: int, max_new: int,
@@ -63,6 +80,55 @@ def run_pass(srv: GenerationServer, n: int, max_new: int,
     return finished, time.perf_counter() - t0
 
 
+TUNES_PROMPT = "S:2\nB:9\nE:4\nB:9\nL:1/8\nM:3/4\nK:D\n de|"
+TUNES_CONFIG = TunesFormerConfig(dropout=0.0)
+
+
+def run_tunes_pass(srv, n: int, max_patch: int,
+                   seed0: int = 0) -> tuple[list, float]:
+    """Submit ``n`` requests of the tunes protocol (seeds seed0 + i) and
+    drive the server idle; (finished, wall s)."""
+    for i in range(n):
+        srv.submit(TUNES_PROMPT, max_patch=max_patch, seed=seed0 + i)
+    _sync(srv.device)
+    t0 = time.perf_counter()
+    finished = list(srv.run_until_idle())
+    _sync(srv.device)
+    return finished, time.perf_counter() - t0
+
+
+def bench_tunes(args, device) -> dict:
+    """TunesFormer serving throughput (the reference-scale model)."""
+    model = init_tunesformer_weights(
+        TunesFormer(TUNES_CONFIG, device=device),
+        torch.Generator(device=device).manual_seed(args.seed))
+    srv = TunesServer(model.eval(), n_slots=args.n_slots)
+    _, cold_wall = run_tunes_pass(srv, args.n_slots, args.max_patch, 10_000)
+    srv.reset_stats()
+    finished, wall = run_tunes_pass(srv, args.requests, args.max_patch)
+    if len(finished) != args.requests:
+        raise RuntimeError(f"{len(finished)} of {args.requests} requests "
+                           "finished")
+    result = {
+        "metric": "tunesformer_serve_throughput",
+        "value": round(len(finished) / wall * 60, 1),
+        "unit": "tunes/min",
+        "device": (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else "cpu"),
+        "requests": len(finished),
+        "gen_chars": sum(len(r.text) - len(TUNES_PROMPT) for r in finished),
+        "wall_s": round(wall, 2),
+        "cold_wall_s": round(cold_wall, 2),
+        "n_slots": args.n_slots,
+        "max_patch": args.max_patch,
+        "phases": {k: (round(v, 2) if isinstance(v, float) else v)
+                   for k, v in srv.stats.items()},
+        "latency": srv.latency_stats(),
+    }
+    print(json.dumps(result))
+    return result
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--engine", choices=["gpt", "tunes"], default="gpt")
@@ -76,6 +142,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--n_layer", type=int, default=6)
     ap.add_argument("--n_head", type=int, default=6)
     ap.add_argument("--n_embd", type=int, default=384)
+    ap.add_argument("--max_patch", type=int, default=32,
+                    help="tunes engine: patches per tune")
     ap.add_argument("--kv_quantized", action="store_true",
                     help="int8 KV cache")
     ap.add_argument("--n_kv_head", type=int, default=0,
@@ -92,13 +160,9 @@ def main(argv=None) -> dict:
                     help="weights and the timed load; the cold load uses "
                     "seed + 1")
     args = ap.parse_args(argv)
+    device = resolve_device(args.device)
     if args.engine == "tunes":
-        raise NotImplementedError(
-            "the TunesFormer serving engine is not ported yet (ROADMAP "
-            "queue 1 item 4, TunesFormer)")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass --device=cpu")
+        return bench_tunes(args, device)
 
     cfg = GPTConfig(
         block_size=args.block_size, vocab_size=args.vocab_size,

@@ -1,6 +1,6 @@
-"""Weights for the port's GPT: converted from the JAX package's params, or
-initialised with the JAX package's scheme; and the JAX optimizer state
-converted to the port's AdamW state.
+"""Weights for the port's GPT and TunesFormer: converted from the JAX
+package's params, or initialised with the JAX package's scheme; and the JAX
+optimizer state converted to the port's AdamW state.
 
 The state dict uses nanoGPT's names and torch layouts, the same keys and
 values as the JAX package's ``models/nanogpt_ckpt.py::
@@ -18,6 +18,9 @@ import torch
 from torch import nn
 
 from ai_music_generation_tpu_torch.models.gpt import GPT, GPTConfig
+from ai_music_generation_tpu_torch.models.tunesformer import (
+    TunesFormer, TunesFormerConfig,
+)
 
 
 def state_dict_from_jax(params: Mapping[str, Any],
@@ -29,31 +32,62 @@ def state_dict_from_jax(params: Mapping[str, Any],
     ``transformer.wte.weight`` (weight tying)."""
     p = params["params"] if "params" in params else params
 
-    def t(x, transpose=False):
-        x = np.asarray(x, np.float32)
-        return torch.from_numpy(np.array(x.T if transpose else x, order="C"))
+    wte = _t(p["wte"]["embedding"])
+    out = {"transformer.wte.weight": wte}
+    out.update(_core_from_jax(p, config, "transformer."))
+    out["lm_head.weight"] = wte
+    return out
 
-    wte = t(p["wte"]["embedding"])
-    out = {"transformer.wte.weight": wte,
-           "transformer.wpe.weight": t(p["wpe"]["embedding"])}
+
+def _t(x, transpose=False) -> torch.Tensor:
+    x = np.asarray(x, np.float32)
+    return torch.from_numpy(np.array(x.T if transpose else x, order="C"))
+
+
+def _core_from_jax(p: Mapping[str, Any], config: GPTConfig,
+                   prefix: str) -> dict[str, torch.Tensor]:
+    """``wpe``, the blocks and ``ln_f`` of one JAX GPT stack (a GPT's
+    params or a TunesFormer core's) under ``prefix``."""
+    out = {prefix + "wpe.weight": _t(p["wpe"]["embedding"])}
     for i in range(config.n_layer):
-        blk, h = p[f"h_{i}"], f"transformer.h.{i}."
+        blk, h = p[f"h_{i}"], f"{prefix}h.{i}."
         for mod, names in (("ln_1", None), ("attn", ("c_attn", "c_proj")),
                            ("ln_2", None), ("mlp", ("c_fc", "c_proj"))):
             if names is None:  # LayerNorm
-                out[h + mod + ".weight"] = t(blk[mod]["scale"])
+                out[h + mod + ".weight"] = _t(blk[mod]["scale"])
                 if config.bias:
-                    out[h + mod + ".bias"] = t(blk[mod]["bias"])
+                    out[h + mod + ".bias"] = _t(blk[mod]["bias"])
                 continue
             for name in names:
-                out[h + f"{mod}.{name}.weight"] = t(
+                out[h + f"{mod}.{name}.weight"] = _t(
                     blk[mod][name]["kernel"], transpose=True)
                 if config.bias:
-                    out[h + f"{mod}.{name}.bias"] = t(blk[mod][name]["bias"])
-    out["transformer.ln_f.weight"] = t(p["ln_f"]["scale"])
+                    out[h + f"{mod}.{name}.bias"] = _t(blk[mod][name]["bias"])
+    out[prefix + "ln_f.weight"] = _t(p["ln_f"]["scale"])
     if config.bias:
-        out["transformer.ln_f.bias"] = t(p["ln_f"]["bias"])
-    out["lm_head.weight"] = wte
+        out[prefix + "ln_f.bias"] = _t(p["ln_f"]["bias"])
+    return out
+
+
+def tunesformer_state_dict_from_jax(params: Mapping[str, Any],
+                                    config: TunesFormerConfig
+                                    ) -> dict[str, torch.Tensor]:
+    """The JAX TunesFormer's nested param dict (numpy arrays) -> the port's
+    ``state_dict`` (fp32): the patch embedding's kernel is already the
+    gather table, the cores map as a GPT's stack does (``core`` with
+    ``share_weights``)."""
+    p = params["params"] if "params" in params else params
+    out = {"patch_embedding.weight": _t(p["patch_embedding"]["kernel"]),
+           "patch_embedding.bias": _t(p["patch_embedding"]["bias"]),
+           "char_wte.weight": _t(p["char_wte"]["embedding"])}
+    if config.share_weights:
+        out.update(_core_from_jax(p["core"], config.patch_core_config(),
+                                  "core."))
+    else:
+        out.update(_core_from_jax(p["patch_core"],
+                                  config.patch_core_config(), "patch_core."))
+        out.update(_core_from_jax(p["char_core"], config.char_core_config(),
+                                  "char_core."))
     return out
 
 
@@ -63,8 +97,14 @@ def init_weights(model: GPT, generator: torch.Generator) -> GPT:
     N(0, 0.02), the residual projections (both ``c_proj``) N(0,
     0.02/sqrt(2*n_layer)), biases 0, LayerNorm scales 1. ``generator`` must
     be on the model's device."""
-    proj_std = 0.02 / math.sqrt(2 * model.config.n_layer)
-    for name, module in model.named_modules():
+    _init_modules(model, model.config.n_layer, generator)
+    return model
+
+
+def _init_modules(root: nn.Module, n_layer: int,
+                  generator: torch.Generator) -> None:
+    proj_std = 0.02 / math.sqrt(2 * n_layer)
+    for name, module in root.named_modules():
         if isinstance(module, nn.Linear):
             if name == "lm_head":
                 continue  # tied to transformer.wte, initialised there
@@ -78,6 +118,21 @@ def init_weights(model: GPT, generator: torch.Generator) -> GPT:
             module.weight.fill_(1.0)
             if module.bias is not None:
                 module.bias.zero_()
+
+
+@torch.no_grad()
+def init_tunesformer_weights(model: TunesFormer,
+                             generator: torch.Generator) -> TunesFormer:
+    """The JAX TunesFormer's init in place: each core as :func:`
+    init_weights` initialises a GPT (its residual projections at
+    0.02/sqrt(2*n_layer) of that core), the patch embedding's table and
+    ``char_wte`` N(0, 0.02), its bias 0. ``generator`` must be on the
+    model's device."""
+    model.patch_embedding.weight.normal_(0.0, 0.02, generator=generator)
+    model.patch_embedding.bias.zero_()
+    model.char_wte.weight.normal_(0.0, 0.02, generator=generator)
+    for core in dict.fromkeys((model.patch_core, model.char_core)):
+        _init_modules(core, core.config.n_layer, generator)
     return model
 
 

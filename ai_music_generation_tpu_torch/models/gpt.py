@@ -225,6 +225,36 @@ class KVCache:
         )
 
 
+def ring_positions(cache: KVCache, T: int,
+                   block_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Positions [B, 1] and ``mask_rel`` [B, S] of a ring-mode step (JAX
+    gpt.py:920-923, 620-627; the GPT's and TunesFormer's cores both call
+    this): row b's token sits at ``length[b]``; its valid columns lie within
+    ``length[b]`` ring steps behind the cursor, the fresh one included
+    (offset 0). Positions are clipped to ``block_size - 1`` as JAX's
+    ``nn.Embed`` gather clips: an idle row whose request filled its window
+    sits at length == cache_len, which may be block_size (its output is
+    discarded)."""
+    if T != 1:
+        raise ValueError(
+            "a ring-mode (per_row) cache takes T=1 steps; prefill on a "
+            "lockstep cache and roll it into place")
+    pos = (cache.length[:, None] + torch.arange(
+        T, device=cache.length.device, dtype=torch.int32)).clamp_max(
+        block_size - 1)
+    S = cache.k[0].shape[1]
+    offset = (cache.cursor - torch.arange(S, device=cache.length.device)) % S
+    return pos, (cache.length[:, None] - offset).to(torch.int32)
+
+
+def advance(cache: KVCache, T: int) -> None:
+    """After a lockstep or ring-mode call of T tokens: ``length`` grows by T
+    and, in ring mode, the cursor wraps forward (JAX gpt.py:988-990)."""
+    if cache.cursor is not None:
+        cache.cursor.add_(T).remainder_(cache.k[0].shape[1])
+    cache.length += T
+
+
 def true_divide(x: torch.Tensor, d: float) -> torch.Tensor:
     """``x / d`` rounded as one IEEE division on every device. PyTorch's
     CUDA kernels divide by a Python number as a product with its
@@ -586,21 +616,7 @@ class GPT(nn.Module):
                 (rel >= 0) & (rel < T), cache.length[:, None] + rel,
                 cache.col_pos)
         elif cache is not None and cache.cursor is not None:
-            # ring mode (JAX gpt.py:920-923, 620-627): row b's token sits at
-            # length[b]; its valid columns lie within length[b] ring steps
-            # behind the cursor, the fresh one included (offset 0)
-            if T != 1:
-                raise ValueError(
-                    "a ring-mode (per_row) cache takes T=1 steps; prefill on "
-                    "a lockstep cache and roll it into place")
-            # clipped as JAX's nn.Embed gather clips: an idle row whose
-            # request filled its window sits at length == cache_len, which
-            # may be block_size (its logits are discarded)
-            pos = (cache.length[:, None] + pos.to(torch.int32)).clamp_max(
-                cfg.block_size - 1)  # [B, 1]
-            S = cache.k[0].shape[1]
-            offset = (cache.cursor - torch.arange(S, device=idx.device)) % S
-            mask_rel = (cache.length[:, None] - offset).to(torch.int32)
+            pos, mask_rel = ring_positions(cache, T, cfg.block_size)
         elif cache is not None:
             pos = pos + cache.length
         x = (F.embedding(idx, wte)
@@ -637,12 +653,8 @@ class GPT(nn.Module):
             cache.col_pos = spec_col_pos
             cache.cursor += -(-T // 8) * 8
             cache.length += T
-        elif mask_rel is not None:
-            # JAX gpt.py:988-990: the ring cursor wraps
-            cache.cursor.add_(1).remainder_(cache.k[0].shape[1])
-            cache.length += 1
         elif cache is not None:
-            cache.length += T
+            advance(cache, T)
         if not return_all_logits:
             x = x[:, -1:]  # inference fast path: last position only
         return F.linear(x, wte), cache

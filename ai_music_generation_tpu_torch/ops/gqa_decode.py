@@ -3,7 +3,9 @@ column is written (int8 mode: quantized first) and every query head attends.
 
 Port of ``ai_music_generation_tpu/ops/gqa_decode.py`` (the Pallas kernel
 ``_gqa_decode_update``). On a CUDA tensor :func:`gqa_decode_update` launches
-the hand-written kernel in ``csrc/gqa_decode.cu``; on a CPU tensor it runs
+the hand-written kernel of ``csrc/gqa_decode.cuh`` (lockstep mode built
+from ``csrc/gqa_decode.cu``, ring mode from ``csrc/gqa_decode_ring.cu``);
+on a CPU tensor it runs
 the plain twin :func:`gqa_decode_reference`. Nothing falls back: a CUDA call
 that the kernel cannot take raises.
 
@@ -23,7 +25,13 @@ Contract (B rows, H query heads, KH kv-heads, G = H // KH, head size D):
   probabilities (q.(k8*ks) == (q.k8)*ks).
 - ``mask_rel`` [B, S] int32 selects ring mode (column s of row b is
   attendable iff ``mask_rel[b, s] >= 0``); None selects lockstep mode
-  (attendable iff ``s <= pos``).
+  (attendable iff ``s <= pos``). In ring mode each row's columns are summed
+  in its window's order, oldest first: the ``n = mask_rel[b, pos] + 1``
+  columns up to the fresh one (capped at S), from column ``pos + 1 - n``
+  round, then the rest. A row's output then does not depend on where the
+  shared cursor stands (a served request gives the same bits in any slot
+  at any time), and a ring row that started at column 0 sums as a
+  lockstep row (the Pallas kernel sums in column order).
 - ``pos`` int32 scalar tensor on the same device: the column written this
   step. The kernel loads it itself, so a decode step needs no host sync.
 
@@ -49,7 +57,8 @@ def gqa_decode_reference(q, k, v, k_slab, v_slab, k_scale, v_scale,
     ``gqa_decode_reference``: quantize + scale write (int8 mode), column
     write, then the model's attention chain (``models.gpt.attend``: the
     einsum in the compute dtype, ``x 1/sqrt(D)``, ``x k_scale``, the mask,
-    fp32 softmax cast back, ``x v_scale``, the PV einsum)."""
+    fp32 softmax cast back, ``x v_scale``, the PV einsum), in ring mode
+    over each row's columns in its window's order, as the kernel sums."""
     from ai_music_generation_tpu_torch.models.gpt import (
         attend, quantize_int8, scale_write,
     )
@@ -66,12 +75,20 @@ def gqa_decode_reference(q, k, v, k_slab, v_slab, k_scale, v_scale,
         scale_write(v_scale, vs_new[:, None], col)
     k[:, col] = k_slab.to(k.dtype)[:, None]
     v[:, col] = v_slab.to(v.dtype)[:, None]
+    kv = k.view(B, S, KH, D), v.view(B, S, KH, D)
+    scales = k_scale, v_scale
     if mask_rel is not None:
-        valid = (mask_rel >= 0)[:, None, None, :]
+        n_win = (mask_rel[:, col] + 1).clamp(1, S)  # [B, 1]
+        order = (col + 1 - n_win + torch.arange(S, device=k.device)) % S
+        rows = torch.arange(B, device=k.device)[:, None]
+        kv = tuple(t[rows, order] for t in kv)
+        scales = tuple(None if t is None else
+                       t.gather(2, order[:, None, :].expand(-1, KH, -1))
+                       for t in scales)
+        valid = (mask_rel.gather(1, order) >= 0)[:, None, None, :]
     else:
         valid = (torch.arange(S, device=k.device) <= col)[None, None, None, :]
-    y = attend(q[:, None], k.view(B, S, KH, D), v.view(B, S, KH, D),
-               k_scale, v_scale, valid)
+    y = attend(q[:, None], *kv, *scales, valid)
     return y.reshape(B, H, D)
 
 
@@ -147,7 +164,7 @@ def gqa_decode_update(q, k, v, k_slab, v_slab, k_scale, v_scale, mask_rel,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc == _build.TOO_LARGE:
         raise ValueError(f"S={S} too large for one block's shared memory "
-                         f"(csrc/gqa_decode.cu smem_bytes)")
+                         f"(csrc/gqa_decode.cuh smem_bytes)")
     if rc != 0:
         raise RuntimeError(f"gqa_decode kernel launch failed: cudaError {rc}")
     gqa_decode_update.launches += 1

@@ -1,11 +1,12 @@
 """Minimal stdlib HTTP front end for the port's continuous-batching
-engine: the port of ``ai_music_generation_tpu/serve/http.py`` (the GPT
-engine's ``EngineRunner``, ``make_handler`` and ``serve``; the TunesFormer
-handler comes with the TunesFormer slice).
+engines: the port of ``ai_music_generation_tpu/serve/http.py``
+(``EngineRunner``, the GPT engine's ``make_handler`` and ``serve``, the
+TunesFormer engine's ``make_tunes_handler`` and ``serve_tunes``).
 
 ``ThreadingHTTPServer`` handles client connections; one engine thread owns
-the model and drives :meth:`GenerationServer.step` whenever work is queued.
-Handler threads block on per-request events.
+the model and drives the engine's ``step`` (:class:`GenerationServer` or
+:class:`TunesServer`) whenever work is queued. Handler threads block on
+per-request events.
 
 Endpoints:
 - ``POST /generate``: JSON ``{"prompt": "<text>"}`` (tokenized with the
@@ -19,6 +20,10 @@ Endpoints:
   ``data: {"done": true, "id": ..., "tokens": all, "text": all}`` event.
 - ``GET /health``: ``{"slots", "active", "queued"}``, the step phases, the
   latency percentiles and, after a crash, ``engine_error``.
+
+The TunesFormer handler takes ``{"prompt": "<ABC text>"}`` with optional
+``max_patch``, ``top_p``, ``top_k``, ``temperature``, ``seed``,
+``show_control_code`` and returns ``{"id", "text"}`` (no streaming).
 
 The engine's determinism contract means a request's output depends only on
 its own fields (prompt, seed, sampling parameters), never on concurrent
@@ -34,12 +39,18 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Optional
 
 from ai_music_generation_tpu_torch.serve.engine import GenerationServer, Request
+from ai_music_generation_tpu_torch.serve.tunes_engine import (
+    TunesServer,
+    TuneRequest,
+)
 
 
 class EngineRunner:
-    """Owns the engine on one thread; hands out completion events."""
+    """Owns the engine on one thread; hands out completion events. The
+    engine is a :class:`GenerationServer` (token prompts in, tokens out) or
+    a :class:`TunesServer` (ABC text in, text out)."""
 
-    def __init__(self, engine: GenerationServer):
+    def __init__(self, engine: GenerationServer | TunesServer):
         self.engine = engine
         self.error: Optional[str] = None  # set once if the engine thread dies
         self._lock = threading.Lock()
@@ -73,7 +84,8 @@ class EngineRunner:
         self._wake.set()
         return rid
 
-    def wait(self, rid: int, timeout: Optional[float] = None) -> Optional[Request]:
+    def wait(self, rid: int, timeout: Optional[float] = None
+             ) -> Optional[Request | TuneRequest]:
         ev = self._events[rid]
         if not ev.wait(timeout):
             # abandon: cancel engine-side and drop any bookkeeping so a
@@ -331,3 +343,29 @@ def serve(runner: EngineRunner, encode, decode, host: str = "127.0.0.1",
     """Build (and return) the HTTP server; caller runs ``serve_forever``."""
     handler = make_handler(runner, encode, decode)
     return ThreadingHTTPServer((host, port), handler)
+
+
+def make_tunes_handler(runner: EngineRunner):
+    """TunesServer handler: ABC text in, text out, with the TunesFormer
+    sampling parameters (the reference generate CLI's flags)."""
+
+    def submit(payload):
+        return runner.submit(
+            payload["prompt"],
+            max_patch=int(payload.get("max_patch", 128)),
+            top_p=float(payload.get("top_p", 0.8)),
+            top_k=int(payload.get("top_k", 8)),
+            temperature=float(payload.get("temperature", 1.2)),
+            seed=int(payload.get("seed", 0)),
+            show_control_code=bool(payload.get("show_control_code", True)),
+        )
+
+    return _make_base_handler(
+        runner, submit, lambda req: {"id": req.id, "text": req.text})
+
+
+def serve_tunes(runner: EngineRunner, host: str = "127.0.0.1",
+                port: int = 8000) -> ThreadingHTTPServer:
+    """Build (and return) the HTTP server over a TunesServer engine; the
+    caller runs ``serve_forever``."""
+    return ThreadingHTTPServer((host, port), make_tunes_handler(runner))

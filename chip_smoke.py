@@ -1,8 +1,10 @@
 """Drive the PyTorch port's paths once on an NVIDIA GPU: the batched ABC
 decode paths (the plain decode path, speculative decoding, the
 attn_impl="pallas" decode path, the lean int8 / int4 decode-attention probe
-path, fp32 models, the continuous-batching server and the sampling CLI) and
-the training path (the train step, cli/train.py, cli/train_bench.py).
+path, fp32 models, the continuous-batching server and the sampling CLI),
+the training path (the train step, cli/train.py, cli/train_bench.py) and
+TunesFormer inference and serving (the model, the bar generator, the
+server and its HTTP front end, the CLIs).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -143,11 +145,47 @@ printing a result):
     printed. Phases 21-23 launch none of K1-K7 (their
     counts are set to 0 before each and read after; any launch fails the
     run). ``--profile train`` profiles one 124M step and one step at the
-    music widths.
+    music widths;
+24. K1 at the TunesFormer shapes (MHA H = KH = 12, D = 64, bf16 cache) and
+    every batch phases 26-28 give it: the char core (S=32, lockstep, pos 0,
+    1, 31) and the patch core (S=128, lockstep, pos 0, 5, 127) at B 1, 3,
+    8, 16, 64 and 1024, the server's patch core (S=128, ring, random
+    lengths with 0 and 127) at B 3, 64 and 1024, each lockstep column
+    written twice (the generator's rewound first bar): caches bit-exact,
+    the output within one bf16 ulp of its range of the twin in fp32 (after
+    phase 28 the script fails if a tunes path ran K1 at a (B, S, mode) not
+    checked here); then kernel, twin and ``scaled_dot_product_attention``
+    (attention only: no column write) timed at B=1024: the char step
+    (S=32), the generator's patch step (S=128) and the server's ring patch
+    step (S=128);
+25. TunesFormer: the reference model (``TunesFormerConfig()``: 9+3 layers,
+    768 wide, 12 heads) on the card against the same init weights on the
+    CPU, bf16 and fp32: a cached prefill of the serve-bench prompt, 3 patch
+    steps and a teacher-forced 32-position char scan within 2^-4 (bf16) and
+    1e-4 (fp32) of the range, also against the full forwards on the card;
+    exactly 9 K1 launches a patch step and 3 a char step;
+26. generator: ``TunesGenerator`` (top_p 0.8, top_k 8, T 1.2) at batch 16,
+    32 patches, the serve-bench prompt, twice at one seed: identical texts
+    that keep the prompt, 105 K1 launches a bar and no call of the twin;
+    tunes/min; then batch 1,024, printed;
+27. server: ``TunesServer`` at 1,024 slots under cli/serve_bench.py's tunes
+    load (4,096 requests, 32 patches), a cold then a hot pass: every
+    request finishes with its prompt, 105 K1 launches a bar, no twin call,
+    a request re-run alone in slot 0 and alone in slot 1 (a filler
+    admitted a bar before it) identical, the counter
+    noise bit-equal card vs CPU; tunes/min, latency and peak memory
+    printed; then cli/serve_tunesformer.py's HTTP server on 127.0.0.1;
+28. CLIs: a weights.pth of init weights written by
+    ``save_reference_checkpoint`` and read back bit-equal, then
+    cli/tunesformer_generate.py (8 tunes) and cli/sample_tunesformer.py (8
+    leadsheets) on it: file names, X: headers, 105 K1 launches a bar.
+    ``--profile tunes,tunes_serve`` profiles phase 26's generate and one hot
+    pass of phase 27's load.
 
 The last two lines are a JSON summary of each kernel and
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` counts its
-launches in its path's main-path run (phases 5, 8, 12, 15, 19, 20, 22;
+launches in its path's main-path run (phases 5, 8, 12, 15, 19, 20, 22,
+26, 27, 28;
 every count is set to 0 just before each of them and read just after); a
 kernel with no caller on any path (K3, K5, K6) shows its count summed over
 those runs there, and its kernel-vs-twin launches as ``check_launches``.
@@ -155,7 +193,14 @@ K1's entry carries its ring mode (``ring``: phase 19's launches, the
 B=8192 timing) and its fp32 mode (``fp32``: phase 20's fp32 run), K2's its
 fp32 mode (``fp32``: phase 20's fp32 speculative run, with the refresh and
 the CLI's B=64 shape), K3's its fp32 mode (``fp32``), each with its own
-numbers.
+numbers. K1 at the TunesFormer shapes has an entry a mode:
+``gqa_decode_update/tunes_char`` (lockstep S=32, every char step),
+``gqa_decode_update/tunes_patch`` (lockstep S=128, the generators' patch
+steps) and ``gqa_decode_update/tunes_ring`` (ring S=128, the server's patch
+step), each timed at B=1024 with its launches on phases 26-28 (counted by
+mode by a wrapper on the models' K1 call, their sum checked against K1's
+own count) and the batches it ran at; their ``library_ms`` is SDPA's
+attention alone, which writes no column.
 ``bound_ms`` is the least time the card could take for the timed call: its
 bytes (each input read once, each output written once) over 3.35 TB/s or
 its operations over 989 TFLOP/s (1979 TOP/s for int8 x int8 products; the
@@ -168,6 +213,7 @@ where there is one (else null).
 from __future__ import annotations
 
 import argparse
+import collections
 import copy
 import json
 import subprocess
@@ -184,6 +230,7 @@ BATCH, PROMPT_LEN, MAX_NEW, WINDOW = 4096, 8, 500, 128
 # GPTConfig's default block_size: the long cache of the kernel checks
 LONG = 1024
 KERNEL_SOURCE = "ai_music_generation_tpu_torch/ops/csrc/gqa_decode.cu"
+KERNEL_RING_SOURCE = "ai_music_generation_tpu_torch/ops/csrc/gqa_decode_ring.cu"
 KERNEL_REPLACES = "ai_music_generation_tpu/ops/gqa_decode.py:394"
 # speculative decoding: the bench config with MHA (the spec cache refuses
 # GQA), at the protocol of docs/experiments/spec_decode.py and cli/sample.py
@@ -261,6 +308,20 @@ MUSIC_CONFIG = "ai_music_generation_tpu_torch/configs/irishman_char.py"
 TRAIN_STEP_FRAC = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 TRAIN_ITERS, TRAIN_EVAL, TRAIN_EVAL_ITERS = 30, 10, 5
 BENCH_BURN_IN, BENCH_STEPS = 3, 10
+# TunesFormer (phases 24-28): the reference model (TunesFormerConfig(): 9
+# patch and 3 char layers, 768 wide, 12 heads, 128 patches of 32 chars,
+# bf16); the generation protocol of docs/PERF.md (batch 16, 32 patches,
+# top_p 0.8, top_k 8, T 1.2) and docs/SERVING.md's tunes headline (1,024
+# slots) under cli/serve_bench.py's tunes load (4,096 requests), all on
+# cli/serve_bench.py's prompt
+TUNES_H, TUNES_SIZE, TUNES_LENGTH = 12, 32, 128
+TUNES_GEN_B, TUNES_GEN_BIG, TUNES_MAX_PATCH = 16, 1024, 32
+TUNES_SLOTS, TUNES_REQUESTS = 1024, 4096
+# the batches of the other tunes paths: the HTTP server's slots (phase 27),
+# tunesformer_generate's tunes (phase 28; sample_tunesformer runs one a
+# leadsheet)
+TUNES_HTTP_SLOTS, TUNES_CLI_TUNES = 64, 8
+TUNES_PROMPT = "S:2\nB:9\nE:4\nB:9\nL:1/8\nM:3/4\nK:D\n de|"
 
 
 def bound(n_bytes, n_ops, ops_per_s=BF16_OPS_PER_S) -> tuple[float, str]:
@@ -2518,18 +2579,22 @@ def phase_profile_train(top=12) -> None:
         torch.cuda.empty_cache()
 
 
-PROFILED = ("pallas", "bench", "spec", "serve", "train")
+PROFILED = ("pallas", "bench", "spec", "serve", "train", "tunes",
+            "tunes_serve")
 
 
 @torch.inference_mode()
 def phase_profile(path="pallas", B=BATCH, max_new=MAX_NEW, top=12) -> None:
     """One generate of ``path`` (pallas: phase 12's protocol, bench: phase
-    5's, spec: phase 8's; serve: one hot pass of phase 19's load) under
-    ``torch.profiler`` (CPU and CUDA activities) after a warm-up and an
-    unprofiled run (timed with CUDA events; serve: its wall after a
-    synchronize): device self time by kernel, summed only over entries
-    whose device type is not the CPU (a CPU op's entry repeats its kernels'
-    device time), and the device's busy share of the profiled wall."""
+    5's, spec: phase 8's; serve: one hot pass of phase 19's load; tunes:
+    phase 26's generate at B=16; tunes_serve: one hot pass of phase 27's
+    load) under ``torch.profiler`` (CPU and CUDA activities) after a
+    warm-up and an unprofiled run (timed with CUDA events; serve and the
+    tunes paths: their wall after a synchronize): device self time by
+    kernel, summed only over entries whose device type is not the CPU (a
+    CPU op's entry repeats its kernels' device time), the device's busy
+    share of the profiled wall and, for the tunes paths, kernel launches a
+    bar."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2541,11 +2606,12 @@ def phase_profile(path="pallas", B=BATCH, max_new=MAX_NEW, top=12) -> None:
     from ai_music_generation_tpu_torch.cli import serve_bench
     from ai_music_generation_tpu_torch.serve.engine import GenerationServer
 
-    _, model = _bench_model("cuda", {"pallas": PALLAS, "bench": BENCH,
-                                     "spec": SPEC, "serve": BENCH}[path])
     kw = dict(max_new_tokens=max_new, temperature=0.8, top_k=200)
-    if path == "serve":
+    if path in ("tunes", "tunes_serve"):
+        run, wall, what = _tunes_profiled(path)
+    elif path == "serve":
         # one hot pass of phase 19's load on a warm server
+        _, model = _bench_model("cuda", BENCH)
         srv = GenerationServer(model, n_slots=SERVE_SLOTS,
                                ticks_per_call=SERVE_TICKS,
                                admit_group=SERVE_GROUP, cache_len=SERVE_CACHE)
@@ -2553,7 +2619,11 @@ def phase_profile(path="pallas", B=BATCH, max_new=MAX_NEW, top=12) -> None:
         _, wall = serve_bench.run_pass(srv, SERVE_REQUESTS, SERVE_MAX_NEW, 2)
         run = lambda: serve_bench.run_pass(  # noqa: E731
             srv, SERVE_REQUESTS, SERVE_MAX_NEW, 3)
+        what = (f"{SERVE_SLOTS} slots, {SERVE_REQUESTS} requests (phase 19's "
+                f"hot pass)")
     else:
+        _, model = _bench_model("cuda", {"pallas": PALLAS, "bench": BENCH,
+                                         "spec": SPEC}[path])
         gen = (SpecGenerator(model, n_draft=N_DRAFT, **kw) if path == "spec"
                else Generator(model, window=WINDOW, **kw) if path == "bench"
                else Generator(model, **kw))
@@ -2564,8 +2634,10 @@ def phase_profile(path="pallas", B=BATCH, max_new=MAX_NEW, top=12) -> None:
         gen.generate(prompts, seed=1)
         wall = _event_seconds(lambda: gen.generate(prompts, seed=2))
         run = lambda: gen.generate(prompts, seed=3)  # noqa: E731
+        what = f"B={B}, {max_new} new tokens, window {gen.window}"
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            _BarCounter() as bar_count:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -2575,9 +2647,11 @@ def phase_profile(path="pallas", B=BATCH, max_new=MAX_NEW, top=12) -> None:
                    if e.device_type != DeviceType.CPU
                    and e.self_device_time_total > 0), reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    what = (f"{SERVE_SLOTS} slots, {SERVE_REQUESTS} requests (phase 19's "
-            f"hot pass)" if path == "serve" else
-            f"B={B}, {max_new} new tokens, window {gen.window}")
+    if bar_count.bars:
+        bars, launches = bar_count.bars, sum(r[1] for r in rows)
+        what += (f"; {bars} bars, {launches} kernels = {launches / bars:.0f} "
+                 f"a bar, {profiled / bars * 1e3:.2f} ms a bar profiled, "
+                 f"{busy_ms / bars:.2f} ms of device time a bar")
     print(f"profile {path}: {what}; unprofiled run {wall:.3f} s, profiled "
           f"{profiled:.3f} s; device busy {busy_ms:.1f} ms = "
           f"{busy_ms / 1e3 / profiled:.3f} of the profiled wall, "
@@ -2585,6 +2659,691 @@ def phase_profile(path="pallas", B=BATCH, max_new=MAX_NEW, top=12) -> None:
     for ms, count, key in rows[:top]:
         print(f"  {ms:10.1f} ms {count:7d} calls  {ms / count:.4f} ms/call  "
               f"{key[:90]}")
+
+
+# -- the TunesFormer paths (phases 24-28) -------------------------------------
+
+def _tunes_profiled(path):
+    """(run, unprofiled wall s, description) of a tunes path to profile:
+    ``tunes`` one generate of phase 26 (B=16, 32 patches), ``tunes_serve``
+    one hot pass of phase 27's load, each after a warm run."""
+    from ai_music_generation_tpu_torch.cli import serve_bench
+    from ai_music_generation_tpu_torch.decode.tunes_generate import (
+        TunesGenerator,
+    )
+    from ai_music_generation_tpu_torch.serve.tunes_engine import TunesServer
+
+    _, model = _tunes_model("cuda")
+    if path == "tunes_serve":
+        srv = TunesServer(model, n_slots=TUNES_SLOTS)
+        serve_bench.run_tunes_pass(srv, TUNES_SLOTS, TUNES_MAX_PATCH, 10_000)
+        _, wall = serve_bench.run_tunes_pass(srv, TUNES_REQUESTS,
+                                             TUNES_MAX_PATCH, 20_000)
+        return (lambda: serve_bench.run_tunes_pass(
+            srv, TUNES_REQUESTS, TUNES_MAX_PATCH),
+            wall, f"{TUNES_SLOTS} slots, {TUNES_REQUESTS} requests (phase "
+                  f"27's hot pass)")
+    gen = TunesGenerator(model, top_p=0.8, top_k=8, temperature=1.2)
+
+    def run(seed):
+        gen.generate_tunes(TUNES_PROMPT, num_tunes=TUNES_GEN_B,
+                           max_patch=TUNES_MAX_PATCH, seed=seed)
+        torch.cuda.synchronize()
+
+    run(1)
+    t0 = time.perf_counter()
+    run(2)
+    return (lambda: run(3), time.perf_counter() - t0,
+            f"B={TUNES_GEN_B}, {TUNES_MAX_PATCH} patches (phase 26)")
+
+
+def _tunes_inputs(B, S, ring, pos, seed=0):
+    """One K1 step at a TunesFormer shape (MHA, H = KH = 12, D = 64, bf16
+    cache) as CPU tensors; in ring mode each row at a random length, row 0
+    at 0 and row 1 at S - 1 (the extremes)."""
+    args = _decode_inputs(False, False, pos, B, S, H=TUNES_H, KH=TUNES_H,
+                          seed=seed)
+    if ring:
+        g = torch.Generator().manual_seed(seed + 1)
+        lengths = torch.randint(0, S, (B,), generator=g)
+        lengths[0] = 0
+        if B > 1:
+            lengths[1] = S - 1
+        offset = (pos - torch.arange(S)) % S
+        args[7] = (lengths[:, None] - offset[None, :]).to(torch.int32)
+    return args
+
+
+def _check_k1(dev, cpu, pos, device, what):
+    """Launch K1 on ``dev`` and the twin on ``cpu`` (copies of the same
+    inputs): caches bit-exact, out within one bf16 ulp of its range of the
+    twin evaluated in fp32. Returns (the error, K1's output)."""
+    from ai_music_generation_tpu_torch.ops.gqa_decode import (
+        gqa_decode_reference, gqa_decode_update,
+    )
+
+    cpu32 = _upcast(cpu)
+    pos_cpu = torch.tensor(pos, dtype=torch.int32)
+    out = gqa_decode_update(*dev, pos_cpu.to(device))
+    gqa_decode_update(*cpu, pos_cpu)
+    ref32 = gqa_decode_reference(*cpu32, pos_cpu)
+    _sync(device)
+    for name, got, want in zip(("k", "v"), dev[1:3], cpu[1:3]):
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"{name} differs: {what}")
+    err = (out.float().cpu() - ref32).abs().max().item()
+    if not err <= 2.0 ** -7 * ref32.abs().max().item():
+        raise AssertionError(f"out differs from the fp32 twin by {err}: "
+                             f"{what}")
+    return err, out
+
+
+# the batches at which the tunes main paths (phases 26-28) call K1: lockstep
+# (the generator's patch and char steps, the server's char steps) and ring
+# (the server's patch step); 3 rows beside them, a batch no path uses
+TUNES_K1_LOCKSTEP_B = (TUNES_GEN_B, TUNES_GEN_BIG, TUNES_SLOTS,
+                       TUNES_HTTP_SLOTS, TUNES_CLI_TUNES, 1, 3)
+TUNES_K1_RING_B = (TUNES_SLOTS, TUNES_HTTP_SLOTS, 3)
+
+
+def phase_tunes_kernel_vs_twin(device) -> tuple[float, set]:
+    """K1 at the TunesFormer shapes (MHA H = KH = 12, D = 64, bf16 cache)
+    and every batch the tunes main paths give it: the char core (S = 32,
+    lockstep, pos 0, 1 and 31) and the patch core (S = 128, lockstep, pos
+    0, 5, 127) at ``TUNES_K1_LOCKSTEP_B``, the server's ring patch core (S
+    = 128, random lengths with 0 and 127, pos 0, 77, 127) at
+    ``TUNES_K1_RING_B``: caches bit-exact, the output within one bf16 ulp
+    of its range of the twin in fp32. Each lockstep case is also launched a
+    second time at the same pos with the same K/V (the generator's rewound
+    first bar rewrites its column so): the caches stay equal, the output
+    repeats bit for bit. Returns (the largest error, the (B, S, ring)
+    shapes checked)."""
+    S_C, S_P = TUNES_SIZE, TUNES_LENGTH
+    lockstep = ((S_C, (0, 1, S_C - 1)), (S_P, (0, 5, S_P - 1)))
+    cases = [(b, s_len, False, pos) for b in set(TUNES_K1_LOCKSTEP_B)
+             for s_len, ps in lockstep for pos in ps]
+    cases += [(b, S_P, True, pos) for b in TUNES_K1_RING_B
+              for pos in (0, 77, S_P - 1)]
+    worst = 0.0
+    for b, s_len, ring, pos in cases:
+        what = f"B={b} S={s_len} ring={ring} pos={pos}"
+        cpu = _tunes_inputs(b, s_len, ring, pos)
+        dev = _to(cpu, device)
+        err, out = _check_k1(dev, cpu, pos, device, what)
+        worst = max(worst, err)
+        if not ring:
+            _, again = _check_k1(dev, cpu, pos, device, what + " (again)")
+            if not torch.equal(again.cpu(), out.cpu()):
+                raise AssertionError(f"a rewritten column changed the "
+                                     f"output: {what}")
+    print(f"K1 at the TunesFormer shapes (H=KH={TUNES_H}, D=64, bf16): "
+          f"lockstep B {sorted(set(TUNES_K1_LOCKSTEP_B))} at S={S_C} (pos 0, "
+          f"1, {S_C - 1}) and S={S_P} (pos 0, 5, {S_P - 1}); ring B "
+          f"{sorted(TUNES_K1_RING_B)} at S={S_P} with lengths 0 and "
+          f"{S_P - 1} among random ones; each lockstep column written twice:"
+          f" caches bit-exact, out max abs err {worst} vs the fp32 twin")
+    return worst, {(b, s_len, ring) for b, s_len, ring, _ in cases}
+
+
+def _k1_tunes_bound(x, pos):
+    """(bound ms, bound by) of one K1 call over the columns this call's
+    data makes valid (lockstep: 0..pos; ring: mask_rel >= 0): reads q, the
+    older valid columns of K and V, the slabs (and the mask); writes the
+    fresh column and out; QK and PV two operations per (head, column,
+    lane) each."""
+    q, k, _, k_slab, _, _, _, mask_rel = x
+    B, KHD, item = k.shape[0], k.shape[2], k.element_size()
+    n_valid = (B * (pos + 1) if mask_rel is None
+               else int((mask_rel >= 0).sum()))
+    n = (2 * q.nbytes + 2 * (n_valid - B) * KHD * item + 2 * k_slab.nbytes
+         + 2 * B * KHD * item)
+    if mask_rel is not None:
+        n += mask_rel.nbytes
+    return bound(n, 4 * q.shape[1] * q.shape[2] * n_valid)
+
+
+def phase_tunes_kernel_timing(B=TUNES_SLOTS) -> dict:
+    """K1 and its twin timed on the card (plain, kernel, kernel, plain) at
+    the char core's step (B rows, S = 32, lockstep, pos 31: every column
+    valid), the generator's patch step (B rows, S = 128, lockstep, pos 127)
+    and the server's patch step (B slots, S = 128, ring, random lengths),
+    beside ``scaled_dot_product_attention`` over the valid
+    columns (attention only: SDPA writes no column, so it does less than
+    K1; printed as library_ms). Each timed input set is first held against
+    the twin. Returns {name: the kernel's JSON numbers}."""
+    import torch.nn.functional as F
+
+    from ai_music_generation_tpu_torch.ops.gqa_decode import (
+        gqa_decode_reference, gqa_decode_update,
+    )
+
+    res = {}
+    for name, S, ring in (("tunes_char", TUNES_SIZE, False),
+                          ("tunes_patch", TUNES_LENGTH, False),
+                          ("tunes_ring", TUNES_LENGTH, True)):
+        pos = S - 1
+        cpu = _tunes_inputs(B, S, ring, pos, seed=3)
+        err, _ = _check_k1(_to(cpu, "cuda"), [None if a is None else
+                                               a.clone() for a in cpu],
+                           pos, "cuda", f"timing {name}")
+        x = _to(cpu, "cuda")
+        p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        q, k, v = x[0], x[1], x[2]
+        H, D = q.shape[1], q.shape[2]
+        # SDPA's operands, laid out once outside the timed call: [B, H, 1,
+        # D] queries over [B, H, S, D] keys and values, masked by validity
+        qs = q[:, :, None, :].contiguous()
+        ks = k.view(B, S, H, D).transpose(1, 2).contiguous()
+        vs = v.view(B, S, H, D).transpose(1, 2).contiguous()
+        mask = None if x[7] is None else (x[7] >= 0)[:, None, None, :]
+        kernel, plain = _timed(lambda: gqa_decode_update(*x, p),
+                               lambda: gqa_decode_reference(*x, p), 50, 10)
+        library = [_cuda_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask), 50) for _ in range(2)]
+        ms, plain_ms = min(kernel), min(plain)
+        bound_ms, bound_by = _k1_tunes_bound(x, pos)
+        res[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=min(library),
+                         max_abs_err=err)
+        print(f"K1 {name} (B={B}, S={S}, H=KH={H}, bf16, "
+              f"{'ring' if ring else 'lockstep'}): kernel {kernel} ms, twin "
+              f"{plain} ms (plain, kernel, kernel, plain); SDPA (attention "
+              f"only, no column write) {library} ms; bound {bound_ms:.4f} ms "
+              f"({bound_by}), {bound_ms / ms:.3f} of it")
+    return res
+
+
+def _tunes_model(device, dtype=torch.bfloat16, config=None):
+    """(CPU model, the same weights on ``device``): the reference
+    TunesFormer (``TunesFormerConfig()``) at ``dtype``, init weights from
+    seed 0, eval mode."""
+    from ai_music_generation_tpu_torch.models.convert import (
+        init_tunesformer_weights,
+    )
+    from ai_music_generation_tpu_torch.models.tunesformer import (
+        TunesFormer, TunesFormerConfig,
+    )
+
+    cfg = config or TunesFormerConfig(dropout=0.0, dtype=dtype)
+    cpu = init_tunesformer_weights(TunesFormer(cfg, device="cpu"),
+                                   torch.Generator().manual_seed(0)).eval()
+    if torch.device(device).type == "cpu":
+        return cpu, cpu
+    return cpu, copy.deepcopy(cpu).to(device).eval()
+
+
+def _tunes_stack(L, S, B, extra=3, seed=5):
+    """[B, L, S] patch stacks: the serve-bench prompt's patches, then
+    ``extra`` random bars of printable chars, per row; returns (stack, n0 =
+    the prompt's patches)."""
+    from ai_music_generation_tpu_torch.decode.tunes_generate import (
+        prepare_patch_state,
+    )
+    from ai_music_generation_tpu_torch.tokenizers.patchilizer import (
+        Patchilizer,
+    )
+
+    p = Patchilizer()
+    pp, _ = prepare_patch_state(p, TUNES_PROMPT, L, S)
+    n0 = len(pp)
+    g = torch.Generator().manual_seed(seed)
+    stack = torch.zeros((B, L, S), dtype=torch.int32)
+    stack[:, :n0] = torch.tensor(pp, dtype=torch.int32)
+    for b in range(B):
+        for i in range(extra):
+            bar = "".join(chr(c) for c in torch.randint(
+                32, 127, (int(torch.randint(4, S, (1,), generator=g)),),
+                generator=g).tolist())
+            stack[b, n0 + i] = torch.tensor(p.bar2patch(bar + "|", S))
+    return stack, n0
+
+
+@torch.inference_mode()
+def phase_tunes_model(device, B=4):
+    """The reference TunesFormer at full width on the card against the same
+    init weights on the CPU, bf16 and fp32: ``encode_patches_cached`` of
+    the serve-bench prompt (B rows, rewound to n0 - 1 as the generator
+    does), 3 ``patch_step`` s, then a teacher-forced 32-position char scan
+    from the last step's encoding: hidden states and logits within 2^-4 of
+    their range (bf16), 1e-4 (fp32); exactly patch_layers K1 launches per
+    patch step and char_layers per char step; and on the card the cached
+    path against the full forwards (``encode_patches`` over the stack,
+    ``char_logits``; ``bar_scan``'s conditioning) within the same
+    yardstick."""
+    from ai_music_generation_tpu_torch.models.gpt import KVCache
+    from ai_music_generation_tpu_torch.ops.gqa_decode import gqa_decode_update
+
+    cuda = torch.device(device).type == "cuda"
+    for dtype, frac in ((torch.bfloat16, 2.0 ** -4),
+                        (torch.float32, FP32_MODEL_FRAC)):
+        models = _tunes_model(device, dtype)
+        cfg = models[0].config
+        L, S = cfg.patch_length, cfg.patch_size
+        stack, n0 = _tunes_stack(L, S, B)
+        worst, launches = 0.0, []
+
+        def close(got, want, what):
+            want = want.float().cpu()
+            got = got.float().cpu()
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"non-finite {what} on the card")
+            err = (got - want).abs().max().item() / want.abs().max().item()
+            if not err <= frac:
+                raise AssertionError(f"{what} differs by {err} of the range "
+                                     f"({dtype})")
+            return err
+
+        hidden, logits = [], []
+        for model in models:
+            dev = model.device
+            cache = KVCache.create(cfg.patch_core_config(), B, max_len=L,
+                                   device=dev)
+            model.encode_patches_cached(stack.to(dev), cache)
+            cache.length.fill_(n0 - 1)
+            hs = []
+            for i in range(n0 - 1, n0 + 2):
+                before = gqa_decode_update.launches
+                h, _ = model.patch_step(stack[:, i].to(dev), cache)
+                launches.append(gqa_decode_update.launches - before)
+                hs.append(h)
+            hidden.append(hs)
+            ccache = KVCache.create(cfg.char_core_config(), B, max_len=S,
+                                    device=dev)
+            toks = stack[:, n0 + 2].to(dev)
+            ls = []
+            for j in range(S):
+                before = gqa_decode_update.launches
+                lg, _ = model.char_step(hs[-1], toks[:, j], ccache)
+                launches.append(gqa_decode_update.launches - before)
+                ls.append(lg)
+            logits.append(torch.stack(ls, 1))
+            if model is models[1]:  # the cached path vs the full forwards
+                full = model.encode_patches(stack.to(dev))
+                for k, h in enumerate(hs):
+                    worst = max(worst, close(h, full[:, n0 - 1 + k],
+                                             "cached vs full hidden"))
+                worst = max(worst, close(
+                    logits[-1], model.char_logits(full[:, n0 + 1], toks),
+                    "cached vs full char logits"))
+        for a, b in zip(hidden[1], hidden[0]):
+            worst = max(worst, close(a, b, "patch_step hidden"))
+        worst = max(worst, close(logits[1], logits[0], "char logits"))
+        per_model = 3 + S
+        want = ([cfg.patch_layers] * 3 + [cfg.char_layers] * S) if cuda \
+            else [0] * per_model
+        got = launches[per_model:] if cuda else launches[:per_model]
+        if got != want:
+            raise AssertionError(f"K1 launches per step {got}, want {want}")
+        print(f"TunesFormer ({dtype}, {cfg.patch_layers}+{cfg.char_layers}"
+              f" layers, {cfg.n_embd} wide) card vs CPU: "
+              f"prefill + 3 patch steps + {S} char steps, B={B}: max err "
+              f"{worst:.3e} of the range (within {frac}; the cached path vs "
+              f"the full forwards on the card too); K1 {cfg.patch_layers} "
+              f"per patch step, {cfg.char_layers} per char step")
+
+
+def _k1_mode(S, ring):
+    """The name of K1's TunesFormer mode at cache length S (its JSON
+    entry's suffix)."""
+    if ring:
+        return "tunes_ring"
+    return "tunes_char" if S == TUNES_SIZE else "tunes_patch"
+
+
+class _K1Calls:
+    """Inside a ``with`` block, the K1 calls of the models (a wrapper on
+    ``models.gpt``'s ``gqa_decode_update``): the (B, S, ring) shapes they
+    took, and their launches by mode (``_k1_mode``), each call's read from
+    the kernel wrapper's own count."""
+
+    def __enter__(self):
+        from ai_music_generation_tpu_torch.models import gpt
+
+        self.shapes, self.launches = set(), collections.Counter()
+        self._gpt, orig = gpt, gpt.gqa_decode_update
+
+        def recorded(q, k, v, k_slab, v_slab, k_scale, v_scale, mask_rel,
+                     pos):
+            before = orig.launches
+            out = orig(q, k, v, k_slab, v_slab, k_scale, v_scale, mask_rel,
+                       pos)
+            B, S, ring = k.shape[0], k.shape[1], mask_rel is not None
+            self.shapes.add((B, S, ring))
+            self.launches[_k1_mode(S, ring)] += orig.launches - before
+            return out
+
+        gpt.gqa_decode_update = recorded
+        self._orig = orig
+        return self
+
+    def __exit__(self, *exc):
+        self._gpt.gqa_decode_update = self._orig
+
+
+class _BarCounter:
+    """Counts the bar steps of the generator and the server (a wrapper on
+    ``TunesGenerator._bar_step`` and ``TunesServer._bar``) and the calls of
+    K1's twin, inside a ``with`` block."""
+
+    def __enter__(self):
+        from ai_music_generation_tpu_torch.decode import tunes_generate
+        from ai_music_generation_tpu_torch.ops import gqa_decode as ops
+        from ai_music_generation_tpu_torch.serve import tunes_engine
+
+        self.bars = self.twin_calls = 0
+        self._saved = [(tunes_generate.TunesGenerator, "_bar_step"),
+                       (tunes_engine.TunesServer, "_bar"),
+                       (ops, "gqa_decode_reference")]
+        self._orig = [getattr(o, n) for o, n in self._saved]
+
+        def counted(fn, attr):
+            def wrapper(*a, **kw):
+                setattr(self, attr, getattr(self, attr) + 1)
+                return fn(*a, **kw)
+            return wrapper
+
+        for (owner, name), fn in zip(self._saved, self._orig):
+            setattr(owner, name, counted(
+                fn, "twin_calls" if name == "gqa_decode_reference"
+                else "bars"))
+        return self
+
+    def __exit__(self, *exc):
+        for (owner, name), fn in zip(self._saved, self._orig):
+            setattr(owner, name, fn)
+
+    def check(self, launches, per_bar, device, what):
+        want = self.bars * per_bar if torch.device(device).type == "cuda" \
+            else 0
+        if launches != want or self.bars == 0 or (
+                want and self.twin_calls):
+            raise AssertionError(
+                f"{what}: {launches} K1 launches and {self.twin_calls} twin "
+                f"calls for {self.bars} bars (want {want} launches)")
+
+
+def _per_bar(cfg):
+    """K1 launches a bar: a patch step (patch_layers) and patch_size char
+    steps (char_layers each)."""
+    return cfg.patch_layers + cfg.patch_size * cfg.char_layers
+
+
+@torch.inference_mode()
+def phase_tunes_generator(device, B=TUNES_GEN_B, big=TUNES_GEN_BIG,
+                          max_patch=TUNES_MAX_PATCH):
+    """``TunesGenerator`` (top_p 0.8, top_k 8, T 1.2) over the bf16
+    reference TunesFormer at batch B, ``max_patch`` patches, the
+    serve-bench prompt, twice at one seed: identical texts, every text
+    starts with the prompt; exactly 105 K1 launches a bar (none of the
+    twin's calls on the card). Then a batch of ``big``, printed. Returns
+    (tunes/min at B, tunes/min at big, K1 launches, bars, peak GiB)."""
+    from ai_music_generation_tpu_torch.decode.tunes_generate import (
+        TunesGenerator,
+    )
+    from ai_music_generation_tpu_torch.ops.gqa_decode import gqa_decode_update
+
+    _, model = _tunes_model(device)
+    gen = TunesGenerator(model, top_p=0.8, top_k=8, temperature=1.2)
+    with _BarCounter() as count:
+        before = gqa_decode_update.launches
+        first = gen.generate_tunes(TUNES_PROMPT, num_tunes=B,
+                                   max_patch=max_patch, seed=7)
+        _sync(device)
+        t0 = time.perf_counter()
+        second = gen.generate_tunes(TUNES_PROMPT, num_tunes=B,
+                                    max_patch=max_patch, seed=7)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        launches = gqa_decode_update.launches - before
+    count.check(launches, _per_bar(model.config), device,
+                "TunesGenerator")
+    if first != second:
+        raise AssertionError("TunesGenerator: one seed, other texts")
+    if len(first) != B or not all(t.startswith(TUNES_PROMPT)
+                                  for t in first):
+        raise AssertionError("TunesGenerator: a text lost its prompt")
+    bars_each = count.bars // 2
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    big_out = gen.generate_tunes(TUNES_PROMPT, num_tunes=big,
+                                 max_patch=max_patch, seed=8)
+    _sync(device)
+    big_wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() / 2**30
+            if torch.device(device).type == "cuda" else 0.0)
+    if len(big_out) != big:
+        raise AssertionError("TunesGenerator: batch size")
+    rate, big_rate = B / wall * 60, big / big_wall * 60
+    chars = sum(len(t) - len(TUNES_PROMPT) for t in second)
+    print(f"TunesGenerator at B={B}, max_patch {max_patch} (top_p 0.8, top_k"
+          f" 8, T 1.2): {bars_each} bars in {wall:.3f} s = "
+          f"{wall / bars_each * 1e3:.2f} ms a bar, {rate:.1f} tunes/min "
+          f"({chars} chars); two runs at one seed identical; {launches} K1 "
+          f"launches = {_per_bar(model.config)} x {count.bars} bars, no twin "
+          f"call; B={big}: "
+          f"{big_wall:.3f} s = {big_rate:.1f} tunes/min, peak {peak:.2f} GiB")
+    return rate, big_rate, launches, count.bars, peak
+
+
+@torch.inference_mode()
+def phase_tunes_server(device, n_slots=TUNES_SLOTS, requests=TUNES_REQUESTS,
+                       max_patch=TUNES_MAX_PATCH):
+    """``TunesServer`` at ``n_slots`` slots under cli/serve_bench.py's tunes
+    load (``requests`` requests of the serve-bench prompt at ``max_patch``
+    patches, seeds 10,000 + i on the cold pass, i on the hot pass): every
+    request finishes and starts with its prompt, K1 launches = 105 x bars
+    (no twin call on the card); the hot pass's first request re-run alone
+    in slot 0 and in slot 1 (admitted alone, behind a filler admitted a
+    bar before) gives identical texts; the
+    counter noise is bit-equal card vs CPU. Returns (tunes/min, latency,
+    stats, K1 launches, peak GiB)."""
+    from ai_music_generation_tpu_torch.cli import serve_bench
+    from ai_music_generation_tpu_torch.ops.gqa_decode import gqa_decode_update
+    from ai_music_generation_tpu_torch.serve.tunes_engine import (
+        TunesServer, tunes_noise_bits,
+    )
+
+    _, model = _tunes_model(device)
+    srv = TunesServer(model, n_slots=n_slots)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with _BarCounter() as count:
+        before = gqa_decode_update.launches
+        _, cold = serve_bench.run_tunes_pass(srv, n_slots, max_patch, 10_000)
+        srv.reset_stats()
+        finished, wall = serve_bench.run_tunes_pass(srv, requests, max_patch)
+        stats, latency = dict(srv.stats), srv.latency_stats()
+        launches = gqa_decode_update.launches - before
+        bars = count.bars
+        first = min(finished, key=lambda r: r.id)
+        kw = dict(max_patch=first.max_patch, top_p=first.top_p,
+                  top_k=first.top_k, temperature=first.temperature,
+                  seed=first.seed)
+        reruns = []
+        for filler in (False, True):  # alone in slot 0, then in slot 1
+            if filler:  # admitted and run a bar first: rid's wave is rid
+                srv.submit(TUNES_PROMPT, max_patch=max_patch, seed=99)
+                srv.step()
+            rid = srv.submit(first.prompt, **kw)
+            reruns.append({r.id: r for r in srv.run_until_idle()}[rid].text)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+    count.check(gqa_decode_update.launches - before, _per_bar(model.config),
+                device, "TunesServer")
+    if len(finished) != requests or not all(
+            r.done and r.text.startswith(TUNES_PROMPT) for r in finished):
+        raise AssertionError("TunesServer: a request did not finish")
+    if reruns[0] != reruns[1]:
+        raise AssertionError("TunesServer: a request re-run alone gave "
+                             "another text in another slot")
+    g = torch.Generator().manual_seed(9)
+    seed = torch.randint(0, 2**32, (4096,), generator=g, dtype=torch.int64)
+    bar, idx = (torch.randint(0, 1 << 20, (4096,), generator=g,
+                              dtype=torch.int32) for _ in range(2))
+    if not torch.equal(tunes_noise_bits(seed.to(device), bar.to(device),
+                                        idx.to(device), 128).cpu(),
+                       tunes_noise_bits(seed, bar, idx, 128)):
+        raise AssertionError("tunes counter noise differs between the card "
+                             "and the CPU")
+    rate = requests / wall * 60
+    print(f"TunesServer: {n_slots} slots, admit_group {srv.admit_group}, "
+          f"max_patch {max_patch}; cold pass {cold:.3f} s, hot pass "
+          f"{requests} requests in {wall:.3f} s = {rate:.1f} tunes/min; "
+          f"every request finished; {launches} K1 launches = "
+          f"{_per_bar(model.config)} x {bars} bars (both passes), no twin "
+          f"call; a request re-run alone in "
+          f"slots 0 and 1 identical, equal to its hot-pass text: "
+          f"{reruns[0] == first.text}; counter noise bit-equal card vs CPU; "
+          f"peak {peak:.2f} GiB")
+    print(f"TunesServer latency {latency}; phases {stats}")
+    return rate, latency, stats, launches, peak
+
+
+def _tunes_workspace(root, device, n_sheets=8):
+    """A weights.pth of the reference TunesFormer's init weights (seed 0),
+    written by the port's ``save_reference_checkpoint`` into ``root/tf``,
+    loaded back by ``load_tunesformer`` with every parameter bit-equal; a
+    prompt file (the serve-bench prompt) and a leadsheet JSON of
+    ``n_sheets`` random ABC tunes with control codes. Returns (weights dir,
+    prompt path, leadsheet path, the model's config)."""
+    import os
+
+    from ai_music_generation_tpu_torch.cli.random_baselines import (
+        random_tunes,
+    )
+    from ai_music_generation_tpu_torch.models.tunesformer import (
+        load_tunesformer,
+    )
+    from ai_music_generation_tpu_torch.models.tunesformer_export import (
+        save_reference_checkpoint,
+    )
+
+    cpu, _ = _tunes_model("cpu")
+    wdir = os.path.join(root, "tf")
+    os.makedirs(wdir)
+    save_reference_checkpoint(os.path.join(wdir, "weights.pth"), cpu)
+    loaded, _ = load_tunesformer(wdir, device=device)
+    ref = cpu.state_dict()
+    for name, value in loaded.state_dict().items():
+        if not torch.equal(value.cpu(), ref[name]):
+            raise AssertionError(f"weights.pth round trip changed {name}")
+    prompt = os.path.join(root, "prompt.txt")
+    with open(prompt, "w") as f:
+        f.write(TUNES_PROMPT)
+    sheets = [{"id": 100 + i, "control code": "S:2\nB:9\nE:4\n",
+               "abc notation": t}
+              for i, t in enumerate(random_tunes(n_sheets, seed=3))]
+    path = os.path.join(root, "leadsheets.json")
+    with open(path, "w") as f:
+        json.dump(sheets, f)
+    print(f"weights.pth of the reference TunesFormer written by "
+          f"save_reference_checkpoint, loaded back by load_tunesformer: "
+          f"{len(ref)} tensors bit-equal")
+    return wdir, prompt, path, cpu.config
+
+
+def phase_tunes_http(ws, device, n_slots=TUNES_HTTP_SLOTS):
+    """cli/serve_tunesformer.py's HTTP server over the workspace's
+    weights.pth on 127.0.0.1 (a free port) in a thread: two identical
+    seeded /generate requests give the same text, which starts with the
+    prompt; /health reports the slots and the finished requests."""
+    import threading
+    import urllib.request
+
+    from ai_music_generation_tpu_torch.cli import serve_tunesformer
+
+    c = dict(serve_tunesformer.DEFAULTS, weights=ws[0], port=0,
+             n_slots=n_slots, device=device)
+    runner, httpd = serve_tunesformer.build_server(c)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        body = {"prompt": TUNES_PROMPT, "max_patch": TUNES_MAX_PATCH,
+                "seed": 5}
+        answers = []
+        for _ in range(2):
+            req = urllib.request.Request(
+                f"{url}/generate", data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                answers.append(json.loads(r.read()))
+        if answers[0]["text"] != answers[1]["text"] or not \
+                answers[0]["text"].startswith(TUNES_PROMPT):
+            raise AssertionError(f"/generate answers {answers}")
+        with urllib.request.urlopen(f"{url}/health", timeout=60) as r:
+            health = json.loads(r.read())
+        if health["slots"] != n_slots or health["latency"]["count"] != 2 \
+                or "engine_error" in health:
+            raise AssertionError(f"/health {health}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        runner.shutdown()
+        thread.join(timeout=30)
+    print(f"HTTP (cli/serve_tunesformer.py, {n_slots} slots): two seeded "
+          f"/generate answers identical ({len(answers[0]['text'])} chars, "
+          f"the prompt kept), /health latency {health['latency']}")
+
+
+@torch.inference_mode()
+def phase_tunes_cli(ws, device, num_tunes=TUNES_CLI_TUNES,
+                    max_patch=TUNES_MAX_PATCH):
+    """cli/tunesformer_generate.py (``-weights`` the workspace's directory,
+    its weights.pth's architecture read from the shapes; ``num_tunes``
+    tunes) and cli/sample_tunesformer.py (its leadsheets, ``--weights`` the
+    same directory) on ``device``: the .abc file
+    holds X:1..X:n, each tune with the prompt; one sample_<id>.abc with its
+    X:<id> header per leadsheet; K1 launches = 105 x bars. Returns
+    (K1 launches, bars)."""
+    import argparse
+    import contextlib
+    import io
+    import os
+
+    from ai_music_generation_tpu_torch.cli import (
+        sample_tunesformer, tunesformer_generate,
+    )
+    from ai_music_generation_tpu_torch.ops.gqa_decode import gqa_decode_update
+
+    wdir, prompt, sheets, cfg = ws
+    root = os.path.dirname(wdir)
+    args = argparse.Namespace(
+        num_tunes=num_tunes, max_patch=max_patch, top_p=0.8, top_k=8,
+        temperature=1.2, seed=3, show_control_code=True, weights=wdir,
+        torch_weights="", prompt=prompt,
+        output_dir=os.path.join(root, "output_tunes"), device=device)
+    out_dir = os.path.join(root, "samples")
+    with _BarCounter() as count:
+        before = gqa_decode_update.launches
+        with contextlib.redirect_stdout(io.StringIO()):
+            path = tunesformer_generate.generate_abc(args)
+            n = sample_tunesformer.main(
+                [sheets, f"--weights={wdir}", f"--output_dir={out_dir}",
+                 f"--max_patch={max_patch}", f"--device={device}"])
+        launches = gqa_decode_update.launches - before
+    count.check(launches, _per_bar(cfg), device, "the tunes CLIs")
+    with open(path) as f:
+        text = f.read()
+    at = [text.find(f"X:{i + 1}\n{TUNES_PROMPT}") for i in range(num_tunes)]
+    if at[0] != 0 or at != sorted(at) or f"X:{num_tunes + 1}\n" in text:
+        raise AssertionError(f"tunesformer_generate wrote {path}: tunes at "
+                             f"{at}")
+    with open(sheets) as f:
+        ids = [str(s["id"]) for s in json.load(f)]
+    names = sorted(os.listdir(out_dir))
+    if n != len(ids) or names != sorted(f"sample_{i}.abc" for i in ids):
+        raise AssertionError(f"sample_tunesformer wrote {names}")
+    for i in ids:
+        with open(os.path.join(out_dir, f"sample_{i}.abc")) as f:
+            if not f.read().startswith(f"X:{i}\n"):
+                raise AssertionError(f"sample_{i}.abc lacks its header")
+    print(f"tunesformer_generate: {num_tunes} tunes in {path}, X:1..X:"
+          f"{num_tunes} with the prompt; sample_tunesformer: {n} files "
+          f"sample_<id>.abc with X:<id>; {launches} K1 launches = "
+          f"{_per_bar(cfg)} x {count.bars} bars, no twin call")
+    return launches, count.bars
 
 
 def _counted_ops() -> dict:
@@ -2780,11 +3539,71 @@ def main(argv=None) -> int:
           f"{fp32_ms['k3_fp32']['ms']:.4f} (int8 cache), "
           f"{fp32_ms['k3_fp32_cache']['ms']:.4f} (fp32 cache; fp32 SDPA "
           f"{fp32_ms['k3_fp32_cache']['library_ms']:.4f})")
+    # the TunesFormer paths (phases 24-28): K1 at their shapes, the model,
+    # the generator, the server (+ HTTP) and the CLIs; each main path
+    # launches K1 only
+    tunes_err, tunes_checked = phase_tunes_kernel_vs_twin("cuda")
+    tunes_ms = phase_tunes_kernel_timing()
+    phase_tunes_model("cuda")
+    torch.cuda.empty_cache()
+    tunes_launches, tunes_calls = {}, {}
+
+    def tunes_path(path, phase, *args):
+        with _K1Calls() as calls:
+            result, tunes_launches[path] = _main_path(phase, *args)
+        tunes_calls[path] = calls
+        return result
+
+    gen_rate, big_rate, _, gen_bars, gen_peak = tunes_path(
+        "generator", phase_tunes_generator, "cuda")
+    torch.cuda.empty_cache()
+    srv_rate, tunes_latency, _, _, srv_peak = tunes_path(
+        "server", phase_tunes_server, "cuda")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ws = _tunes_workspace(tmp, "cuda")
+        with _K1Calls() as http_calls:  # its shapes; its launches untold
+            phase_tunes_http(ws, "cuda")
+        tunes_path("cli", phase_tunes_cli, ws, "cuda")
+    for path, c in tunes_launches.items():
+        if any(n for k, n in c.items() if k != "gqa_decode_update"):
+            raise AssertionError(f"the tunes {path} path launched another "
+                                 f"kernel than K1: {c}")
+        if sum(tunes_calls[path].launches.values()) != c["gqa_decode_update"]:
+            raise AssertionError(f"the tunes {path} path's K1 launches by "
+                                 f"mode {tunes_calls[path].launches} do not "
+                                 f"add up to {c['gqa_decode_update']}")
+        on_path = {k: n + c[k] for k, n in on_path.items()}
+    seen = set().union(http_calls.shapes,
+                       *(c.shapes for c in tunes_calls.values()))
+    if not seen <= tunes_checked:
+        raise AssertionError(f"the tunes paths ran K1 at (B, S, ring) "
+                             f"{sorted(seen - tunes_checked)}, which phase 24 "
+                             f"did not hold against the twin")
+    print(f"K1 on the tunes paths at (B, S, ring) {sorted(seen)}, each held "
+          f"against the twin in phase 24; launches by mode "
+          f"{ {p: dict(c.launches) for p, c in tunes_calls.items()} }")
+    print(f"[{card}] TunesFormer: generator {gen_rate:.1f} tunes/min at "
+          f"B={TUNES_GEN_B} ({TUNES_MAX_PATCH} patches), {big_rate:.1f} at "
+          f"B={TUNES_GEN_BIG} (peak {gen_peak:.2f} GiB); server "
+          f"{srv_rate:.1f} tunes/min at {TUNES_SLOTS} slots (p50 "
+          f"{tunes_latency['p50_s']} s, p95 {tunes_latency['p95_s']} s, p99 "
+          f"{tunes_latency['p99_s']} s, peak {srv_peak:.2f} GiB); K1 at the "
+          f"char step {tunes_ms['tunes_char']['ms']:.4f} ms (bound "
+          f"{tunes_ms['tunes_char']['bound_ms']:.4f}, SDPA "
+          f"{tunes_ms['tunes_char']['library_ms']:.4f}), at the lockstep "
+          f"patch step {tunes_ms['tunes_patch']['ms']:.4f} ms (bound "
+          f"{tunes_ms['tunes_patch']['bound_ms']:.4f}, SDPA "
+          f"{tunes_ms['tunes_patch']['library_ms']:.4f}), at the ring patch "
+          f"step {tunes_ms['tunes_ring']['ms']:.4f} ms (bound "
+          f"{tunes_ms['tunes_ring']['bound_ms']:.4f}, SDPA "
+          f"{tunes_ms['tunes_ring']['library_ms']:.4f})")
     # K1's ring mode (the serving tick, phase 19) and fp32 mode (phase 20's
     # --dtype=float32 run), K2's fp32 mode (phase 20's fp32 --speculative
     # run; its refresh and its verify at that run's B=64 beside): their own
     # launches and numbers
-    kernels[0]["ring"] = dict(fp32_ms["k1_ring"], launches=serve_launches)
+    kernels[0]["ring"] = dict(fp32_ms["k1_ring"], launches=serve_launches,
+                              source=KERNEL_RING_SOURCE)
     kernels[0]["fp32"] = dict(fp32_ms["k1_fp32"], launches=cli["fp32"][0],
                               max_abs_err=max(
                                   fp32_err["gqa_decode_update"],
@@ -2822,6 +3641,22 @@ def main(argv=None) -> int:
         lean_ms["lean4"], modes={name: dict(lean_ms[name],
                                             max_abs_err=lean_err[name])
                                  for name in LEAN_MODES}))
+    # K1 at the TunesFormer shapes, an entry a mode: the char steps
+    # (lockstep S = 32), the generators' patch steps (lockstep S = 128) and
+    # the server's patch step (ring S = 128), each with its launches on the
+    # generator, server and CLI paths (phases 26-28) and the batches it ran
+    # at; library_ms is SDPA's attention alone (no column write)
+    for name in ("tunes_char", "tunes_patch", "tunes_ring"):
+        numbers = dict(tunes_ms[name])
+        err = max(numbers.pop("max_abs_err"), tunes_err)
+        kernels.append(_entry(
+            f"gqa_decode_update/{name}",
+            KERNEL_RING_SOURCE if name == "tunes_ring" else KERNEL_SOURCE,
+            KERNEL_REPLACES,
+            sum(c.launches[name] for c in tunes_calls.values()), err,
+            numbers, batches=sorted({b for c in tunes_calls.values()
+                                     for b, S, ring in c.shapes
+                                     if _k1_mode(S, ring) == name})))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

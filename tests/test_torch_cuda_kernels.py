@@ -1011,3 +1011,150 @@ def test_remat_on_cuda_gives_the_same_gradients(cuda):
     assert torch.equal(l0, l1)
     for a, b in zip(g0, g1):
         assert (a - b).abs().max() <= 1e-6 * a.abs().max()
+
+
+# -- the TunesFormer paths: K1 at MHA H = KH = 12 over a bf16 cache ----------
+
+def _tunes_inputs(B, S, ring, pos, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    bf = lambda *shape: torch.randn(shape, generator=g).to(torch.bfloat16)  # noqa
+    C = 12 * D
+    mask_rel = None
+    if ring:
+        lengths = torch.randint(0, S, (B,), generator=g)
+        lengths[0], lengths[-1] = 0, S - 1
+        offset = (pos - torch.arange(S)) % S
+        mask_rel = (lengths[:, None] - offset[None, :]).to(torch.int32)
+    return [bf(B, 12, D), bf(B, S, C), bf(B, S, C), bf(B, C), bf(B, C),
+            None, None, mask_rel]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,ring", [
+    (16, 32, False), (1024, 32, False), (3, 32, False), (16, 128, False),
+    (1024, 128, True), (3, 128, True), (1024, 128, False), (8, 32, False),
+    (8, 128, False), (1, 32, False), (1, 128, False), (64, 32, False),
+    (64, 128, True)])
+def test_gqa_decode_kernel_at_the_tunesformer_shapes(cuda, B, S, ring):
+    """K1 at the char core's (S=32) and the patch core's (S=128, lockstep
+    and the server's ring) shapes, at the batches of the generator (16,
+    1024), the server (1024 slots, 64 behind HTTP) and the CLIs (8 tunes,
+    1 a leadsheet), pos at both ends: caches bit-exact, the
+    output within one bf16 ulp of its range of the twin in fp32; in ring
+    mode the same rows rolled to another cursor give the same bits."""
+    for pos in (0, 1, 5, S - 1):
+        cpu = _tunes_inputs(B, S, ring, pos)
+        gpu = [None if a is None else a.to(cuda) for a in cpu]
+        cpu32 = [None if a is None else
+                 (a.float() if i in (0, 3, 4) else a.clone())
+                 for i, a in enumerate(cpu)]
+        p = torch.tensor(pos, dtype=torch.int32)
+        out = gqa_decode_update(*gpu, p.to(cuda))
+        gqa_decode_update(*cpu, p)
+        ref32 = gqa_decode_reference(*cpu32, p)
+        torch.cuda.synchronize()
+        for got, want in zip(gpu[1:3], cpu[1:3]):
+            assert torch.equal(got.cpu(), want)
+        err = (out.float().cpu() - ref32).abs().max()
+        assert err <= 2.0 ** -7 * ref32.abs().max(), (B, S, pos, err)
+        if ring:
+            shift = 37
+            moved = [a if a is None or i in (0, 3, 4) else
+                     a.roll(shift, dims=1).contiguous()
+                     for i, a in enumerate(gpu)]
+            again = gqa_decode_update(*moved, torch.tensor(
+                (pos + shift) % S, dtype=torch.int32, device=cuda))
+            assert torch.equal(again, out)
+
+
+TUNES_TINY = dict(patch_length=16, patch_size=16, patch_layers=2,
+                  char_layers=2, n_embd=64, n_head=4, dropout=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2.0 ** -4)],
+                         ids=["fp32", "bf16"])
+def test_tiny_tunesformer_on_cuda_matches_cpu(cuda, dtype, tol):
+    """A tiny TunesFormer on the card against the same weights on the CPU:
+    a cached prefill, 3 patch steps and a 16-position char scan, hidden
+    states and logits within ``tol`` of their range; K1 patch_layers times
+    a patch step and char_layers times a char step."""
+    from ai_music_generation_tpu_torch.models.convert import (
+        init_tunesformer_weights,
+    )
+    from ai_music_generation_tpu_torch.models.tunesformer import (
+        TunesFormer, TunesFormerConfig,
+    )
+
+    cfg = TunesFormerConfig(**TUNES_TINY, dtype=dtype)
+    cpu = init_tunesformer_weights(TunesFormer(cfg, device="cpu"),
+                                   torch.Generator().manual_seed(0)).eval()
+    gpu = copy.deepcopy(cpu).to(cuda).eval()
+    x = torch.randint(0, 128, (3, 16, 16), dtype=torch.int32,
+                      generator=torch.Generator().manual_seed(1))
+    outs, launches = [], []
+    with torch.inference_mode():
+        for model in (cpu, gpu):
+            dev = model.device
+            cache = KVCache.create(cfg.patch_core_config(), 3, max_len=16,
+                                   device=dev)
+            model.encode_patches_cached(x[:, :6].to(dev), cache)
+            hs = []
+            for i in range(6, 9):
+                before = gqa_decode_update.launches
+                h, _ = model.patch_step(x[:, i].to(dev), cache)
+                launches.append(gqa_decode_update.launches - before)
+                hs.append(h.float().cpu())
+            ccache = KVCache.create(cfg.char_core_config(), 3, max_len=16,
+                                    device=dev)
+            enc = h
+            for j in range(16):
+                before = gqa_decode_update.launches
+                lg, _ = model.char_step(enc, x[:, 9, j].to(dev), ccache)
+                launches.append(gqa_decode_update.launches - before)
+                hs.append(lg.float().cpu())
+            outs.append(hs)
+    for got, want in zip(outs[1], outs[0]):
+        assert (got - want).abs().max() <= tol * want.abs().max()
+    assert launches[:19] == [0] * 19
+    assert launches[19:] == [cfg.patch_layers] * 3 + [cfg.char_layers] * 16
+
+
+@pytest.mark.cuda
+def test_tunes_server_on_cuda_is_slot_independent(cuda):
+    """The server on the card: a request alone in slot 0 and again in slot
+    1 behind a filler (the ring cursor elsewhere) gives the same text; 105
+    K1 launches a bar at the reference depth's formula
+    (patch_layers + patch_size * char_layers)."""
+    from ai_music_generation_tpu_torch.models.convert import (
+        init_tunesformer_weights,
+    )
+    from ai_music_generation_tpu_torch.models.tunesformer import (
+        TunesFormer, TunesFormerConfig,
+    )
+    from ai_music_generation_tpu_torch.serve.tunes_engine import TunesServer
+
+    cfg = TunesFormerConfig(**TUNES_TINY)
+    model = init_tunesformer_weights(
+        TunesFormer(cfg, device=cuda),
+        torch.Generator(device=cuda).manual_seed(0)).eval()
+    srv = TunesServer(model, n_slots=4)
+    prompt = "S:1\nL:1/8\nK:C\nCDEF|"
+    texts, bars = [], []
+    bar = srv._bar
+
+    def counted(packed):
+        bars.append(1)
+        return bar(packed)
+
+    srv._bar = counted
+    before = gqa_decode_update.launches
+    for filler in (False, True):
+        if filler:
+            srv.submit("K:D\nde|", max_patch=12, seed=2)
+        rid = srv.submit(prompt, max_patch=12, seed=7)
+        texts.append({r.id: r for r in srv.run_until_idle()}[rid].text)
+    assert texts[0] == texts[1] and len(texts[0]) > len(prompt)
+    per_bar = cfg.patch_layers + cfg.patch_size * cfg.char_layers
+    assert gqa_decode_update.launches - before == per_bar * len(bars)

@@ -230,3 +230,43 @@ def test_kernel_limits_are_checked_before_launch(edit, match):
         args[1] = torch.empty(k.numel() + 1, dtype=k.dtype)[1:].view(k.shape)
     with pytest.raises(ValueError, match=match):
         _check_cuda(*args)
+
+
+def _rolled(args, shift):
+    """The same ring rows with every column moved ``shift`` places on (the
+    cache, scales and mask rolled along S): what a row holds when the shared
+    cursor stands ``shift`` columns further."""
+    out = list(args)
+    for i in (1, 2):
+        out[i] = args[i].roll(shift, dims=1).contiguous()
+    for i in (5, 6):
+        if args[i] is not None:
+            out[i] = args[i].roll(shift, dims=2).contiguous()
+    out[7] = args[7].roll(shift, dims=1).contiguous()
+    return out
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_ring_output_does_not_depend_on_the_cursor(quant):
+    """Ring mode sums each row's window oldest first, so rows whose content
+    sits at another cursor (everything rolled along the ring) give the same
+    output bit for bit, and rows that started at column 0 give the lockstep
+    output bit for bit."""
+    x = _inputs(quant, True, 5, seed=3)
+    base = _torch_args(x)
+    want = gqa_decode_reference(*[None if a is None else a.clone()
+                                  for a in base],
+                                torch.tensor(5, dtype=torch.int32))
+    for shift in (1, 9, S - 6):
+        moved = _rolled(base, shift)
+        got = gqa_decode_reference(*moved, torch.tensor(
+            (5 + shift) % S, dtype=torch.int32))
+        assert torch.equal(got, want), shift
+    # rows at length pos from column 0: the lockstep window
+    lock = _torch_args(_inputs(quant, False, 5, seed=4))
+    ring = [None if a is None else a.clone() for a in lock]
+    ring[7] = torch.full((B, S), 5, dtype=torch.int32) - (
+        5 - torch.arange(S, dtype=torch.int32)) % S
+    pos = torch.tensor(5, dtype=torch.int32)
+    assert torch.equal(gqa_decode_reference(*ring, pos),
+                       gqa_decode_reference(*lock, pos))

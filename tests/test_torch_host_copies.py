@@ -1,8 +1,9 @@
 """The port's copies of JAX-package host code against their originals (the
 port imports nothing of the JAX package, so it keeps its own copies; these
 tests show when either side changes): the configurator, the memmap file
-helpers, the random-note corpus helpers, ``prepare_char`` and the training
-configs that chip_smoke.py and the tests run. Everything here is
+helpers, the random-note corpus helpers, ``prepare_char``, the training
+configs that chip_smoke.py and the tests run, and TunesFormer's
+Patchilizer. Everything here is
 deterministic, so every comparison is exact (the batch sampler's copy is
 held to its original in tests/test_torch_train_pieces.py).
 """
@@ -18,10 +19,12 @@ import torch
 from ai_music_generation_tpu.cli import random_baselines as jax_rb
 from ai_music_generation_tpu.data import memmap as jax_memmap
 from ai_music_generation_tpu.data import prepare as jax_prepare
+from ai_music_generation_tpu.tokenizers import patchilizer as jax_patch
 from ai_music_generation_tpu.utils import configurator as jax_conf
 from ai_music_generation_tpu_torch.cli import random_baselines as rb
 from ai_music_generation_tpu_torch.data import memmap
 from ai_music_generation_tpu_torch.data import prepare
+from ai_music_generation_tpu_torch.tokenizers import patchilizer
 from ai_music_generation_tpu_torch.utils import configurator as conf
 
 torch.set_num_threads(1)
@@ -141,3 +144,45 @@ def test_training_config_copies_equal_jax(name):
     theirs = jax_conf.apply_overrides(JAX_DEFAULTS, [paths[1]])
     assert {k: ours[k] for k in spaces[0]} == {k: theirs[k] for k in
                                                spaces[1]}
+
+
+# headers, control codes, every bar delimiter, a leading one, a trailing
+# fragment, a bare delimiter body, %%score, long lines and non-ASCII text
+PATCH_CORPUS = [
+    "S:2\nB:9\nE:4\nB:9\nL:1/8\nM:3/4\nK:D\n de|",
+    "X:1\nT:Caf\u00e9 na Gaillimhe\nK:G\n|:GABc dedB|dedB dedB::c2ec B2dB"
+    ":|[|abc||def|]g\n%%score (1 2)\nV:1\nabc|def|tail",
+    "K:C\n|",
+    "K:C\n" + "x" * 60 + "|" + "y|" * 40,
+    "\u00c5ngstr\u00f6m \u2014 \u266b\nL:1/4\nM:C|\nK:Bb\n[|A B|]C::D",
+    "",
+    "no header at all | just | bars",
+]
+
+
+@pytest.mark.parametrize("text", PATCH_CORPUS)
+def test_patchilizer_copy_equals_jax(text):
+    """Bit for bit: the constants, ``_ascii``, ``split_bars``,
+    ``bar2patch`` / ``patch2bar``, ``encode`` (with and without special
+    patches, at several sizes), ``decode`` and ``encode_array``."""
+    assert (patchilizer.PATCH_LENGTH, patchilizer.PATCH_SIZE,
+            patchilizer.DELIMITERS) == (jax_patch.PATCH_LENGTH,
+                                        jax_patch.PATCH_SIZE,
+                                        jax_patch.DELIMITERS)
+    ours, theirs = patchilizer.Patchilizer(), jax_patch.Patchilizer()
+    assert patchilizer._ascii(text) == jax_patch._ascii(text)
+    assert ours.split_bars(text) == theirs.split_bars(text)
+    for bar in ours.split_bars(text) + [text]:
+        for size in (8, 32):
+            patch = ours.bar2patch(bar, size)
+            assert patch == theirs.bar2patch(bar, size)
+            assert ours.patch2bar(patch) == theirs.patch2bar(patch)
+    for length, size in ((128, 32), (4, 8), (16, 16)):
+        for special in (False, True):
+            got = ours.encode(text, length, size, special)
+            assert got == theirs.encode(text, length, size, special)
+            assert ours.decode(got) == theirs.decode(got)
+            arr, n = ours.encode_array(text, length, size, special)
+            want, wn = theirs.encode_array(text, length, size, special)
+            assert n == wn and arr.dtype == want.dtype
+            np.testing.assert_array_equal(arr, want)

@@ -17,21 +17,29 @@ MODULES = [
     "ai_music_generation_tpu_torch",
     "ai_music_generation_tpu_torch.cli.random_baselines",
     "ai_music_generation_tpu_torch.cli.sample",
+    "ai_music_generation_tpu_torch.cli.sample_tunesformer",
     "ai_music_generation_tpu_torch.cli.serve",
     "ai_music_generation_tpu_torch.cli.serve_bench",
+    "ai_music_generation_tpu_torch.cli.serve_tunesformer",
     "ai_music_generation_tpu_torch.cli.train",
     "ai_music_generation_tpu_torch.cli.train_bench",
+    "ai_music_generation_tpu_torch.cli.tunesformer_generate",
     "ai_music_generation_tpu_torch.configs",
     "ai_music_generation_tpu_torch.data.memmap",
     "ai_music_generation_tpu_torch.data.prepare",
     "ai_music_generation_tpu_torch.decode.generate",
     "ai_music_generation_tpu_torch.decode.speculative",
+    "ai_music_generation_tpu_torch.decode.tunes_generate",
     "ai_music_generation_tpu_torch.experiments",
     "ai_music_generation_tpu_torch.experiments.int4_kernel_probe",
+    "ai_music_generation_tpu_torch.experiments.k1_ab",
     "ai_music_generation_tpu_torch.experiments.register_caps",
     "ai_music_generation_tpu_torch.models.convert",
     "ai_music_generation_tpu_torch.models.gpt",
     "ai_music_generation_tpu_torch.models.nanogpt_ckpt",
+    "ai_music_generation_tpu_torch.models.tunesformer",
+    "ai_music_generation_tpu_torch.models.tunesformer_export",
+    "ai_music_generation_tpu_torch.models.tunesformer_import",
     "ai_music_generation_tpu_torch.ops._build",
     "ai_music_generation_tpu_torch.ops.decode_attention",
     "ai_music_generation_tpu_torch.ops.decode_attention_int8",
@@ -40,6 +48,9 @@ MODULES = [
     "ai_music_generation_tpu_torch.ops.spec_attention",
     "ai_music_generation_tpu_torch.serve.engine",
     "ai_music_generation_tpu_torch.serve.http",
+    "ai_music_generation_tpu_torch.serve.tunes_engine",
+    "ai_music_generation_tpu_torch.tokenizers",
+    "ai_music_generation_tpu_torch.tokenizers.patchilizer",
     "ai_music_generation_tpu_torch.train",
     "ai_music_generation_tpu_torch.train.checkpoint",
     "ai_music_generation_tpu_torch.train.optimizer",
@@ -105,6 +116,19 @@ def test_port_imports_without_triton_or_nvcc():
         "kv_quantized=True), device='cpu'), n_slots=2, ticks_per_call=4)\n"
         "srv.submit([1, 2], max_new_tokens=6)\n"
         "assert len(srv.run_until_idle()[0].generated) == 6\n"
+        "from ai_music_generation_tpu_torch.decode.tunes_generate import "
+        "TunesGenerator\n"
+        "from ai_music_generation_tpu_torch.models.tunesformer import "
+        "TunesFormer, TunesFormerConfig\n"
+        "from ai_music_generation_tpu_torch.serve.tunes_engine import "
+        "TunesServer\n"
+        "tf = TunesFormer(TunesFormerConfig(patch_length=8, patch_size=8, "
+        "patch_layers=1, char_layers=1, n_embd=32, n_head=2), device='cpu')\n"
+        "assert len(TunesGenerator(tf).generate_tunes('K:C\\nab', "
+        "num_tunes=2, max_patch=5)) == 2\n"
+        "tsrv = TunesServer(tf, n_slots=2)\n"
+        "tsrv.submit('K:C\\nab|', max_patch=5)\n"
+        "assert len(tsrv.run_until_idle()) == 1\n"
         "import contextlib, io\n"
         "from ai_music_generation_tpu_torch.cli import train_bench\n"
         "with contextlib.redirect_stdout(io.StringIO()):\n"
@@ -126,8 +150,8 @@ def test_build_key_tracks_sources_and_flags(monkeypatch, tmp_path):
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert _build.library_path() == path  # stable
     assert [p.name for p in _build.sources()] == [
-        "decode_attention.cu", "gqa_decode.cu", "lean_attention.cu",
-        "spec_attention.cu", "spec_attention_f32.cu"]
+        "decode_attention.cu", "gqa_decode.cu", "gqa_decode_ring.cu",
+        "lean_attention.cu", "spec_attention.cu", "spec_attention_f32.cu"]
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-g",))
     assert _build.library_path() != path
     assert "--use_fast_math" not in _build.NVCC_FLAGS
@@ -141,7 +165,7 @@ def test_build_key_tracks_sources_and_flags(monkeypatch, tmp_path):
     assert _build.library_path() != before
     # the shared headers are part of the key
     assert [p.name for p in _build.headers()] == [
-        "common.cuh", "spec_attention_mma.cuh"]
+        "common.cuh", "gqa_decode.cuh", "spec_attention_mma.cuh"]
     header = tmp_path / "common.cuh"
     header.write_text("// shared")
     monkeypatch.setattr(_build, "headers", lambda: [header])

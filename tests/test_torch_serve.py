@@ -525,9 +525,11 @@ def test_runner_engine_crash_fails_waiters(tiny):
     runner.shutdown()
 
 
-def test_serve_bench_cli_runs_its_load(capsys):
+def test_serve_bench_cli_runs_its_load(capsys, monkeypatch):
     """cli/serve_bench.py drives its two passes on a tiny GQA int8 model on
-    the CPU and prints one JSON line; ``--engine tunes`` is refused."""
+    the CPU and prints one JSON line; without a card, the default device
+    (the card) is refused for either engine (``--engine tunes`` at tiny
+    size: tests/test_torch_tunes_serve.py)."""
     from ai_music_generation_tpu_torch.cli import serve_bench
 
     out = serve_bench.main([
@@ -539,5 +541,7 @@ def test_serve_bench_cli_runs_its_load(capsys):
         == out
     assert out["requests"] == 12 and 12 * 8 <= out["gen_tokens"] <= 12 * 16
     assert out["device"] == "cpu" and out["latency"]["count"] == 12
-    with pytest.raises(NotImplementedError, match="item 4, TunesFormer"):
-        serve_bench.main(["--engine=tunes"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for engine in ("gpt", "tunes"):
+        with pytest.raises(RuntimeError, match="--device=cpu"):
+            serve_bench.main([f"--engine={engine}"])
