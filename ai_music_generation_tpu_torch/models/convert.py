@@ -1,6 +1,6 @@
 """Weights for the port's GPT and TunesFormer: converted from the JAX
 package's params, or initialised with the JAX package's scheme; and the JAX
-optimizer state converted to the port's AdamW state.
+optimizer states converted to the port's AdamW states (GPT and TunesFormer).
 
 The state dict uses nanoGPT's names and torch layouts, the same keys and
 values as the JAX package's ``models/nanogpt_ckpt.py::
@@ -171,5 +171,29 @@ def optimizer_state_from_jax(opt_state, model: GPT,
             state[i] = {"step": step.clone(), "exp_avg": mu[n].clone(),
                         "exp_avg_sq": nu[n].clone()}
             i += 1
+    return {"state": state,
+            "param_groups": optimizer.state_dict()["param_groups"]}
+
+
+def tunes_optimizer_state_from_jax(opt_state, model: TunesFormer,
+                                   optimizer: torch.optim.Optimizer) -> dict:
+    """An ``optax.adamw`` state (the JAX TunesFormer CLI's: ``count``,
+    ``mu``, ``nu`` of its ``ScaleByAdamState``; numpy leaves) -> a
+    ``state_dict`` for ``optimizer`` (``train/optimizer.py::optax_adamw``
+    over ``model``): ``exp_avg`` and ``exp_avg_sq`` are ``mu`` and ``nu``
+    in the port's layout (:func:`tunesformer_state_dict_from_jax`),
+    ``step`` the count of applied updates (optax's schedule count equals it:
+    both advance together and the NaN guard holds both)."""
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState (count, mu, nu) in opt_state")
+    mu = tunesformer_state_dict_from_jax(adam.mu, model.config)
+    nu = tunesformer_state_dict_from_jax(adam.nu, model.config)
+    step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
+    name = {id(p): n for n, p in model.named_parameters()}
+    state = {i: {"step": step.clone(), "exp_avg": mu[name[id(p)]].clone(),
+                 "exp_avg_sq": nu[name[id(p)]].clone()}
+             for i, p in enumerate(p for g in optimizer.param_groups
+                                   for p in g["params"])}
     return {"state": state,
             "param_groups": optimizer.state_dict()["param_groups"]}

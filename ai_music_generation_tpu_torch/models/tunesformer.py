@@ -20,8 +20,14 @@ as the JAX package runs them as XLA einsums. Numerics follow the Flax
 modules as ``models/gpt.py`` does: fp32 parameters cast to the compute
 dtype at each use.
 
-Inference and the eval-mode loss only: training (``train/tunes_step.py``,
-dropout) is not ported yet.
+Training (``train/tunes_step.py``): in ``train()`` mode with
+``dropout > 0`` the loss forward drops where the JAX model drops (each
+core's embedding sum, and in every block the attention probabilities, the
+attention output and the MLP output) with the port's counter-hash masks
+(``models/gpt.py::dropout``). The caller passes one key a step; each core
+drops with its own key, :func:`core_dropout_key` of the step key and the
+core's tag, so the patch and the char core never share mask bits (with
+``share_weights`` the one core runs twice, under the two keys).
 """
 
 from __future__ import annotations
@@ -35,25 +41,36 @@ import torch.nn.functional as F
 from torch import nn
 
 from ai_music_generation_tpu_torch.models.gpt import (
+    SITE_EMBED,
     Block,
     GPTConfig,
     KVCache,
     _layer_norm,
     advance,
     cross_entropy_ignore_index,
+    dropout,
     ring_positions,
 )
+from ai_music_generation_tpu_torch.utils.hash32 import mix32, mul32
 
 CHAR_VOCAB = 128  # ASCII
+# the cores' tags in their dropout keys (core_dropout_key)
+PATCH_CORE, CHAR_CORE = 1, 2
+
+
+def core_dropout_key(key: int, core: int) -> int:
+    """The dropout key of one core (``PATCH_CORE`` or ``CHAR_CORE``) in the
+    step of ``key``: a hash of the two, so the cores' masks are unrelated
+    even at sites of the same shape (both have a layer 0)."""
+    return mix32(key ^ mul32(core, 0x27D4EB2F))
 
 
 @dataclasses.dataclass(frozen=True)
 class TunesFormerConfig:
     """The JAX ``TunesFormerConfig``'s fields and defaults (the reference
     model: 9 patch layers, 3 char layers, 768 wide, 12 heads, 128 patches
-    of 32 chars); ``dtype`` and ``param_dtype`` are torch dtypes. ``dropout``
-    is kept for the configs' sake: the port's TunesFormer runs in eval
-    mode."""
+    of 32 chars); ``dtype`` and ``param_dtype`` are torch dtypes.
+    ``dropout`` acts in the loss forward in ``train()`` mode."""
 
     patch_length: int = 128
     patch_size: int = 32
@@ -84,10 +101,12 @@ class TunesFormerConfig:
 
 class TransformerCore(nn.Module):
     """GPT-2 stack over pre-computed input embeddings (``wpe`` + blocks +
-    ``ln_f``). ``forward(embeds [B, T, C], cache=None)`` returns (hidden
-    [B, T, C] in the compute dtype, cache); a cache is updated in place at
-    ``cache.length`` (lockstep) or at its cursor (ring mode, T=1, positions
-    clipped as JAX's gather clips: ``models.gpt.ring_positions``)."""
+    ``ln_f``). ``forward(embeds [B, T, C], cache=None, drop=None)`` returns
+    (hidden [B, T, C] in the compute dtype, cache); a cache is updated in
+    place at ``cache.length`` (lockstep) or at its cursor (ring mode, T=1,
+    positions clipped as JAX's gather clips: ``models.gpt.ring_positions``).
+    ``drop`` = (p, the core's key) drops at the embedding sum and at each
+    block's three sites (no-cache forward only), as GPT.forward does."""
 
     def __init__(self, config: GPTConfig):
         super().__init__()
@@ -98,7 +117,7 @@ class TransformerCore(nn.Module):
         self.ln_f = nn.LayerNorm(C, eps=1e-5, bias=config.bias, dtype=dt)
 
     def forward(self, embeds: torch.Tensor,
-                cache: Optional[KVCache] = None):
+                cache: Optional[KVCache] = None, drop=None):
         cfg = self.config
         B, T, _ = embeds.shape
         if T > cfg.block_size:
@@ -114,9 +133,11 @@ class TransformerCore(nn.Module):
             pos = pos[None]
         x = embeds.to(cfg.dtype) + F.embedding(
             pos, self.wpe.weight.to(cfg.dtype))
+        if drop is not None and cache is None:
+            x = dropout(x, *drop, 0, SITE_EMBED)
         for i, block in enumerate(self.h):
             if cache is None:
-                x = block(x)
+                x = block(x, drop=None if drop is None else (*drop, i))
                 continue
             layer_cache = (
                 cache.k[i], cache.v[i],
@@ -154,8 +175,12 @@ class PatchEmbedding(nn.Module):
 
 
 class TunesFormer(nn.Module):
-    """The dual decoder. ``forward(patches, patch_indices=None)`` is the
-    eval-mode training loss; the generation entry points are
+    """The dual decoder. ``forward(patches, patch_indices=None,
+    dropout_key=None)`` is the training loss: in ``train()`` mode with
+    ``config.dropout > 0`` it needs ``dropout_key`` (a step's key, e.g.
+    ``models.gpt.dropout_key(seed, step)``) and drops with each core's
+    :func:`core_dropout_key`; in ``eval()`` mode it drops nothing. The
+    generation entry points are
     :meth:`encode_patches`, :meth:`encode_patches_cached`,
     :meth:`patch_step`, :meth:`char_logits` and :meth:`char_step`.
 
@@ -197,9 +222,11 @@ class TunesFormer(nn.Module):
     def _wte(self) -> torch.Tensor:
         return self.char_wte.weight.to(self.config.dtype)
 
-    def encode_patches(self, patches: torch.Tensor) -> torch.Tensor:
-        """[B, P, S] int -> [B, P, n_embd] encoded patch states."""
-        return self.patch_core(self.patch_embedding(patches))[0]
+    def encode_patches(self, patches: torch.Tensor,
+                       drop=None) -> torch.Tensor:
+        """[B, P, S] int -> [B, P, n_embd] encoded patch states (``drop``:
+        the patch core's (p, key), see TransformerCore)."""
+        return self.patch_core(self.patch_embedding(patches), drop=drop)[0]
 
     def encode_patches_cached(self, patches: torch.Tensor, cache: KVCache):
         """``encode_patches`` that also fills a lockstep patch-core cache at
@@ -217,15 +244,15 @@ class TunesFormer(nn.Module):
         return hidden[:, 0, :], cache
 
     def char_logits(self, encoded_patch: torch.Tensor,
-                    tokens: torch.Tensor) -> torch.Tensor:
+                    tokens: torch.Tensor, drop=None) -> torch.Tensor:
         """[N, C] encoded patches and [N, S] chars -> [N, S, 128] logits:
         position 0's embedding is the encoded patch, the head is tied to
-        ``char_wte``."""
+        ``char_wte`` (``drop``: the char core's (p, key))."""
         wte = self._wte()
         tok = F.embedding(tokens.long(), wte)
         embeds = torch.cat([encoded_patch[:, None, :].to(wte.dtype),
                             tok[:, 1:, :]], dim=1)
-        hidden, _ = self.char_core(embeds)
+        hidden, _ = self.char_core(embeds, drop=drop)
         return F.linear(hidden, wte)
 
     def char_step(self, encoded_patch: torch.Tensor, tok: torch.Tensor,
@@ -242,14 +269,24 @@ class TunesFormer(nn.Module):
         return F.linear(hidden[:, 0, :], wte), cache
 
     def forward(self, patches: torch.Tensor,
-                patch_indices: Optional[torch.Tensor] = None) -> torch.Tensor:
+                patch_indices: Optional[torch.Tensor] = None,
+                dropout_key: Optional[int] = None) -> torch.Tensor:
         """Mean char cross-entropy (JAX tunesformer.py:243-272): encoded
         patch p conditions the chars of patch p+1; pad chars (0) are
         ignored; ``patch_indices`` [B, K] selects the conditioning rows
-        (0..P-2) that feed the char decoder."""
+        (0..P-2) that feed the char decoder. Dropout: see the class."""
+        cfg = self.config
+        drops = (None, None)
+        if self.training and cfg.dropout > 0:
+            if dropout_key is None:
+                raise ValueError(
+                    "dropout is active in train() mode: pass dropout_key "
+                    "(models.gpt.dropout_key), or call eval()")
+            drops = tuple((cfg.dropout, core_dropout_key(dropout_key, core))
+                          for core in (PATCH_CORE, CHAR_CORE))
         B, P, S = patches.shape
-        C = self.config.n_embd
-        encoded = self.encode_patches(patches)
+        C = cfg.n_embd
+        encoded = self.encode_patches(patches, drops[0])
         cond, target = encoded[:, :-1, :], patches[:, 1:, :]
         if patch_indices is not None:
             idx = patch_indices.long()
@@ -257,7 +294,7 @@ class TunesFormer(nn.Module):
             target = torch.gather(target, 1,
                                   idx[:, :, None].expand(-1, -1, S))
         cond, target = cond.reshape(-1, C), target.reshape(-1, S)
-        logits = self.char_logits(cond, target)
+        logits = self.char_logits(cond, target, drops[1])
         labels = torch.where(target == 0, -1, target)
         return cross_entropy_ignore_index(logits[:, :-1, :], labels[:, 1:])
 
@@ -268,8 +305,9 @@ def load_tunesformer(out_dir: str, dtype: torch.dtype = torch.bfloat16,
     TunesFormer checkpoint (written by the reference's train.py or by
     ``models.tunesformer_export.save_reference_checkpoint``); the
     architecture is read from the tensors' shapes
-    (``config_from_reference_state``: patch_length and n_head take the
-    reference's defaults). An orbax checkpoint (``out_dir/<name>``, the JAX
+    (``config_from_reference_state``: patch_length and n_head are the
+    file's ``model_args`` where the port wrote them, else the reference's
+    defaults). An orbax checkpoint (``out_dir/<name>``, the JAX
     package's format) cannot be read here: convert it with the JAX package's
     ``convert_ckpt tunesformer to-torch`` first."""
     from ai_music_generation_tpu_torch.models.tunesformer_import import (
@@ -287,8 +325,11 @@ def load_tunesformer(out_dir: str, dtype: torch.dtype = torch.bfloat16,
                 f"to-torch --out_dir {out_dir} --out {path}` first")
         raise FileNotFoundError(f"no TunesFormer checkpoint at {path}")
     ckpt, state = read_reference(path)
+    known = {k: v for k, v in ckpt.get("model_args", {}).items()
+             if k in ("patch_length", "n_head")}
     cfg = dataclasses.replace(
-        config_from_reference_state(state, dtype=dtype), dropout=0.0)
+        config_from_reference_state(state, dtype=dtype, **known),
+        dropout=0.0)
     model = TunesFormer(cfg, device=device)
     model.load_state_dict(port_state_from_reference(state, cfg))
     meta = {

@@ -35,6 +35,31 @@ CHAR_PREFIX = "char_level_decoder.base.transformer."
 # the HF Conv1D projections of a block, stored [in, out]
 CONV1D = ("attn.c_attn.weight", "attn.c_proj.weight", "mlp.c_fc.weight",
           "mlp.c_proj.weight")
+LM_HEAD = "char_level_decoder.base.lm_head.weight"
+
+
+def reference_key(name: str, share_weights: bool) -> tuple[str, bool]:
+    """(the reference key that holds the port parameter ``name``, whether
+    the reference stores it transposed). With ``share_weights`` the shared
+    core and ``char_wte`` are named by their first key in the reference's
+    parameter order, under ``patch_level_decoder.base``."""
+    if name.startswith("patch_embedding."):
+        return "patch_level_decoder." + name, name.endswith(".weight")
+    if name == "char_wte.weight":
+        return (PATCH_PREFIX if share_weights else CHAR_PREFIX) \
+            + "wte.weight", False
+    head, _, rest = name.partition(".")
+    prefix = CHAR_PREFIX if head == "char_core" else PATCH_PREFIX
+    return prefix + rest, rest.split(".", 2)[-1] in CONV1D
+
+
+def unique_keys(keys, share_weights: bool) -> list[str]:
+    """The keys of a reference state dict (in its order) that name distinct
+    tensors: the tied ``lm_head`` and, with ``share_weights``, the char
+    transformer (the patch base under another name) are left out. Their
+    positions index the reference optimizer's state."""
+    return [k for k in keys if k != LM_HEAD
+            and not (share_weights and k.startswith(CHAR_PREFIX))]
 
 
 def _f32(t) -> torch.Tensor:
@@ -149,3 +174,31 @@ def config_from_reference_state(
         patch_length=patch_length, patch_size=flat // 128,
         patch_layers=patch_layers, char_layers=char_layers,
         n_embd=n_embd, n_head=n_head, share_weights=share, **kwargs)
+
+
+def optimizer_state_from_reference(ckpt: Mapping[str, Any], model,
+                                   optimizer: torch.optim.Optimizer) -> dict:
+    """A ``state_dict`` for ``optimizer`` (the port's AdamW over ``model``,
+    ``train/optimizer.py::optax_adamw``) from a ``weights.pth`` checkpoint's
+    ``optimizer`` (torch AdamW's state over the reference's distinct
+    tensors, :func:`unique_keys` order): each parameter's ``step``,
+    ``exp_avg`` and ``exp_avg_sq``, the moments of ``Conv1D`` weights and
+    of the patch embedding transposed back to the port's layout."""
+    share = model.config.share_weights
+    index = {k: i for i, k in enumerate(unique_keys(ckpt["model"], share))}
+    saved = ckpt.get("optimizer", {}).get("state", {})
+    name_of = {id(p): n for n, p in model.named_parameters()}
+    state = {}
+    for j, p in enumerate(p for g in optimizer.param_groups
+                          for p in g["params"]):
+        key, transposed = reference_key(name_of[id(p)], share)
+        if index[key] not in saved:
+            raise ValueError(f"the checkpoint holds no optimizer state for "
+                             f"{key}")
+        s = saved[index[key]]
+        state[j] = {"step": _f32(s["step"])}
+        for m in ("exp_avg", "exp_avg_sq"):
+            state[j][m] = (_f32(s[m]).T.contiguous() if transposed
+                           else _f32(s[m]))
+    return {"state": state,
+            "param_groups": optimizer.state_dict()["param_groups"]}

@@ -13,6 +13,12 @@ nanoGPT's train.py / model.py behaviour).
   gradients are scaled only when the norm is not below the limit, each as
   ``g / norm * max_norm`` (``torch.nn.utils.clip_grad_norm_`` scales by
   ``max / (norm + 1e-6)``, which drifts from it).
+
+TunesFormer training (``cli/tunesformer_train.py``) uses others:
+:func:`hf_cosine_schedule` (HF's ``get_scheduler("cosine")`` as the JAX CLI
+computes it, on the device) and :func:`optax_adamw` (``optax.adamw`` at
+optax's defaults: weight decay 1e-4 on every parameter, no clip), whose
+step can be skipped on the device (the NaN guard).
 """
 
 from __future__ import annotations
@@ -82,3 +88,59 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float,
     keep = norm < max_norm
     torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
     torch._foreach_mul_(grads, torch.where(keep, 1.0, max_norm).to(norm))
+
+
+def hf_cosine_schedule(lr: float, num_warmup: float, num_training: float
+                       ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """HF ``get_scheduler("cosine")`` as JAX cli/tunesformer_train.py:88-100
+    computes it: linear warmup from 0 over ``num_warmup`` steps (a float),
+    then a cosine to 0 at ``num_training``. The returned function takes the
+    step as a tensor and gives the lr as an fp32 0-dim tensor on its device,
+    each operation in fp32 with the JAX function's Python-side constants,
+    so no value is read back to the host."""
+    warm_div = max(num_warmup, 1)
+    cos_div = max(num_training - num_warmup, 1)
+
+    def fn(step: torch.Tensor) -> torch.Tensor:
+        step = torch.as_tensor(step).to(torch.float32)
+        warm = lr * torch.clamp(step / warm_div, max=1.0)
+        progress = torch.clamp((step - num_warmup) / cos_div, 0.0, 1.0)
+        cos = lr * 0.5 * (1.0 + torch.cos(math.pi * progress))
+        return torch.where(step < num_warmup, warm, cos)
+
+    return fn
+
+
+# optax.adamw's defaults (optax 0.2.6)
+ADAMW_BETAS, ADAMW_EPS, ADAMW_WEIGHT_DECAY = (0.9, 0.999), 1e-8, 1e-4
+
+
+def optax_adamw(params: Iterable[torch.Tensor],
+                weight_decay: float = ADAMW_WEIGHT_DECAY
+                ) -> torch.optim.AdamW:
+    """``optax.adamw`` at optax 0.2.6's defaults (b1 0.9, b2 0.999, eps
+    1e-8, ``weight_decay`` on every parameter, no mask) as torch's fused
+    AdamW: the same update (``-lr * (m_hat / (sqrt(v_hat) + eps) + wd *
+    p)``, bias corrections at the count after the update) in another order
+    of roundings, one group, each ``step`` an fp32 tensor on its
+    parameter's device.
+
+    The caller sets the group's ``lr`` to a tensor on the parameters'
+    device (the schedule at :func:`adamw_count`) and ``found_inf``, an fp32
+    0-dim tensor, on the optimizer before :meth:`step`: at 1 the fused
+    kernel skips the update and the step counts are taken back, so the
+    parameters, moments and counts stay as they were, as optax's state
+    does under the JAX step's NaN guard. Nothing is read to the host."""
+    return torch.optim.AdamW(params, lr=0.0, betas=ADAMW_BETAS,
+                             eps=ADAMW_EPS, weight_decay=weight_decay,
+                             fused=True)
+
+
+def adamw_count(optimizer: torch.optim.Optimizer) -> torch.Tensor:
+    """The number of applied updates (optax's ``count``): the first
+    parameter's ``step``, or a 0 on its device before the first step."""
+    p = optimizer.param_groups[0]["params"][0]
+    state = optimizer.state.get(p)
+    if state:
+        return state["step"]
+    return torch.zeros((), dtype=torch.float32, device=p.device)

@@ -2,9 +2,10 @@
 decode paths (the plain decode path, speculative decoding, the
 attn_impl="pallas" decode path, the lean int8 / int4 decode-attention probe
 path, fp32 models, the continuous-batching server and the sampling CLI),
-the training path (the train step, cli/train.py, cli/train_bench.py) and
+the training path (the train step, cli/train.py, cli/train_bench.py),
 TunesFormer inference and serving (the model, the bar generator, the
-server and its HTTP front end, the CLIs).
+server and its HTTP front end, the CLIs) and TunesFormer training (the
+train step, curation, cli/tunesformer_train.py, the MFU probe).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -180,12 +181,35 @@ printing a result):
     cli/tunesformer_generate.py (8 tunes) and cli/sample_tunesformer.py (8
     leadsheets) on it: file names, X: headers, 105 K1 launches a bar.
     ``--profile tunes,tunes_serve`` profiles phase 26's generate and one hot
-    pass of phase 27's load.
+    pass of phase 27's load;
+29. TunesFormer train step (train/tunes_step.py: optax_adamw, the HF cosine
+    schedule, the NaN guard) at the reference widths cut to 2+1 layers,
+    batch 2, on the card against the CPU from one init, at lr 1e-3 (an
+    update moves a parameter ~1e-3, ten times the fp32 yardstick): 3 steps
+    at fp32 (parameters within 1e-4 of their range, each Adam moment of
+    its range, losses of their value) and bf16 (2^-6), two fp32 steps at
+    dropout 0.1, each core's layer-0 masks
+    (under its own key) bit-equal card vs CPU, and a NaN parameter's step
+    leaving every parameter, moment and the count bit for bit;
+30. TunesFormer's real path: 1,000 random_tunes as .abc files,
+    cli/add_control_codes.py -> data.json, cli/tunesformer_train.py at
+    its defaults (the reference config: 9+3 layers, 768 wide, 128 x 32,
+    batch 8, bf16, dropout 0.1) for 2 epochs (the eval loss falls,
+    weights.pth and logs.txt written) and ``--load_from_checkpoint`` to 3
+    (epoch 3 alone); ms/iter (median of the steady epochs' steps) and peak
+    memory printed; then cli/sample_tunesformer.py over the trained
+    weights.pth and 8 curated tunes: 105 K1 launches a bar, no twin call;
+31. experiments/tunes_mfu.py at batches 8 and 32 (the reference widths,
+    dropout 0, bf16): ms/iter, TFLOP/step by FlopCounterMode (equal to the
+    analytic count), MFU against 989 TFLOP/s, peak memory. Phases 29-31
+    train with none of K1-K7 (their counts are set to 0 before each and
+    read after; any launch fails the run). ``--profile tunes_train``
+    profiles one train step at phase 30's configuration.
 
 The last two lines are a JSON summary of each kernel and
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` counts its
 launches in its path's main-path run (phases 5, 8, 12, 15, 19, 20, 22,
-26, 27, 28;
+26, 27, 28, 30;
 every count is set to 0 just before each of them and read just after); a
 kernel with no caller on any path (K3, K5, K6) shows its count summed over
 those runs there, and its kernel-vs-twin launches as ``check_launches``.
@@ -197,7 +221,8 @@ numbers. K1 at the TunesFormer shapes has an entry a mode:
 ``gqa_decode_update/tunes_char`` (lockstep S=32, every char step),
 ``gqa_decode_update/tunes_patch`` (lockstep S=128, the generators' patch
 steps) and ``gqa_decode_update/tunes_ring`` (ring S=128, the server's patch
-step), each timed at B=1024 with its launches on phases 26-28 (counted by
+step), each timed at B=1024 with its launches on phases 26-28 and 30's
+sampling (counted by
 mode by a wrapper on the models' K1 call, their sum checked against K1's
 own count) and the batches it ran at; their ``library_ms`` is SDPA's
 attention alone, which writes no column.
@@ -322,6 +347,15 @@ TUNES_SLOTS, TUNES_REQUESTS = 1024, 4096
 # leadsheet)
 TUNES_HTTP_SLOTS, TUNES_CLI_TUNES = 64, 8
 TUNES_PROMPT = "S:2\nB:9\nE:4\nB:9\nL:1/8\nM:3/4\nK:D\n de|"
+# TunesFormer training (phases 29-31): the train step card vs CPU at the
+# reference widths cut to 2+1 layers (batch 2); the real path (1,000
+# random_tunes curated into data.json, cli/tunesformer_train.py at its
+# defaults for 2 epochs, a resume to 3, sampling through K1); the MFU probe
+# (experiments/tunes_mfu.py) at batches 8 and 32
+TUNES_TRAIN_DEPTH = dict(patch_layers=2, char_layers=1)
+TUNES_TRAIN_LR = 1e-3  # phase 29's peak lr, as the cuda test's
+TUNES_TRAIN_B, TUNES_CORPUS, TUNES_EPOCHS = 2, 1000, 2
+TUNES_MFU_B = (8, 32)
 
 
 def bound(n_bytes, n_ops, ops_per_s=BF16_OPS_PER_S) -> tuple[float, str]:
@@ -2580,7 +2614,7 @@ def phase_profile_train(top=12) -> None:
 
 
 PROFILED = ("pallas", "bench", "spec", "serve", "train", "tunes",
-            "tunes_serve")
+            "tunes_serve", "tunes_train")
 
 
 @torch.inference_mode()
@@ -3346,6 +3380,345 @@ def phase_tunes_cli(ws, device, num_tunes=TUNES_CLI_TUNES,
     return launches, count.bars
 
 
+# -- TunesFormer training (phases 29-31) --------------------------------------
+
+def _tunes_train_batch(B, cfg, seed=0):
+    """[B, P, S] int32 on the CPU: tunes_mfu's bos/eos-framed ASCII patches,
+    each row's patches past a random count (at least 4) zeroed (padding)."""
+    from ai_music_generation_tpu_torch.experiments.tunes_mfu import (
+        ascii_batch,
+    )
+
+    g = torch.Generator().manual_seed(seed)
+    x = ascii_batch(g, B, cfg, "cpu")
+    for b in range(B):
+        x[b, int(torch.randint(4, cfg.patch_length, (1,), generator=g)):] = 0
+    return x
+
+
+def _bits(t):
+    return t.detach().clone().view(torch.int32).cpu()
+
+
+def phase_tunes_train_step(device, B=TUNES_TRAIN_B, steps=3) -> dict:
+    """The TunesFormer train step (train/tunes_step.py: optax_adamw, the HF
+    cosine schedule, the NaN guard) at the reference widths cut to
+    TUNES_TRAIN_DEPTH on ``device`` against the CPU from the same init
+    weights and batches: at fp32 and bf16 (dropout 0) ``steps`` steps, the
+    loss of each within TRAIN_STEP_FRAC of its value, every parameter
+    within it of the parameters' range and each Adam moment of its moments'
+    range after the last; at dropout 0.1 two fp32 steps (the first at lr 0)
+    within the fp32 yardstick, and the masks of each core's layer 0 at its
+    four sites (each core under its own key) bit-equal card vs CPU;
+    then the NaN guard on the card: a NaN parameter, a step, every
+    parameter, moment and count bit for bit as before. Returns each error as
+    a share of its yardstick's scale."""
+    from ai_music_generation_tpu_torch.models import gpt
+    from ai_music_generation_tpu_torch.models.convert import (
+        init_tunesformer_weights,
+    )
+    from ai_music_generation_tpu_torch.models.tunesformer import (
+        CHAR_CORE, PATCH_CORE, TunesFormer, TunesFormerConfig,
+        core_dropout_key,
+    )
+    from ai_music_generation_tpu_torch.train.optimizer import (
+        hf_cosine_schedule, optax_adamw,
+    )
+    from ai_music_generation_tpu_torch.train.tunes_step import (
+        make_tunesformer_train_step,
+    )
+
+    errs, models = {}, None
+    for name, dtype, p, n in (("fp32", torch.float32, 0.0, steps),
+                              ("bf16", torch.bfloat16, 0.0, steps),
+                              ("fp32 dropout", torch.float32, 0.1, 2)):
+        cfg = TunesFormerConfig(**TUNES_TRAIN_DEPTH, dropout=p, dtype=dtype)
+        cpu = init_tunesformer_weights(TunesFormer(cfg, device="cpu"),
+                                       torch.Generator().manual_seed(0))
+        models = (cpu, copy.deepcopy(cpu).to(device))
+        opts, losses = [], []
+        for m in models:
+            opt = optax_adamw(m.parameters())
+            step = make_tunesformer_train_step(
+                m, opt, hf_cosine_schedule(TUNES_TRAIN_LR, 1.0, 10))
+            losses.append([float(step(_tunes_train_batch(B, cfg, i).to(
+                m.device), i, seed=7)) for i in range(n)])
+            opts.append(opt)
+        frac = TRAIN_STEP_FRAC[dtype]
+        err = {"loss": max(abs(a - b) / abs(b)
+                           for a, b in zip(losses[1], losses[0]))}
+        ref = models[0].state_dict()
+        span = max(float(v.abs().max()) for v in ref.values())
+        err["params"] = max(float((v.cpu() - ref[k]).abs().max())
+                            for k, v in models[1].state_dict().items()) / span
+        for mo in ("exp_avg", "exp_avg_sq"):
+            want = [st[mo] for st in opts[0].state.values()]
+            span = max(float(v.abs().max()) for v in want)
+            err[mo] = max(float((st[mo].cpu() - v).abs().max()) for v, st
+                          in zip(want, opts[1].state.values())) / span
+        print(f"tunes train step {name} ({device} vs cpu, {n} steps, batch "
+              f"{B}, depth {TUNES_TRAIN_DEPTH}): losses {losses[1]} vs "
+              f"{losses[0]}; errors "
+              + ", ".join(f"{k} {v:.3g}" for k, v in err.items())
+              + f" (yardstick {frac:.3g})")
+        if not all(v <= frac for v in err.values()):
+            raise AssertionError(f"tunes train step {name}: {err} over "
+                                 f"{frac}")
+        errs[name] = max(err.values())
+    cfg, model, opt = models[1].config, models[1], opts[1]
+    C, H, P, S = cfg.n_embd, cfg.n_head, cfg.patch_length, cfg.patch_size
+    N = B * (P - 1)
+    key = gpt.dropout_key(7, 0)
+    shapes = {PATCH_CORE: ((B, P, C), (B, H, P, P), (B, P, C), (B, P, C)),
+              CHAR_CORE: ((N, S, C), (N, H, S, S), (N, S, C), (N, S, C))}
+    kept = {}
+    for core, sites in shapes.items():
+        k = core_dropout_key(key, core)
+        for site, shape in enumerate(sites):
+            card = gpt.dropout_keep(shape, cfg.dropout, k, 0, site, device)
+            if not torch.equal(card.cpu(), gpt.dropout_keep(
+                    shape, cfg.dropout, k, 0, site)):
+                raise AssertionError(f"dropout core {core} site {site}: "
+                                     f"card != CPU")
+            kept[(core, site)] = round(float(card.float().mean()), 4)
+    # the NaN guard on the card
+    step = make_tunesformer_train_step(
+        model, opt, hf_cosine_schedule(TUNES_TRAIN_LR, 1.0, 10))
+    with torch.no_grad():
+        model.patch_embedding.bias[0] = float("nan")
+    before = [_bits(p) for p in model.parameters()]
+    state = [(_bits(s["exp_avg"]), _bits(s["exp_avg_sq"]), float(s["step"]))
+             for s in opt.state.values()]
+    loss = step(_tunes_train_batch(B, cfg, 9).to(device), 2, seed=7)
+    if torch.isfinite(loss) or any(
+            not torch.equal(_bits(p), b)
+            for p, b in zip(model.parameters(), before)) or any(
+            not torch.equal(_bits(s["exp_avg"]), m)
+            or not torch.equal(_bits(s["exp_avg_sq"]), v)
+            or float(s["step"]) != c
+            for (m, v, c), s in zip(state, opt.state.values())):
+        raise AssertionError("the NaN guard let a non-finite step through")
+    print(f"tunes dropout masks (p {cfg.dropout}) bit-equal card vs CPU at "
+          f"each core's layer-0 sites, kept shares {kept}; NaN guard on the "
+          f"card: loss {float(loss)}, {len(before)} parameters, their "
+          f"moments and the count ({state[0][2]:.0f}) bit for bit as before")
+    return errs
+
+
+def phase_tunes_train_cli(root, device, n_tunes=TUNES_CORPUS,
+                          epochs=TUNES_EPOCHS) -> dict:
+    """The real path: ``n_tunes`` random_tunes as .abc files,
+    cli/add_control_codes.py -> data.json, cli/tunesformer_train.py at its
+    defaults (the reference config: 9+3 layers, 768 wide, 128 x 32, batch
+    8, bf16, dropout 0.1) for ``epochs`` epochs, then
+    ``--load_from_checkpoint=True`` to ``epochs + 1``: the eval loss falls
+    from epoch 1 to ``epochs``, weights.pth and logs.txt are written (an
+    entry an epoch), the resume runs epoch ``epochs + 1`` alone from the
+    checkpoint's weights and count. Returns the numbers, out_dir and the
+    leadsheets of phase 30's sampling (8 curated tunes)."""
+    import os
+    import statistics
+
+    from ai_music_generation_tpu_torch.cli import (
+        add_control_codes, tunesformer_train,
+    )
+    from ai_music_generation_tpu_torch.cli.random_baselines import (
+        random_tunes,
+    )
+    from ai_music_generation_tpu_torch.models.tunesformer_import import (
+        read_reference,
+    )
+
+    abc = os.path.join(root, "abc")
+    os.makedirs(abc)
+    for i, tune in enumerate(random_tunes(n_tunes, seed=11)):
+        with open(os.path.join(abc, f"{i:05d}.abc"), "w") as f:
+            f.write(tune)
+    data = os.path.join(root, "data.json")
+    t0 = time.perf_counter()
+    curated = add_control_codes.main([abc, f"--output={data}"])
+    curate_s = time.perf_counter() - t0
+    out = os.path.join(root, "tf_train")
+    base = [f"--data_path={data}", f"--out_dir={out}", f"--device={device}"]
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = tunesformer_train.main(base + [f"--num_epochs={epochs}"])
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() / 2**30
+            if torch.device(device).type == "cuda" else 0.0)
+    evals = [e["eval_loss"] for e in first["epochs"]]
+    ckpt, _ = read_reference(os.path.join(out, "weights.pth"))
+    if not evals[-1] < evals[0] or ckpt["epoch"] != first["best_epoch"]:
+        raise AssertionError(f"the TunesFormer run's eval loss did not fall "
+                             f"or its checkpoint is not the best epoch: "
+                             f"{first}, checkpoint epoch {ckpt['epoch']}")
+    resumed = tunesformer_train.main(base + [f"--num_epochs={epochs + 1}",
+                                             "--load_from_checkpoint=True"])
+    with open(os.path.join(out, "logs.txt")) as f:
+        logged = [int(line.split()[1]) for line in f
+                  if line.startswith("Epoch ")]
+    steps = first["epochs"][0]["steps"]
+    if ([e["epoch"] for e in resumed["epochs"]] != [epochs + 1]
+            or logged != list(range(1, epochs + 2))
+            or ckpt["update_count"] != ckpt["epoch"] * steps):
+        raise AssertionError(f"resume: {resumed}, logs.txt epochs {logged}, "
+                             f"checkpoint count {ckpt['update_count']}")
+    epochs_run = first["epochs"] + resumed["epochs"]
+    steady = [e["ms_per_iter"] for e in epochs_run[1:]]
+    with open(data) as f:
+        items = json.load(f)
+    sheets = [dict(id=1000 + i, **item) for i, item in enumerate(items[:8])]
+    sheets_path = os.path.join(root, "leadsheets.json")
+    with open(sheets_path, "w") as f:
+        json.dump(sheets, f)
+    print(f"tunes train CLI ({device}): {curated}/{n_tunes} tunes curated in "
+          f"{curate_s:.2f} s; {epochs} epochs of {steps} steps in "
+          f"{wall:.1f} s, eval loss {[round(v, 4) for v in evals]}, "
+          f"resumed to epoch {epochs + 1} (eval "
+          f"{resumed['epochs'][0]['eval_loss']:.4f}); ms/iter by epoch "
+          f"{[round(e['ms_per_iter'], 3) for e in epochs_run]}, peak "
+          f"{peak:.2f} GiB")
+    return dict(out_dir=out, sheets=sheets_path, evals=evals, steps=steps,
+                ms=statistics.median(steady), peak_gib=peak, wall=wall)
+
+
+@torch.inference_mode()
+def phase_tunes_sample_trained(trained, device, max_patch=TUNES_MAX_PATCH):
+    """cli/sample_tunesformer.py over phase 30's weights.pth and 8 of its
+    curated tunes as leadsheets: one sample_<id>.abc with its X:<id>
+    header each; 105 K1 launches a bar and no twin call on the card.
+    Returns (K1 launches, bars)."""
+    import contextlib
+    import io
+    import os
+
+    from ai_music_generation_tpu_torch.cli import sample_tunesformer
+    from ai_music_generation_tpu_torch.models.tunesformer import (
+        load_tunesformer,
+    )
+    from ai_music_generation_tpu_torch.ops.gqa_decode import gqa_decode_update
+
+    out_dir = os.path.join(os.path.dirname(trained["out_dir"]), "samples")
+    cfg = load_tunesformer(trained["out_dir"], device="cpu")[0].config
+    with _BarCounter() as count:
+        before = gqa_decode_update.launches
+        with contextlib.redirect_stdout(io.StringIO()):
+            n = sample_tunesformer.main(
+                [trained["sheets"], f"--weights={trained['out_dir']}",
+                 f"--output_dir={out_dir}", f"--max_patch={max_patch}",
+                 f"--device={device}"])
+        launches = gqa_decode_update.launches - before
+    count.check(launches, _per_bar(cfg), device, "sampling the trained model")
+    with open(trained["sheets"]) as f:
+        ids = [str(s["id"]) for s in json.load(f)]
+    for i in ids:
+        with open(os.path.join(out_dir, f"sample_{i}.abc")) as f:
+            if not f.read().startswith(f"X:{i}\n"):
+                raise AssertionError(f"sample_{i}.abc lacks its header")
+    if n != len(ids):
+        raise AssertionError(f"sample_tunesformer wrote {n} samples")
+    print(f"sample_tunesformer over the trained weights.pth: {n} samples, "
+          f"{launches} K1 launches = {_per_bar(cfg)} x {count.bars} bars, "
+          f"no twin call")
+    return launches, count.bars
+
+
+def phase_tunes_mfu() -> list:
+    """experiments/tunes_mfu.py at B=8 and B=32 on the card: ms/iter,
+    TFLOP/step (FlopCounterMode, equal to the analytic count), MFU against
+    989 TFLOP/s, peak memory; a finite loss."""
+    from ai_music_generation_tpu_torch.experiments import tunes_mfu
+
+    res = tunes_mfu.main([f"--batches={','.join(map(str, TUNES_MFU_B))}",
+                          "--device=cuda"])["tunes_mfu"]
+    for r in res:
+        if not (r["mfu"] > 0 and r["loss"] == r["loss"]
+                and r["tflop_per_step"] == r["analytic_tflop"]):
+            raise AssertionError(f"tunes_mfu: {r}")
+    return res
+
+
+def phase_profile_tunes_train(B=8, top=12) -> None:
+    """One step of cli/tunesformer_train.py's configuration (the reference
+    widths, batch 8, bf16, dropout 0.1) on tunes_mfu's batches under
+    ``torch.profiler`` after 3 warm-up steps and one unprofiled step (host
+    clock between synchronizes): device self time by kernel (entries whose
+    device type is not the CPU), the busy share, the device time under the
+    optimizer (``aten::_fused_adamw_``) and the dtype casts
+    (``aten::_to_copy``), and the step's dropout masks alone
+    (``dropout_keep`` at every site's shape, CUDA events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ai_music_generation_tpu_torch.experiments.tunes_mfu import (
+        ascii_batch,
+    )
+    from ai_music_generation_tpu_torch.models import gpt
+    from ai_music_generation_tpu_torch.models.convert import (
+        init_tunesformer_weights,
+    )
+    from ai_music_generation_tpu_torch.models.tunesformer import (
+        TunesFormer, TunesFormerConfig,
+    )
+    from ai_music_generation_tpu_torch.train.optimizer import (
+        hf_cosine_schedule, optax_adamw,
+    )
+    from ai_music_generation_tpu_torch.train.tunes_step import (
+        make_tunesformer_train_step,
+    )
+
+    cfg = TunesFormerConfig()
+    model = init_tunesformer_weights(TunesFormer(cfg, device="cpu"),
+                                     torch.Generator().manual_seed(0))
+    model.to("cuda")
+    opt = optax_adamw(model.parameters())
+    step = make_tunesformer_train_step(model, opt,
+                                       hf_cosine_schedule(5e-5, 10.0, 100))
+    gen = torch.Generator("cuda").manual_seed(0)
+    batches = [ascii_batch(gen, B, cfg, "cuda") for _ in range(5)]
+    for i in range(3):
+        step(batches[i], i, 49)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(batches[3], 3, 49)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batches[4], 4, 49)
+        torch.cuda.synchronize()
+        profiled = time.perf_counter() - t0
+    events = prof.key_averages()
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in events if e.device_type != DeviceType.CPU
+                   and e.self_device_time_total > 0), reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    under = {op: sum(e.device_time_total for e in events
+                     if e.key == op) / 1e3
+             for op in ("aten::_fused_adamw_", "aten::_to_copy")}
+    C, H, P, S = cfg.n_embd, cfg.n_head, cfg.patch_length, cfg.patch_size
+    N = B * (P - 1)
+    shapes = ([(B, P, C)] + [(B, H, P, P), (B, P, C), (B, P, C)]
+              * cfg.patch_layers + [(N, S, C)]
+              + [(N, H, S, S), (N, S, C), (N, S, C)] * cfg.char_layers)
+    masks_ms = _cuda_ms(lambda: [gpt.dropout_keep(shape, cfg.dropout, 0, 0,
+                                                  0, "cuda")
+                                 for shape in shapes], 3)
+    print(f"profile tunes_train: batch {B} x {P} x {S}, the reference "
+          f"widths, dropout {cfg.dropout}, bf16; unprofiled step "
+          f"{wall * 1e3:.1f} ms, profiled {profiled * 1e3:.1f} ms; device "
+          f"busy {busy_ms:.1f} ms = {busy_ms / 1e3 / profiled:.3f} of the "
+          f"profiled wall, {busy_ms / 1e3 / wall:.3f} of the unprofiled one; "
+          f"AdamW (aten::_fused_adamw_) {under['aten::_fused_adamw_']:.2f} "
+          f"ms, dtype casts (aten::_to_copy) {under['aten::_to_copy']:.2f} "
+          f"ms, dropout masks {masks_ms:.2f} ms")
+    for ms, count, key in rows[:top]:
+        print(f"  {ms:10.2f} ms {count:7d} calls  {ms / count:.4f} "
+              f"ms/call  {key[:90]}")
+
+
 def _counted_ops() -> dict:
     """Every kernel wrapper of the port by name; each counts its launches."""
     from ai_music_generation_tpu_torch.ops import decode_attention_int8 as i8
@@ -3387,7 +3760,8 @@ def main(argv=None) -> int:
                         metavar="PATHS",
                         help="only build, then profile one generate (train: "
                              "one train step at 124M and at the music "
-                             "widths) of each "
+                             "widths; tunes_train: one TunesFormer train "
+                             "step at the reference config) of each "
                              f"of the comma-separated paths (of "
                              f"{', '.join(PROFILED)}; default pallas): no "
                              "checks, no JSON result")
@@ -3404,6 +3778,8 @@ def main(argv=None) -> int:
         for path in args.profile.split(","):
             if path == "train":
                 phase_profile_train()
+            elif path == "tunes_train":
+                phase_profile_tunes_train()
             else:
                 phase_profile(path)
             torch.cuda.empty_cache()
@@ -3565,6 +3941,32 @@ def main(argv=None) -> int:
         with _K1Calls() as http_calls:  # its shapes; its launches untold
             phase_tunes_http(ws, "cuda")
         tunes_path("cli", phase_tunes_cli, ws, "cuda")
+    # TunesFormer training (phases 29-31): no kernel of the port while it
+    # trains; sampling the trained weights.pth runs K1 (a tunes path)
+    tunes_step_errs, tt_launches = _main_path(phase_tunes_train_step,
+                                                 "cuda")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        trained, counts = _main_path(phase_tunes_train_cli, tmp, "cuda")
+        tt_launches = {k: n + counts[k] for k, n in tt_launches.items()}
+        torch.cuda.empty_cache()
+        tunes_path("trained", phase_tunes_sample_trained, trained, "cuda")
+    torch.cuda.empty_cache()
+    tunes_mfu, counts = _main_path(phase_tunes_mfu)
+    tt_launches = {k: n + counts[k] for k, n in tt_launches.items()}
+    if any(tt_launches.values()):
+        raise AssertionError(f"the TunesFormer training path launched "
+                             f"kernels of the port: {tt_launches}")
+    print(f"[{card}] TunesFormer training: launches of K1-K7 "
+          f"{tt_launches}; cli/tunesformer_train.py at the reference "
+          f"config (batch 8, bf16, dropout 0.1) {trained['ms']:.2f} ms/iter "
+          f"(median of the steady epochs), peak {trained['peak_gib']:.2f} "
+          f"GiB, eval loss {[round(v, 4) for v in trained['evals']]}; "
+          + "; ".join(f"tunes_mfu B={r['batch']}: {r['ms_per_iter']:.2f} "
+                      f"ms/iter, {r['tflop_per_step']:.3f} TFLOP/step "
+                      f"(FlopCounterMode), MFU {r['mfu'] * 100:.2f}%, peak "
+                      f"{r['peak_gib']:.2f} GiB" for r in tunes_mfu)
+          + f"; train step card vs CPU {tunes_step_errs}")
     for path, c in tunes_launches.items():
         if any(n for k, n in c.items() if k != "gqa_decode_update"):
             raise AssertionError(f"the tunes {path} path launched another "

@@ -55,7 +55,10 @@ from ai_music_generation_tpu_torch.ops.spec_attention import (
     spec_attention_update,
     write_slab,
 )
-from ai_music_generation_tpu_torch.train.optimizer import make_optimizer
+from ai_music_generation_tpu_torch.train.optimizer import (
+    adamw_count,
+    make_optimizer,
+)
 from ai_music_generation_tpu_torch.train.step import make_train_step
 
 torch.set_num_threads(1)
@@ -1158,3 +1161,130 @@ def test_tunes_server_on_cuda_is_slot_independent(cuda):
     assert texts[0] == texts[1] and len(texts[0]) > len(prompt)
     per_bar = cfg.patch_layers + cfg.patch_size * cfg.char_layers
     assert gqa_decode_update.launches - before == per_bar * len(bars)
+
+
+def _tunes_train_pair(cuda, dtype, dropout=0.0):
+    """(CPU TunesFormer, the same init weights on the card), 2+1 layers at
+    64 wide over a 32 x 16 patch grid."""
+    from ai_music_generation_tpu_torch.models.convert import (
+        init_tunesformer_weights,
+    )
+    from ai_music_generation_tpu_torch.models.tunesformer import (
+        TunesFormer, TunesFormerConfig,
+    )
+
+    cfg = TunesFormerConfig(patch_length=32, patch_size=16, patch_layers=2,
+                            char_layers=1, n_embd=64, n_head=4,
+                            dropout=dropout, dtype=dtype)
+    cpu = init_tunesformer_weights(TunesFormer(cfg, device="cpu"),
+                                   torch.Generator().manual_seed(0))
+    return cpu, copy.deepcopy(cpu).to(cuda)
+
+
+def _tunes_batch(seed, B=3, P=32, S=16):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randint(3, 128, (B, P, S), generator=g, dtype=torch.int32)
+    x[:, :, 0] = 1
+    for b in range(B):
+        x[b, int(torch.randint(4, P, (1,), generator=g)):] = 0
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol,dropout",
+                         [(torch.float32, 1e-4, 0.0),
+                          (torch.bfloat16, 2.0 ** -6, 0.0),
+                          (torch.float32, 1e-4, 0.1)],
+                         ids=["fp32", "bf16", "fp32-dropout"])
+def test_tunes_train_step_on_cuda_matches_cpu(cuda, dtype, tol, dropout):
+    """Three steps of train/tunes_step.py (optax_adamw, the HF cosine
+    schedule) on the card and the CPU from the same weights and batches:
+    the losses within ``tol`` of their value, the parameters and each Adam
+    moment within ``tol`` of their range, the counts equal (fp32 1e-4: cuBLAS and the CPU
+    sum in other orders; bf16 2^-6); with dropout the masks are the same
+    bits on both."""
+    from ai_music_generation_tpu_torch.train.optimizer import (
+        hf_cosine_schedule, optax_adamw,
+    )
+    from ai_music_generation_tpu_torch.train.tunes_step import (
+        make_tunesformer_train_step,
+    )
+
+    models = _tunes_train_pair(cuda, dtype, dropout)
+    opts = [optax_adamw(m.parameters()) for m in models]
+    steps = [make_tunesformer_train_step(m, o, hf_cosine_schedule(
+        1e-3, 1.0, 10)) for m, o in zip(models, opts)]
+    for it in range(3):
+        x = _tunes_batch(it)
+        want = float(steps[0](x, it, seed=3))
+        got = float(steps[1](x.to(cuda), it, seed=3))
+        assert abs(got - want) <= tol * abs(want), it
+    assert float(adamw_count(opts[1])) == float(adamw_count(opts[0])) == 3
+    ref = models[0].state_dict()
+    span = max(float(v.abs().max()) for v in ref.values())
+    for name, value in models[1].state_dict().items():
+        err = float((value.cpu() - ref[name]).abs().max())
+        assert err <= tol * span, (name, err / span)
+    for m in ("exp_avg", "exp_avg_sq"):
+        want = [s[m] for s in opts[0].state.values()]
+        span = max(float(v.abs().max()) for v in want)
+        for i, (v, s) in enumerate(zip(want, opts[1].state.values())):
+            err = float((s[m].cpu() - v).abs().max())
+            assert err <= tol * span, (m, i, err / span)
+
+
+@pytest.mark.cuda
+def test_tunes_dropout_masks_on_cuda_equal_cpu(cuda):
+    """Each core's masks (core_dropout_key of one step key) are bit-equal
+    on the card and the CPU at every layer and site."""
+    from ai_music_generation_tpu_torch.models.tunesformer import (
+        CHAR_CORE, PATCH_CORE, core_dropout_key,
+    )
+
+    key = gpt_module.dropout_key(49, 123)
+    for core in (PATCH_CORE, CHAR_CORE):
+        k = core_dropout_key(key, core)
+        for layer in range(3):
+            for site in range(4):
+                shape = (31, 4, 16, 16)
+                got = gpt_module.dropout_keep(shape, 0.1, k, layer, site,
+                                              cuda)
+                assert torch.equal(got.cpu(), gpt_module.dropout_keep(
+                    shape, 0.1, k, layer, site))
+
+
+@pytest.mark.cuda
+def test_tunes_nan_guard_on_cuda_keeps_every_bit(cuda):
+    """On the card a NaN parameter's step leaves every parameter, moment
+    and the count bit for bit as they were (the fused AdamW's found_inf,
+    decided on the device)."""
+    from ai_music_generation_tpu_torch.train.optimizer import (
+        hf_cosine_schedule, optax_adamw,
+    )
+    from ai_music_generation_tpu_torch.train.tunes_step import (
+        make_tunesformer_train_step,
+    )
+
+    _, model = _tunes_train_pair(cuda, torch.bfloat16)
+    opt = optax_adamw(model.parameters())
+    step = make_tunesformer_train_step(model, opt,
+                                       hf_cosine_schedule(1e-3, 1.0, 10))
+    step(_tunes_batch(0).to(cuda), 0)
+    with torch.no_grad():
+        model.char_wte.weight[5, 3] = float("nan")
+
+    def bits(t):
+        return t.detach().clone().view(torch.int32)
+
+    params = [bits(p) for p in model.parameters()]
+    state = [(bits(s["exp_avg"]), bits(s["exp_avg_sq"]), bits(s["step"]))
+             for s in opt.state.values()]
+    loss = step(_tunes_batch(1).to(cuda), 1)
+    assert not torch.isfinite(loss)
+    assert all(torch.equal(bits(p), b)
+               for p, b in zip(model.parameters(), params))
+    assert all(torch.equal(bits(s["exp_avg"]), m)
+               and torch.equal(bits(s["exp_avg_sq"]), v)
+               and torch.equal(bits(s["step"]), c)
+               for (m, v, c), s in zip(state, opt.state.values()))
+    assert float(adamw_count(opt)) == 1

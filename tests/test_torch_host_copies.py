@@ -2,8 +2,9 @@
 port imports nothing of the JAX package, so it keeps its own copies; these
 tests show when either side changes): the configurator, the memmap file
 helpers, the random-note corpus helpers, ``prepare_char``, the training
-configs that chip_smoke.py and the tests run, and TunesFormer's
-Patchilizer. Everything here is
+configs that chip_smoke.py and the tests run, TunesFormer's Patchilizer,
+and the control-code curation (``data/curation.py``) with its
+``cli/add_control_codes.py``. Everything here is
 deterministic, so every comparison is exact (the batch sampler's copy is
 held to its original in tests/test_torch_train_pieces.py).
 """
@@ -16,12 +17,16 @@ import numpy as np
 import pytest
 import torch
 
+from ai_music_generation_tpu.cli import add_control_codes as jax_acc
 from ai_music_generation_tpu.cli import random_baselines as jax_rb
+from ai_music_generation_tpu.data import curation as jax_cur
 from ai_music_generation_tpu.data import memmap as jax_memmap
 from ai_music_generation_tpu.data import prepare as jax_prepare
 from ai_music_generation_tpu.tokenizers import patchilizer as jax_patch
 from ai_music_generation_tpu.utils import configurator as jax_conf
+from ai_music_generation_tpu_torch.cli import add_control_codes as acc
 from ai_music_generation_tpu_torch.cli import random_baselines as rb
+from ai_music_generation_tpu_torch.data import curation
 from ai_music_generation_tpu_torch.data import memmap
 from ai_music_generation_tpu_torch.data import prepare
 from ai_music_generation_tpu_torch.tokenizers import patchilizer
@@ -186,3 +191,77 @@ def test_patchilizer_copy_equals_jax(text):
             want, wn = theirs.encode_array(text, length, size, special)
             assert n == wn and arr.dtype == want.dtype
             np.testing.assert_array_equal(arr, want)
+
+
+# tunes for the curation: random ones, and hand-made cases for each branch
+# (sections and their similarities, a volta continuation merged into its
+# section, one that has nothing to merge into, more than 8 sections, a
+# section over 32 bars, a multi-voice tune, comments, filtered fields,
+# metadata only, non-ASCII text)
+CURATION_CORPUS = rb.random_tunes(40, seed=4) + [
+    "X:1\nT:Two parts\nL:1/8\nK:G\n|:GABc dedB|dedB dedB:|\n"
+    "|:c2ec B2dB|c2ec BAGA:|",
+    "X:2\nL:1/8\nK:D\n|:de fe|dA FA|1 d2 d2:|2 d4||\nfg ag|fd ed|]",
+    "X:3\nL:1/8\nK:D\n1 d2 d2:|2 d4||",
+    "X:4\nL:1/4\nK:C\n" + "".join(f"|:ab{i}|cd:|" for i in range(9)),
+    "X:5\nL:1/4\nK:C\n" + "a|" * 40 + "]",
+    "X:6\nT:Duet\nK:C\nV:1\nabc|def|\nV:2\ncde|fga|",
+    "X:7\n% a comment line\nL:1/8\nK:Em\nEFG A2B|% tail: |: x :|\n"
+    "c2B A3::efg|ab%c%d:|",
+    "X:8\nT:Only\nR:reel\nK:C\nM:4/4\n",
+    "X:9\nT:Caf\u00e9\nW:words\nw:lyrics\nK:G\nG\nGA\u00e9B|cd:|",
+    "",
+]
+
+
+@pytest.mark.parametrize("i", range(len(CURATION_CORPUS)))
+def test_curation_copy_equals_jax(i):
+    """Bit for bit on each tune: ``run_filter``, ``split_sections``,
+    ``add_control_codes`` (on the filtered and the raw text), ``levenshtein``
+    and ``ld_sim`` of its sections, ``is_one_voice``."""
+    text = CURATION_CORPUS[i]
+    cleaned = curation.run_filter(text)
+    assert cleaned == jax_cur.run_filter(text)
+    for t in (cleaned, text):
+        assert curation.split_sections(t) == jax_cur.split_sections(t)
+        assert curation.add_control_codes(t) == jax_cur.add_control_codes(t)
+    _, sections = curation.split_sections(cleaned)
+    for a in (sections or [])[:3]:
+        for b in (sections or [])[:3]:
+            assert curation.levenshtein(a, b) == jax_cur.levenshtein(a, b)
+            assert curation.ld_sim(a, b) == jax_cur.ld_sim(a, b)
+    assert curation.is_one_voice(text) == jax_cur.is_one_voice(text)
+
+
+def test_curation_dataset_and_irishman_helpers_equal_jax():
+    got = curation.build_control_code_dataset(CURATION_CORPUS)
+    assert got == jax_cur.build_control_code_dataset(CURATION_CORPUS)
+    assert 0 < len(got) < len(CURATION_CORPUS)  # some are rejected
+    assert any(e["control code"].count("E:") for e in got)
+    entries = [{"abc notation": f"X: {i}\nK:C\nabc|", "k": i}
+               for i in range(9)] + [{"abc notation": "K:C\nno id|"}]
+    stripped = curation.strip_x_header(entries)
+    assert stripped == jax_cur.strip_x_header(entries)
+    ids = {"1", 3, "7"}
+    assert curation.filter_by_ids(stripped, ids) == \
+        jax_cur.filter_by_ids(stripped, ids)
+    for seed in (0, 42):
+        assert curation.split_validation(stripped, seed) == \
+            jax_cur.split_validation(stripped, seed)
+    assert curation.SECTION_DELIMITERS == jax_cur.SECTION_DELIMITERS
+
+
+def test_add_control_codes_cli_writes_the_same_data_json(tmp_path):
+    """The port's CLI and the JAX CLI over one directory of ABC files (the
+    curation corpus, one tune a file): data.json byte for byte."""
+    os.makedirs(tmp_path / "abc")
+    for i, text in enumerate(CURATION_CORPUS):
+        (tmp_path / "abc" / f"t{i:02d}.abc").write_text(text,
+                                                        encoding="utf-8")
+    (tmp_path / "abc" / "skip.txt").write_text("K:C\nabc|")
+    n = acc.main([str(tmp_path / "abc"), f"--output={tmp_path / 'p.json'}"])
+    m = jax_acc.main([str(tmp_path / "abc"),
+                      f"--output={tmp_path / 'j.json'}"])
+    assert n == m > 0
+    assert filecmp.cmp(tmp_path / "p.json", tmp_path / "j.json",
+                       shallow=False)

@@ -15,6 +15,7 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "ai_music_generation_tpu_torch",
+    "ai_music_generation_tpu_torch.cli.add_control_codes",
     "ai_music_generation_tpu_torch.cli.random_baselines",
     "ai_music_generation_tpu_torch.cli.sample",
     "ai_music_generation_tpu_torch.cli.sample_tunesformer",
@@ -24,7 +25,9 @@ MODULES = [
     "ai_music_generation_tpu_torch.cli.train",
     "ai_music_generation_tpu_torch.cli.train_bench",
     "ai_music_generation_tpu_torch.cli.tunesformer_generate",
+    "ai_music_generation_tpu_torch.cli.tunesformer_train",
     "ai_music_generation_tpu_torch.configs",
+    "ai_music_generation_tpu_torch.data.curation",
     "ai_music_generation_tpu_torch.data.memmap",
     "ai_music_generation_tpu_torch.data.prepare",
     "ai_music_generation_tpu_torch.decode.generate",
@@ -34,6 +37,7 @@ MODULES = [
     "ai_music_generation_tpu_torch.experiments.int4_kernel_probe",
     "ai_music_generation_tpu_torch.experiments.k1_ab",
     "ai_music_generation_tpu_torch.experiments.register_caps",
+    "ai_music_generation_tpu_torch.experiments.tunes_mfu",
     "ai_music_generation_tpu_torch.models.convert",
     "ai_music_generation_tpu_torch.models.gpt",
     "ai_music_generation_tpu_torch.models.nanogpt_ckpt",
@@ -56,6 +60,7 @@ MODULES = [
     "ai_music_generation_tpu_torch.train.optimizer",
     "ai_music_generation_tpu_torch.train.step",
     "ai_music_generation_tpu_torch.train.trainer",
+    "ai_music_generation_tpu_torch.train.tunes_step",
     "ai_music_generation_tpu_torch.utils.configurator",
     "ai_music_generation_tpu_torch.utils.device",
     "ai_music_generation_tpu_torch.utils.hash32",
@@ -136,6 +141,11 @@ def test_port_imports_without_triton_or_nvcc():
         "'--n_embd=32', '--block_size=16', '--batch_size=2', "
         "'--vocab_size=16', '--burn_in=1', '--num_steps=1', "
         "'--dropout=0.1'])\n"
+        "from ai_music_generation_tpu_torch.experiments import tunes_mfu\n"
+        "r = tunes_mfu.run(2, TunesFormerConfig(patch_length=8, "
+        "patch_size=8, patch_layers=1, char_layers=1, n_embd=32, n_head=2, "
+        "dropout=0.1), steps=1, burn_in=1, device='cpu')\n"
+        "assert r['tflop_per_step'] == r['analytic_tflop']\n"
         "print(_build.load_library.cache_info().currsize, "
         "gqa_decode_update.launches, spec_attention_update.launches, "
         "decode_attention.launches, lean_attention.launches)\n",
