@@ -4,8 +4,9 @@ attn_impl="pallas" decode path, the lean int8 / int4 decode-attention probe
 path, fp32 models, the continuous-batching server and the sampling CLI),
 the training path (the train step, cli/train.py, cli/train_bench.py),
 TunesFormer inference and serving (the model, the bar generator, the
-server and its HTTP front end, the CLIs) and TunesFormer training (the
-train step, curation, cli/tunesformer_train.py, the MFU probe).
+server and its HTTP front end, the CLIs), TunesFormer training (the
+train step, curation, cli/tunesformer_train.py, the MFU probe) and
+ABC -> WAV (the synth, the eval pipeline and its CLI).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -204,7 +205,24 @@ printing a result):
     analytic count), MFU against 989 TFLOP/s, peak memory. Phases 29-31
     train with none of K1-K7 (their counts are set to 0 before each and
     read after; any launch fails the run). ``--profile tunes_train``
-    profiles one train step at phase 30's configuration.
+    profiles one train step at phase 30's configuration;
+32. synth: ``synth/render.py::render_events_batch`` at the pipeline's
+    synth_batch (8) and full length (120 s at 16 kHz) on the card against
+    the port on the CPU, for the sample bank, the additive voice and an
+    sf2 font with two velocity layers written by ``write_sf2``, on a batch
+    of the protocol corpus and on a crafted batch (overlapping notes, a
+    start past the end, a pitch halfway between two bank roots): each wave
+    within 1e-5 of its range, trim indices and ``synthesize_midi_batch``'s
+    output lengths equal, two card runs bit-equal;
+33. ABC -> WAV: cli/abc_to_midi_wav_and_aesthetics.py through ``main`` on
+    the card at the JAX package's protocol (1,000 random ABC tunes, the
+    proxy scorer): n_failed 0, a MIDI, a WAV, an aesthetics row (finite)
+    and a similarity row for every tune, 8 WAVs within 1 LSB of the CPU's
+    render; tunes/min of the whole run and each stage's seconds (ABC ->
+    MIDI, render, trim and write, metrics, scoring), then the render alone
+    at synth_batch 8 and 64 with its peak memory. Phases 32-33 launch none
+    of K1-K7 (their counts are set to 0 before each and read after; any
+    launch fails the run). ``--profile synth`` profiles one render batch.
 
 The last two lines are a JSON summary of each kernel and
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` counts its
@@ -356,6 +374,16 @@ TUNES_TRAIN_DEPTH = dict(patch_layers=2, char_layers=1)
 TUNES_TRAIN_LR = 1e-3  # phase 29's peak lr, as the cuda test's
 TUNES_TRAIN_B, TUNES_CORPUS, TUNES_EPOCHS = 2, 1000, 2
 TUNES_MFU_B = (8, 32)
+# ABC -> WAV (phases 32-33): the eval pipeline's render (synth_batch 8,
+# synthesize_midi_batch's 120 s at 16 kHz) and the JAX package's protocol
+# (docs/PERF.md:11): 1,000 random ABC tunes (cli/random_baselines.py's
+# recipe) through cli/abc_to_midi_wav_and_aesthetics.py, proxy scorer. The
+# card's render is held to the CPU's within 1e-5 of each wave's range
+# (CUDA's and the CPU's exp and sin differ by an ulp; every index, mask and
+# trim is computed from equal bits)
+SYNTH_BATCH, SYNTH_SECONDS, SYNTH_RATE, SYNTH_TUNES = 8, 120, 16_000, 1000
+SYNTH_SEED = 7
+SYNTH_FRAC = 1e-5
 
 
 def bound(n_bytes, n_ops, ops_per_s=BF16_OPS_PER_S) -> tuple[float, str]:
@@ -2614,7 +2642,7 @@ def phase_profile_train(top=12) -> None:
 
 
 PROFILED = ("pallas", "bench", "spec", "serve", "train", "tunes",
-            "tunes_serve", "tunes_train")
+            "tunes_serve", "tunes_train", "synth")
 
 
 @torch.inference_mode()
@@ -3719,6 +3747,334 @@ def phase_profile_tunes_train(B=8, top=12) -> None:
               f"ms/call  {key[:90]}")
 
 
+# -- ABC -> WAV (phases 32-33) ------------------------------------------------
+
+def _synth_corpus(n, seed=SYNTH_SEED):
+    """``n`` tunes of the JAX package's protocol corpus: random ABC tunes
+    (cli/random_baselines.py's recipe), compiled to MIDI by the port's
+    compiler."""
+    from ai_music_generation_tpu_torch.abcnotation.to_midi import abc_to_midi
+    from ai_music_generation_tpu_torch.cli.random_baselines import (
+        random_tunes,
+    )
+
+    return [abc_to_midi(text) for text in random_tunes(n, seed)]
+
+
+def _event_batch(midis, sample_rate=SYNTH_RATE):
+    """The [tunes, events, 4] batch ``synthesize_midi_batch`` renders."""
+    import numpy as np
+
+    from ai_music_generation_tpu_torch.synth.render import midi_to_events
+
+    events = [midi_to_events(m, sample_rate) for m in midis]
+    batch = np.zeros((len(events), max(map(len, events)), 4), np.float32)
+    for i, ev in enumerate(events):
+        batch[i, :len(ev)] = ev
+    return batch
+
+
+def _crafted_synth(root, total):
+    """The crafted batch of phase 32 and its sf2 voice: overlapping notes, a
+    start past ``total``, one that runs past it, a pitch halfway between two
+    bank roots (24: roots 21 and 27; argmin takes the first), both velocity
+    layers of a font written by the port's ``write_sf2`` (two zones over one
+    key range, split at velocity 64) and random notes, over 3 rows of 48,
+    20 and 35 events."""
+    import os
+
+    import numpy as np
+
+    from ai_music_generation_tpu_torch.synth.sf2 import write_sf2
+
+    def sine(freq):
+        t = np.arange(4800) / SYNTH_RATE
+        return (0.8 * np.sin(2 * np.pi * freq * t)).astype(np.float32)
+
+    font = os.path.join(root, "layers.sf2")
+    write_sf2(font, [
+        dict(wave=sine(220.0), root=57, key_range=(0, 63), vel_range=(0, 63),
+             loop=(800, 4000), release_tc=-3600),
+        dict(wave=sine(330.0), root=57, key_range=(0, 63),
+             vel_range=(64, 127), release_tc=-2400),
+        dict(wave=sine(880.0), root=81, key_range=(64, 127), attack_tc=-7200,
+             sustain_cb=200, atten_cb=60),
+    ])
+    batch = np.zeros((3, 48, 4), np.float32)
+    for row, n in enumerate((48, 20, 35)):
+        rng = np.random.default_rng(row)
+        ev = np.stack([rng.integers(28, 100, n).astype(np.float32),
+                       rng.uniform(0, 0.8 * total, n).astype(np.float32),
+                       rng.uniform(0.05, 1.5, n).astype(np.float32)
+                       * SYNTH_RATE,
+                       rng.uniform(0.1, 1.0, n).astype(np.float32)], 1)
+        ev[:6] = [[24.0, 100.5, 8000.0, 0.7],
+                  [60.0, total + 500.0, 4000.0, 0.5],
+                  [62.0, 1000.0, 30000.0, 0.3], [66.0, 1200.7, 20000.0, 0.9],
+                  [40.0, 1500.0, 12000.0, 0.45],
+                  [40.0, total - 300.0, 9000.0, 0.55]]
+        batch[row, :n] = ev
+    return batch, f"sf2:{font}"
+
+
+@torch.inference_mode()
+def phase_synth_vs_twin(device="cuda", n_tunes=SYNTH_BATCH) -> dict:
+    """``synth/render.py::render_events_batch`` at the pipeline's
+    synth_batch and full ``total`` (120 s at 16 kHz) on ``device`` against
+    the port on the CPU, for the three voices (sample_bank, additive, an sf2
+    font with two velocity layers), on a batch of the protocol corpus and on
+    the crafted batch: each wave within SYNTH_FRAC of its range, trim
+    indices equal, two runs on ``device`` bit-equal; then
+    ``synthesize_midi_batch``'s output lengths equal. Returns the largest
+    error of each voice (share of the range)."""
+    from ai_music_generation_tpu_torch.synth import render
+
+    total = SYNTH_SECONDS * SYNTH_RATE
+    midis = _synth_corpus(n_tunes)
+    corpus = _event_batch(midis)
+    errs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        crafted, font = _crafted_synth(tmp, total)
+        for name, batch in (("corpus", corpus), ("crafted", crafted)):
+            for voice in ("sample_bank", "additive", font):
+                key = voice.split(":")[0]
+                _reset_peak(device)
+                t0 = time.perf_counter()
+                first = render.render_events_batch(batch, total, voice=voice,
+                                                   device=device)
+                _sync(device)
+                ms = (time.perf_counter() - t0) * 1e3
+                peak = _peak_gib(device)
+                second = render.render_events_batch(batch, total, voice=voice,
+                                                    device=device)
+                if not torch.equal(first, second):
+                    raise AssertionError(f"two {key} renders of the {name} "
+                                         f"batch on {device} differ")
+                t0 = time.perf_counter()
+                want = render.render_events_batch(batch, total, voice=voice,
+                                                  device="cpu")
+                cpu_ms = (time.perf_counter() - t0) * 1e3
+                got = first.cpu()
+                if not torch.isfinite(got).all():
+                    raise AssertionError(f"{key} {name}: non-finite samples")
+                span = want.amax(1) - want.amin(1)
+                err = float(((got - want).abs().amax(1) / span).max())
+                errs[key] = max(errs.get(key, 0.0), err)
+                if err > SYNTH_FRAC:
+                    raise AssertionError(f"{key} {name}: {err:.3e} of the "
+                                         f"range off the CPU's render")
+                trims = [(int(render.trim_trailing_silence(g)),
+                          int(render.trim_trailing_silence(w)))
+                         for g, w in zip(got, want)]
+                if any(a != b for a, b in trims):
+                    raise AssertionError(f"{key} {name}: trim indices "
+                                         f"{trims} (card, CPU) differ")
+                print(f"synth {name} {key}: {batch.shape[0]} x "
+                      f"{batch.shape[1]} events x {total} samples, "
+                      f"{err:.3e} of the range off the CPU, trims equal, "
+                      f"card {ms:.1f} ms (first call), CPU {cpu_ms:.1f} ms, "
+                      f"peak {peak:.2f} GiB")
+        for voice in ("sample_bank", "additive"):
+            lens = [[len(w) for w in render.synthesize_midi_batch(
+                midis, voice=voice, device=d)] for d in (device, "cpu")]
+            if lens[0] != lens[1]:
+                raise AssertionError(f"synthesize_midi_batch lengths "
+                                     f"{lens} (card, CPU) differ")
+    print(f"phase 32: synth card vs CPU twin, max share of the range "
+          f"{errs} (gate {SYNTH_FRAC}); output lengths equal")
+    return errs
+
+
+def _reset_peak(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gib(device) -> float:
+    """Peak device memory since the last ``_reset_peak`` (0 on the CPU)."""
+    if torch.device(device).type != "cuda":
+        return 0.0
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _timed_render(render, device):
+    """Wrap ``render.render_events_batch`` so each call ends in a
+    synchronize and adds its wall seconds to the returned list."""
+    inner = render.render_events_batch
+    seconds = []
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        _sync(device)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    return inner, timed, seconds
+
+
+def phase_abc_to_wav(root, device="cuda", n_tunes=SYNTH_TUNES,
+                     render_tunes=SYNTH_TUNES) -> dict:
+    """cli/abc_to_midi_wav_and_aesthetics.py through ``main`` on ``device``
+    with the proxy scorer, over ``n_tunes`` random ABC tunes (the JAX
+    package's protocol, docs/PERF.md:11): n_failed 0, a MIDI and a WAV
+    for every tune, an aesthetics row (finite proxy scores) and an inner
+    similarity row for each; 8 of the WAVs against the CPU's render of their
+    MIDIs (equal lengths, +-1 LSB). Prints tunes/min of the whole run and
+    each stage's seconds, then the render's own tunes/min at synth_batch 8
+    and 64 (over the first ``render_tunes``) with its peak memory."""
+    import json
+    import math
+    import os
+
+    import numpy as np
+
+    from ai_music_generation_tpu_torch.cli import (
+        abc_to_midi_wav_and_aesthetics as cli,
+    )
+    from ai_music_generation_tpu_torch.cli.random_baselines import (
+        random_tunes,
+    )
+    from ai_music_generation_tpu_torch.codec import midi_io
+    from ai_music_generation_tpu_torch.synth import render
+    from ai_music_generation_tpu_torch.synth.wav_io import read_wav, write_wav
+
+    abc = os.path.join(root, "abc")
+    os.makedirs(abc)
+    for i, text in enumerate(random_tunes(n_tunes, SYNTH_SEED)):
+        with open(os.path.join(abc, f"sample_{i}.abc"), "w") as f:
+            f.write(text)
+    out = os.path.join(root, "eval")
+    inner, timed, render_s = _timed_render(render, device)
+    render.render_events_batch = timed
+    _reset_peak(device)
+    try:
+        t0 = time.perf_counter()
+        result = cli.main([abc, out, f"--device={device}"])
+        wall = time.perf_counter() - t0
+    finally:
+        render.render_events_batch = inner
+    peak = _peak_gib(device)
+    if result["n_failed"] != 0:
+        raise AssertionError(f"the pipeline failed {result['n_failed']} "
+                             f"tunes")
+    midi_dir = os.path.join(out, "midi", "builtin")
+    wav_dir = os.path.join(out, "wav", "builtin", "tpu_synth",
+                           "builtin_sample_bank")
+    aes_dir = os.path.join(out, "audiobox_aesthetics", "builtin",
+                           "tpu_synth", "builtin_sample_bank")
+    names = [f"file_{i}" for i in range(n_tunes)]
+    for d, ext in ((midi_dir, ".mid"), (wav_dir, ".wav")):
+        missing = [n for n in names
+                   if not os.path.getsize(os.path.join(d, n + ext))]
+        if sorted(os.listdir(d)) != sorted(n + ext for n in names) or missing:
+            raise AssertionError(f"{d}: not one {ext} for each tune")
+    rows = [json.loads(line) for line in
+            open(os.path.join(aes_dir, "aesthetics.jsonl"))]
+    inner_rows = open(os.path.join(out, "metrics", "builtin", "structure",
+                                   "inner_similarity.jsonl")).readlines()
+    if (len(rows) != n_tunes or len(inner_rows) != n_tunes
+            or result["aesthetics_engine"] != "proxy"
+            or not all(math.isfinite(r[a]) for r in rows
+                       for a in ("CE", "CU", "PC", "PQ"))):
+        raise AssertionError(f"{len(rows)} aesthetics rows, "
+                             f"{len(inner_rows)} similarity rows, engine "
+                             f"{result['aesthetics_engine']}")
+    # the card's WAVs against the CPU's render of the same MIDIs
+    midis = [midi_io.parse_midi_file(os.path.join(midi_dir, n + ".mid"))
+             for n in names[:SYNTH_BATCH]]
+    for name, want in zip(names, render.synthesize_midi_batch(midis,
+                                                              device="cpu")):
+        twin = os.path.join(root, "twin.wav")
+        write_wav(twin, want)
+        got, want = (read_wav(p)[0] for p in
+                     (os.path.join(wav_dir, name + ".wav"), twin))
+        lsb = np.abs(got - want).max() * 32767 if len(got) else 0.0
+        if len(got) != len(want) or lsb > 1.0 + 1e-3:
+            raise AssertionError(f"{name}.wav: {len(got)} samples vs the "
+                                 f"CPU's {len(want)}, {lsb:.2f} LSB apart")
+    stage = result["stage_seconds"]
+    device_render = sum(render_s)
+    print(f"phase 33: cli/abc_to_midi_wav_and_aesthetics.py on {device}, "
+          f"{n_tunes} tunes, n_failed {result['n_failed']}: "
+          f"{n_tunes / wall * 60:.1f} tunes/min ({wall:.1f} s); stages: "
+          f"ABC->MIDI {stage['abc_to_midi']:.2f} s, render "
+          f"{device_render:.2f} s ({len(render_s)} batches of "
+          f"{SYNTH_BATCH}), trim and write "
+          f"{stage['render'] - device_render + stage['write']:.2f} s, "
+          f"metrics {stage['metrics']:.2f} s, scoring "
+          f"{stage['scoring']:.2f} s; peak {peak:.2f} GiB; proxy means "
+          f"{result['aesthetics']['mean']}; 8 WAVs within 1 LSB of the CPU")
+    # the render alone at synth_batch 8 and 64 (after one warm batch; the
+    # host clock around work that ends in a synchronize), over the first
+    # render_tunes tunes
+    midis = [midi_io.parse_midi_file(os.path.join(midi_dir, n + ".mid"))
+             for n in names[:render_tunes]]
+    total = SYNTH_SECONDS * SYNTH_RATE
+    rates = {}
+    for batch_size in (8, 64):
+        batches = [_event_batch(midis[lo:lo + batch_size])
+                   for lo in range(0, len(midis), batch_size)]
+        render.render_events_batch(batches[0], total, device=device)
+        _sync(device)
+        _reset_peak(device)
+        t0 = time.perf_counter()
+        for b in batches:
+            render.render_events_batch(b, total, device=device)
+        _sync(device)
+        secs = time.perf_counter() - t0
+        rates[batch_size] = dict(
+            tunes_per_min=len(midis) / secs * 60, peak_gib=_peak_gib(device),
+            events=max(b.shape[1] for b in batches))
+        print(f"render alone at synth_batch {batch_size}: "
+              f"{rates[batch_size]['tunes_per_min']:.1f} tunes/min over "
+              f"{len(midis)} tunes ({secs:.2f} s), peak "
+              f"{rates[batch_size]['peak_gib']:.2f} GiB, up to "
+              f"{rates[batch_size]['events']} events a batch")
+    return dict(tunes_per_min=n_tunes / wall * 60, wall=wall, stage=stage,
+                device_render=device_render, peak_gib=peak, render=rates)
+
+
+@torch.inference_mode()
+def phase_profile_synth(top=12) -> None:
+    """One render batch (phase 32's corpus batch, sample_bank, synth_batch
+    8, the full 120 s) under ``torch.profiler`` after a warm-up: the busy
+    share of its wall, kernels a batch and the top device operations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ai_music_generation_tpu_torch.synth import render
+
+    total = SYNTH_SECONDS * SYNTH_RATE
+    batch = _event_batch(_synth_corpus(SYNTH_BATCH))
+    render.render_events_batch(batch, total, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    render.render_events_batch(batch, total, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        render.render_events_batch(batch, total, device="cuda")
+        torch.cuda.synchronize()
+        profiled = time.perf_counter() - t0
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type != DeviceType.CPU
+                   and e.self_device_time_total > 0), reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    print(f"profile synth: one render batch, {batch.shape[0]} tunes x "
+          f"{batch.shape[1]} events x {total} samples, sample_bank; "
+          f"unprofiled {wall * 1e3:.1f} ms, profiled {profiled * 1e3:.1f} "
+          f"ms; {sum(r[1] for r in rows)} kernels; device busy "
+          f"{busy_ms:.2f} ms = {busy_ms / 1e3 / profiled:.3f} of the "
+          f"profiled wall, {busy_ms / 1e3 / wall:.3f} of the unprofiled one")
+    for ms, count, key in rows[:top]:
+        print(f"  {ms:10.2f} ms {count:7d} calls  {ms / count:.4f} "
+              f"ms/call  {key[:90]}")
+
+
 def _counted_ops() -> dict:
     """Every kernel wrapper of the port by name; each counts its launches."""
     from ai_music_generation_tpu_torch.ops import decode_attention_int8 as i8
@@ -3761,7 +4117,8 @@ def main(argv=None) -> int:
                         help="only build, then profile one generate (train: "
                              "one train step at 124M and at the music "
                              "widths; tunes_train: one TunesFormer train "
-                             "step at the reference config) of each "
+                             "step at the reference config; synth: one "
+                             "render batch of the eval pipeline) of each "
                              f"of the comma-separated paths (of "
                              f"{', '.join(PROFILED)}; default pallas): no "
                              "checks, no JSON result")
@@ -3780,6 +4137,8 @@ def main(argv=None) -> int:
                 phase_profile_train()
             elif path == "tunes_train":
                 phase_profile_tunes_train()
+            elif path == "synth":
+                phase_profile_synth()
             else:
                 phase_profile(path)
             torch.cuda.empty_cache()
@@ -4059,6 +4418,26 @@ def main(argv=None) -> int:
             numbers, batches=sorted({b for c in tunes_calls.values()
                                      for b, S, ring in c.shapes
                                      if _k1_mode(S, ring) == name})))
+    # ABC -> WAV (phases 32-33): the synth and the eval pipeline launch
+    # none of K1-K7
+    synth, synth_launches = _main_path(phase_synth_vs_twin, "cuda")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        abc_wav, counts = _main_path(phase_abc_to_wav, tmp, "cuda")
+    synth_launches = {k: n + counts[k] for k, n in synth_launches.items()}
+    if any(synth_launches.values()):
+        raise AssertionError(f"the ABC->WAV path launched kernels of the "
+                             f"port: {synth_launches}")
+    torch.cuda.empty_cache()
+    print(f"[{card}] ABC->WAV: launches of K1-K7 {synth_launches}; synth "
+          f"card vs CPU {synth} of the range; "
+          f"cli/abc_to_midi_wav_and_aesthetics.py "
+          f"{abc_wav['tunes_per_min']:.1f} tunes/min over {SYNTH_TUNES} "
+          f"tunes (render {abc_wav['device_render']:.2f} s of "
+          f"{abc_wav['wall']:.1f}); the render alone "
+          + ", ".join(f"{r['tunes_per_min']:.1f} tunes/min at synth_batch "
+                      f"{b} (peak {r['peak_gib']:.2f} GiB)"
+                      for b, r in abc_wav["render"].items()))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1288,3 +1288,74 @@ def test_tunes_nan_guard_on_cuda_keeps_every_bit(cuda):
                and torch.equal(bits(s["step"]), c)
                for (m, v, c), s in zip(state, opt.state.values()))
     assert float(adamw_count(opt)) == 1
+
+
+def _synth_events(total, seed, n=48, sr=16_000):
+    """Overlapping notes, a start past ``total``, a pitch halfway between
+    two bank roots (24: roots 21 and 27), both velocity layers of
+    ``_synth_font`` and random notes (tests/test_torch_synth.py's cases)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ev = np.stack([
+        rng.integers(28, 100, n).astype(np.float32),
+        rng.uniform(0, 0.8 * total, n).astype(np.float32),
+        rng.uniform(0.05 * sr, 1.5 * sr, n).astype(np.float32),
+        rng.uniform(0.1, 1.0, n).astype(np.float32),
+    ], 1)
+    ev[:6] = [[24.0, 100.5, 8000.0, 0.7], [60.0, total + 500.0, 4000.0, 0.5],
+              [62.0, 1000.0, 30000.0, 0.3], [66.0, 1200.7, 20000.0, 0.9],
+              [40.0, 1500.0, 12000.0, 0.45], [40.0, total - 300.0, 9000.0, 0.55]]
+    return ev
+
+
+def _synth_font(path):
+    """Three zones, two of them velocity layers over one key range."""
+    import numpy as np
+
+    from ai_music_generation_tpu_torch.synth.sf2 import write_sf2
+
+    def sine(freq):
+        t = np.arange(4800) / 16_000
+        return (0.8 * np.sin(2 * np.pi * freq * t)).astype(np.float32)
+
+    write_sf2(str(path), [
+        dict(wave=sine(220.0), root=57, key_range=(0, 63), vel_range=(0, 63),
+             loop=(800, 4000), release_tc=-3600),
+        dict(wave=sine(330.0), root=57, key_range=(0, 63),
+             vel_range=(64, 127), release_tc=-2400),
+        dict(wave=sine(880.0), root=81, key_range=(64, 127), attack_tc=-7200,
+             sustain_cb=200, atten_cb=60),
+    ])
+    return f"sf2:{path}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("voice", ["sample_bank", "additive", "sf2"])
+def test_synth_on_cuda_matches_cpu_and_repeats(cuda, voice, tmp_path):
+    """synth/render.py's batch render on the card: two runs bit-equal (each
+    note's window is added in event order, no atomics), and within 1e-5 of
+    the range of the CPU's render (CUDA's and the CPU's exp and sin differ
+    by an ulp), with equal trim indices."""
+    import numpy as np
+
+    from ai_music_generation_tpu_torch.synth import render
+
+    if voice == "sf2":
+        voice = _synth_font(tmp_path / "font.sf2")
+    total = 8 * 16_000
+    batch = np.zeros((3, 48, 4), np.float32)
+    for i, n in enumerate((48, 20, 35)):
+        batch[i, :n] = _synth_events(total, i, n)
+    first = render.render_events_batch(batch, total, voice=voice,
+                                       device=cuda)
+    second = render.render_events_batch(batch, total, voice=voice,
+                                        device=cuda)
+    assert torch.equal(first, second)
+    want = render.render_events_batch(batch, total, voice=voice,
+                                      device="cpu")
+    span = (want.amax(1) - want.amin(1)).min()
+    assert float((first.cpu() - want).abs().max() / span) <= 1e-5
+    for got, ref in zip(first, want):
+        assert int(render.trim_trailing_silence(got)) == \
+            int(render.trim_trailing_silence(ref))

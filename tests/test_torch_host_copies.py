@@ -4,12 +4,19 @@ tests show when either side changes): the configurator, the memmap file
 helpers, the random-note corpus helpers, ``prepare_char``, the training
 configs that chip_smoke.py and the tests run, TunesFormer's Patchilizer,
 and the control-code curation (``data/curation.py``) with its
-``cli/add_control_codes.py``. Everything here is
-deterministic, so every comparison is exact (the batch sampler's copy is
-held to its original in tests/test_torch_train_pieces.py).
+``cli/add_control_codes.py``; the ABC -> WAV path's host modules: the ABC
+parser, its native compiler (the port builds its own copy), ``to_midi``
+and ``midi_io``, the piano bank, the sf2 reader and writer, the WAV I/O,
+the structural metrics (``codec/``, ``eval/{vectorization,similarities,
+calculate}.py``) and the aesthetics scorer's proxy and aggregates.
+Everything here is deterministic, so every comparison is exact (the batch
+sampler's copy is held to its original in tests/test_torch_train_pieces.py).
 """
 
 import filecmp
+import importlib.util
+import json
+import math
 import os
 import random
 
@@ -17,14 +24,41 @@ import numpy as np
 import pytest
 import torch
 
+from ai_music_generation_tpu.abcnotation import music21_oracle as jax_m21
+from ai_music_generation_tpu.abcnotation import parser as jax_parser
+from ai_music_generation_tpu.abcnotation import to_midi as jax_to_midi
 from ai_music_generation_tpu.cli import add_control_codes as jax_acc
+from ai_music_generation_tpu.codec import midi_io as jax_midi_io
+from ai_music_generation_tpu.codec import quantized_converter as jax_qc
+from ai_music_generation_tpu.eval import aesthetics as jax_aes
+from ai_music_generation_tpu.eval import calculate as jax_calc
+from ai_music_generation_tpu.eval import pipeline as jax_pipeline
+from ai_music_generation_tpu.eval import similarities as jax_sim
+from ai_music_generation_tpu.eval import vectorization as jax_vec
+from ai_music_generation_tpu.synth import piano_bank as jax_bank
+from ai_music_generation_tpu.synth import sf2 as jax_sf2
+from ai_music_generation_tpu.synth import wav_io as jax_wav
 from ai_music_generation_tpu.cli import random_baselines as jax_rb
 from ai_music_generation_tpu.data import curation as jax_cur
 from ai_music_generation_tpu.data import memmap as jax_memmap
 from ai_music_generation_tpu.data import prepare as jax_prepare
 from ai_music_generation_tpu.tokenizers import patchilizer as jax_patch
 from ai_music_generation_tpu.utils import configurator as jax_conf
+from ai_music_generation_tpu_torch.abcnotation import music21_oracle as m21
+from ai_music_generation_tpu_torch.abcnotation import native
+from ai_music_generation_tpu_torch.abcnotation import parser as abc_parser
+from ai_music_generation_tpu_torch.abcnotation import to_midi
 from ai_music_generation_tpu_torch.cli import add_control_codes as acc
+from ai_music_generation_tpu_torch.codec import midi_io
+from ai_music_generation_tpu_torch.codec import quantized_converter as qc
+from ai_music_generation_tpu_torch.eval import aesthetics
+from ai_music_generation_tpu_torch.eval import calculate
+from ai_music_generation_tpu_torch.eval import pipeline
+from ai_music_generation_tpu_torch.eval import similarities
+from ai_music_generation_tpu_torch.eval import vectorization
+from ai_music_generation_tpu_torch.synth import piano_bank
+from ai_music_generation_tpu_torch.synth import sf2
+from ai_music_generation_tpu_torch.synth import wav_io
 from ai_music_generation_tpu_torch.cli import random_baselines as rb
 from ai_music_generation_tpu_torch.data import curation
 from ai_music_generation_tpu_torch.data import memmap
@@ -265,3 +299,260 @@ def test_add_control_codes_cli_writes_the_same_data_json(tmp_path):
     assert n == m > 0
     assert filecmp.cmp(tmp_path / "p.json", tmp_path / "j.json",
                        shallow=False)
+
+
+def _abc_fixtures():
+    """tests/test_native_abc.py's cases (plain, graces and decorations;
+    gchord ones flagged), read from that file: its module is a test module,
+    not a package."""
+    path = os.path.join(os.path.dirname(__file__), "test_native_abc.py")
+    spec = importlib.util.spec_from_file_location("_native_abc_cases", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return ([(t, False) for t in module.CASES + module.FEATURE_CASES]
+            + [(t, True) for t in module.GCHORD_CASES])
+
+
+ABC_CORPUS = ([(t, False) for t in rb.random_tunes(24, seed=11)]
+              + _abc_fixtures())
+
+
+def _tune_rows(tune):
+    return (tune.meter, tune.unit_length, tune.tempo_bpm, tune.sharps,
+            tune.n_voices, tune.accomp_voice,
+            [(n.pitch, n.start, n.duration, n.voice) for n in tune.notes])
+
+
+@pytest.mark.parametrize("prefer_native", [True, False],
+                         ids=["native", "python"])
+def test_abc_to_midi_bytes_equal_jax(prefer_native):
+    """MIDI bytes from the port's parser (its native copy, or the Python
+    one) and ``to_midi`` equal the JAX package's Python parser's, over the
+    random-baseline corpus and tests/test_native_abc.py's cases; the bytes
+    parse back to the same files on both sides."""
+    if prefer_native:
+        assert native.native_available()
+    for text, gchord in ABC_CORPUS:
+        ours = midi_io.write_midi_bytes(to_midi.abc_to_midi(
+            text, prefer_native=prefer_native, gchord=gchord))
+        theirs = jax_midi_io.write_midi_bytes(jax_to_midi.abc_to_midi(
+            text, prefer_native=False, gchord=gchord))
+        assert ours == theirs, text
+        assert midi_io.write_midi_bytes(midi_io.parse_midi_bytes(ours)) == \
+            jax_midi_io.write_midi_bytes(jax_midi_io.parse_midi_bytes(ours))
+
+
+def test_native_copy_equals_the_python_parser():
+    """The port's build of its own native/abc_compiler.cpp parses every
+    case as the Python parser does (and JAX's parser as well)."""
+    for text, gchord in ABC_CORPUS:
+        got = native.NativeAbcParser(gchord=gchord).parse(text)
+        assert _tune_rows(got) == \
+            _tune_rows(abc_parser.AbcParser(gchord=gchord).parse(text)) == \
+            _tune_rows(jax_parser.AbcParser(gchord=gchord).parse(text)), text
+    assert native.library_path().parent == native.BUILD_DIR
+    assert native.CXX_FLAGS == ("-O2", "-std=c++17", "-fPIC", "-Wall",
+                                "-shared")  # native/Makefile's
+    with open(native.SOURCE, "rb") as ours, open(os.path.join(
+            os.path.dirname(os.path.dirname(__file__)), "native",
+            "abc_compiler.cpp"), "rb") as theirs:
+        assert ours.read() == theirs.read()
+
+
+def test_native_falls_back_to_python_when_it_cannot_build(monkeypatch,
+                                                          tmp_path):
+    monkeypatch.setattr(native, "library_path",
+                        lambda: tmp_path / "missing.so")
+    monkeypatch.setenv("CXX", "no-such-compiler")
+    native.load_library.cache_clear()
+    try:
+        assert not native.native_available()
+        assert isinstance(native.get_parser(), abc_parser.AbcParser)
+        with pytest.raises(RuntimeError, match="not built"):
+            native.compile_abc("X:1\nK:C\nC|")
+    finally:
+        native.load_library.cache_clear()
+
+
+def test_music21_converter_raises_as_jax_does(tmp_path):
+    abc = tmp_path / "t.abc"
+    abc.write_text("X:1\nK:C\nC|")
+    errors = []
+    for mod in (m21, jax_m21):
+        with pytest.raises(RuntimeError) as err:
+            mod.abc_file_to_midi_file_music21(str(abc), str(tmp_path / "o.mid"))
+        errors.append((type(err.value).__name__, str(err.value),
+                       type(err.value.__cause__)))
+    assert errors[0] == errors[1]
+    assert issubclass(errors[0][2], ImportError)
+
+
+@pytest.mark.parametrize("rate", [16_000, 22_050])
+def test_piano_bank_bit_equal(rate):
+    ours, theirs = piano_bank.get_bank(rate), jax_bank.get_bank(rate)
+    assert ours[0].dtype == theirs[0].dtype == np.float32
+    assert np.array_equal(ours[0], theirs[0])
+    assert np.array_equal(ours[1], theirs[1])
+
+
+def _sine(freq, n=4800, rate=16_000):
+    t = np.arange(n) / rate
+    return (0.8 * np.sin(2 * np.pi * freq * t)).astype(np.float32)
+
+
+SF2_ZONES = [
+    dict(wave=_sine(220.0), root=57, key_range=(0, 63), vel_range=(0, 63),
+         loop=(800, 4000), release_tc=-3600, fine_tune=7),
+    dict(wave=_sine(330.0, rate=22_050), root=57, key_range=(0, 63),
+         vel_range=(64, 127), release_tc=-2400, sample_rate=22_050),
+    dict(wave=_sine(880.0), root=81, key_range=(64, 127), attack_tc=-7200,
+         sustain_cb=200, atten_cb=60, coarse_tune=-1),
+]
+
+
+def test_sf2_writer_parser_and_bank_equal_jax(tmp_path):
+    paths = [str(tmp_path / f"{side}.sf2") for side in ("port", "jax")]
+    sf2.write_sf2(paths[0], SF2_ZONES, preset_name="TestPiano")
+    jax_sf2.write_sf2(paths[1], SF2_ZONES, preset_name="TestPiano")
+    assert filecmp.cmp(*paths, shallow=False)
+    ours, theirs = sf2.parse_sf2(paths[0]), jax_sf2.parse_sf2(paths[0])
+    assert np.array_equal(ours.sample_data, theirs.sample_data)
+    assert repr(ours.presets) == repr(theirs.presets)
+    for rate, seconds in ((16_000, 3.0), (22_050, 1.0)):
+        got = sf2.bank_from_sf2(paths[0], rate, seconds)
+        want = jax_sf2.bank_from_sf2(paths[0], rate, seconds)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_wav_round_trip_equal_jax(tmp_path):
+    wave = np.concatenate([np.linspace(-1.5, 1.5, 4001, dtype=np.float32),
+                           _sine(440.0), np.zeros(7, np.float32)])
+    paths = [str(tmp_path / f"{side}.wav") for side in ("port", "jax")]
+    wav_io.write_wav(paths[0], wave, 16_000)
+    jax_wav.write_wav(paths[1], wave, 16_000)
+    assert filecmp.cmp(*paths, shallow=False)
+    got, want = wav_io.read_wav(paths[0]), jax_wav.read_wav(paths[0])
+    assert got[1] == want[1] == 16_000 and np.array_equal(got[0], want[0])
+    # +-1 LSB: write truncates pcm * 32767 toward zero
+    assert np.abs(got[0] - np.clip(wave, -1, 1)).max() <= 1 / 32767
+
+
+def _metric_midis(tmp_path, n=6):
+    paths = []
+    for i, text in enumerate(rb.random_tunes(n, seed=21)):
+        paths.append(str(tmp_path / f"file_{i}.mid"))
+        midi_io.write_midi_file(to_midi.abc_to_midi(text), paths[-1])
+    return paths
+
+
+def _dump(result):
+    return json.dumps(result.model_dump(mode="json"))
+
+
+def test_vectorization_similarities_and_calculate_equal_jax(tmp_path):
+    """The structural metrics of the pipeline: feature vectors, the
+    similarity functions and matrices, the three calculators (JSON of each
+    result) and ``structural_metrics`` with a reference and a prefix."""
+    paths = _metric_midis(tmp_path)
+    vec, jvec = vectorization.MidiVectorizer(), jax_vec.MidiVectorizer()
+    for path in paths:
+        assert vec.midi_or_score_to_notes_and_offsets_feature_vectors(path) \
+            == jvec.midi_or_score_to_notes_and_offsets_feature_vectors(path)
+    pf, of = vec.midi_or_score_to_notes_and_offsets_feature_vectors(paths[0])
+    rpf, rof = vec.midi_or_score_to_notes_and_offsets_feature_vectors(
+        paths[1])
+    assert np.array_equal(similarities.cyclic_pitch_similarity_matrix(pf, rpf),
+                          jax_sim.cyclic_pitch_similarity_matrix(pf, rpf))
+    assert [similarities.rhythmic_similarity(a, b) for a in of for b in rof] \
+        == [jax_sim.rhythmic_similarity(a, b) for a in of for b in rof]
+    for mode in ("first", "closest", "all"):
+        for ours, theirs in (
+                (calculate.calculate_inner_similarity_of_music_vectors(
+                    of, similarities.rhythmic_similarity,
+                    return_best_matches=mode),
+                 jax_calc.calculate_inner_similarity_of_music_vectors(
+                     of, jax_sim.rhythmic_similarity,
+                     return_best_matches=mode)),
+                (calculate.calculate_reference_similarity_of_music_vectors(
+                    pf, rpf, similarities.cyclic_pitch_similarity,
+                    return_best_matches=mode, n_measures_to_skip=2),
+                 jax_calc.calculate_reference_similarity_of_music_vectors(
+                     pf, rpf, jax_sim.cyclic_pitch_similarity,
+                     return_best_matches=mode, n_measures_to_skip=2)),
+                (calculate.calculate_conditioned_similarity_of_music_vectors(
+                    pf, 3, matrix_fn=similarities.cyclic_pitch_similarity_matrix,
+                    return_best_matches=mode),
+                 jax_calc.calculate_conditioned_similarity_of_music_vectors(
+                     pf, 3, matrix_fn=jax_sim.cyclic_pitch_similarity_matrix,
+                     return_best_matches=mode))):
+            assert _dump(ours) == _dump(theirs)
+    results = [calculate.calculate_inner_similarity_of_music_vectors(
+        pf, similarities.cyclic_pitch_similarity) for _ in range(2)]
+    jresults = [jax_calc.calculate_inner_similarity_of_music_vectors(
+        pf, jax_sim.cyclic_pitch_similarity) for _ in range(2)]
+    assert _dump(calculate.aggregate_similarity_results(results)) == \
+        _dump(jax_calc.aggregate_similarity_results(jresults))
+    for path in paths:
+        got = pipeline.structural_metrics(path, vec, paths[1], 2)
+        want = jax_pipeline.structural_metrics(path, jvec, paths[1], 2)
+        assert [_dump(r) for pair in got for r in pair] == \
+            [_dump(r) for pair in want for r in pair]
+
+
+def test_quantized_converter_texts_equal_jax(tmp_path):
+    paths = _metric_midis(tmp_path, 3)
+    for settings in ({}, {"joining_parts_strategy": "Join parallel measures",
+                          "include_offset_in_notes": False}):
+        ours = qc.MidiQuantizedConverter(
+            qc.EncodingSetting(**settings))
+        theirs = jax_qc.MidiQuantizedConverter(
+            jax_qc.EncodingSetting(**settings))
+        for path in paths:
+            texts = ours.filepath_to_texts(path)
+            assert texts == theirs.filepath_to_texts(path) and texts
+            for text in texts.values():
+                assert repr(ours.text_to_score(text)) == \
+                    repr(theirs.text_to_score(text))
+
+
+def test_proxy_scores_equal_jax():
+    rng = np.random.default_rng(0)
+    t = np.arange(16_000 * 6) / 16_000
+    waves = [(0.5 * np.sin(2 * np.pi * 440 * t)).astype(np.float32),
+             rng.normal(0, 0.4, 16_000 * 3).astype(np.float32),
+             np.zeros(16_000, np.float32), np.ones(3000, np.float32),
+             np.clip(rng.normal(0, 2.0, 16_000 * 2), -1, 1).astype(np.float32)]
+    for wave in waves:
+        assert aesthetics.proxy_score_wave(wave) == \
+            jax_aes.proxy_score_wave(wave)
+
+
+def test_aggregates_equal_jax_with_nan_rows(tmp_path):
+    """``aggregate_jsonl_stats`` (JSON, NaN rows skipped by the mean and the
+    sem) and ``frame_ci_stats``; an empty and a missing file give the same
+    error."""
+    rows = [{"CE": 5.5, "CU": 4.0, "PC": 2.0, "PQ": 7.25, "proxy": True},
+            {"CE": float("nan"), "CU": 3.0, "PC": float("nan"), "PQ": 6.0,
+             "proxy": True},
+            {"CE": 6.0, "CU": 2.5, "PC": 9.0, "PQ": float("nan"),
+             "proxy": True},
+            {"CE": 1.0, "CU": 1.0, "PC": 1.0, "PQ": 1.0, "proxy": True}]
+    path = tmp_path / "a.jsonl"
+    path.write_text("".join(json.dumps(r) + "\n" for r in rows))
+    (tmp_path / "empty.jsonl").write_text("")
+    for p, cols in ((path, ["CE", "CU", "PC", "PQ"]), (path, None),
+                    (path, ["PQ", "nope"]), (tmp_path / "empty.jsonl", None),
+                    (tmp_path / "missing.jsonl", None)):
+        ours = aesthetics.aggregate_jsonl_stats(str(p), cols)
+        assert json.dumps(ours) == \
+            json.dumps(jax_aes.aggregate_jsonl_stats(str(p), cols))
+    # the NaN rows are skipped, not propagated
+    ce = aesthetics.aggregate_jsonl_stats(str(path))["mean"]["CE"]
+    assert math.isclose(ce, (5.5 + 6.0 + 1.0) / 3)
+    import pandas as pd
+
+    frame = pd.DataFrame({"melody": [0.5, float("nan"), 0.75, 1.0],
+                          "rhythm": [0.25, 0.5, float("nan"), 0.0]})
+    assert json.dumps(aesthetics.frame_ci_stats(frame)) == \
+        json.dumps(jax_aes.frame_ci_stats(frame))

@@ -15,7 +15,13 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "ai_music_generation_tpu_torch",
+    "ai_music_generation_tpu_torch.abcnotation.music21_oracle",
+    "ai_music_generation_tpu_torch.abcnotation.native",
+    "ai_music_generation_tpu_torch.abcnotation.parser",
+    "ai_music_generation_tpu_torch.abcnotation.to_midi",
+    "ai_music_generation_tpu_torch.cli.abc_to_midi_wav_and_aesthetics",
     "ai_music_generation_tpu_torch.cli.add_control_codes",
+    "ai_music_generation_tpu_torch.cli.midi_to_wav_and_aesthetics",
     "ai_music_generation_tpu_torch.cli.random_baselines",
     "ai_music_generation_tpu_torch.cli.sample",
     "ai_music_generation_tpu_torch.cli.sample_tunesformer",
@@ -26,6 +32,11 @@ MODULES = [
     "ai_music_generation_tpu_torch.cli.train_bench",
     "ai_music_generation_tpu_torch.cli.tunesformer_generate",
     "ai_music_generation_tpu_torch.cli.tunesformer_train",
+    "ai_music_generation_tpu_torch.codec.encoding_settings",
+    "ai_music_generation_tpu_torch.codec.instrument_types",
+    "ai_music_generation_tpu_torch.codec.midi_io",
+    "ai_music_generation_tpu_torch.codec.quantized_converter",
+    "ai_music_generation_tpu_torch.codec.score",
     "ai_music_generation_tpu_torch.configs",
     "ai_music_generation_tpu_torch.data.curation",
     "ai_music_generation_tpu_torch.data.memmap",
@@ -33,6 +44,11 @@ MODULES = [
     "ai_music_generation_tpu_torch.decode.generate",
     "ai_music_generation_tpu_torch.decode.speculative",
     "ai_music_generation_tpu_torch.decode.tunes_generate",
+    "ai_music_generation_tpu_torch.eval.aesthetics",
+    "ai_music_generation_tpu_torch.eval.calculate",
+    "ai_music_generation_tpu_torch.eval.pipeline",
+    "ai_music_generation_tpu_torch.eval.similarities",
+    "ai_music_generation_tpu_torch.eval.vectorization",
     "ai_music_generation_tpu_torch.experiments",
     "ai_music_generation_tpu_torch.experiments.int4_kernel_probe",
     "ai_music_generation_tpu_torch.experiments.k1_ab",
@@ -53,6 +69,10 @@ MODULES = [
     "ai_music_generation_tpu_torch.serve.engine",
     "ai_music_generation_tpu_torch.serve.http",
     "ai_music_generation_tpu_torch.serve.tunes_engine",
+    "ai_music_generation_tpu_torch.synth.piano_bank",
+    "ai_music_generation_tpu_torch.synth.render",
+    "ai_music_generation_tpu_torch.synth.sf2",
+    "ai_music_generation_tpu_torch.synth.wav_io",
     "ai_music_generation_tpu_torch.tokenizers",
     "ai_music_generation_tpu_torch.tokenizers.patchilizer",
     "ai_music_generation_tpu_torch.train",
@@ -146,6 +166,10 @@ def test_port_imports_without_triton_or_nvcc():
         "patch_size=8, patch_layers=1, char_layers=1, n_embd=32, n_head=2, "
         "dropout=0.1), steps=1, burn_in=1, device='cpu')\n"
         "assert r['tflop_per_step'] == r['analytic_tflop']\n"
+        "from ai_music_generation_tpu_torch.synth.render import "
+        "render_events\n"
+        "assert render_events([[60.0, 0.0, 800.0, 0.5]], 1600, "
+        "device='cpu').shape == (1600,)\n"
         "print(_build.load_library.cache_info().currsize, "
         "gqa_decode_update.launches, spec_attention_update.launches, "
         "decode_attention.launches, lean_attention.launches)\n",
