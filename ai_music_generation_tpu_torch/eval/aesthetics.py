@@ -2,11 +2,11 @@
 
 The port of ``ai_music_generation_tpu/eval/aesthetics.py``: the same
 ``audio-aes`` leg, proxy scorer and aggregation (tests/test_torch_host_copies.py
-and tests/test_torch_eval_pipeline.py hold them to the originals). The JAX
-package's second leg, its Flax Audiobox predictor over a checkpoint named by
-``weights`` or ``$AUDIOBOX_WEIGHTS``, is not ported yet (ROADMAP queue 1
-item 5b): there :func:`run_aesthetics` raises, and never scores with the
-proxy where the JAX package would run the model.
+and tests/test_torch_eval_pipeline.py hold them to the originals), and the
+same second leg: the Audiobox predictor (``eval/audiobox.py``, on the card
+unless ``device="cpu"``) over a checkpoint named by ``weights`` or
+``$AUDIOBOX_WEIGHTS``. A checkpoint that exists is never passed over for
+the proxy.
 
 The reference scores WAVs with Meta's Audiobox-aesthetics CLI
 (``audio-aes``, CE/CU/PC/PQ axes; ref:
@@ -94,14 +94,15 @@ def run_aesthetics(
     batch_size: int = 10,
     force_proxy: bool = False,
     weights: Optional[str] = None,
+    device: str = "cuda",
 ) -> bool:
     """Score every {"path": wav} line of input_jsonl into output_jsonl.
 
     Scorer precedence (VERDICT #2): the real ``audio-aes`` CLI if on PATH >
-    the Audiobox predictor when a torch checkpoint is supplied via
-    ``weights`` or ``$AUDIOBOX_WEIGHTS`` (not ported yet: raises
-    NotImplementedError naming ROADMAP item 5b) > the DSP proxy. Returns
-    True when a model-based scorer (the CLI) was used.
+    the Audiobox predictor (``eval/audiobox.py``, on ``device``) when a
+    torch checkpoint is supplied via ``weights`` or ``$AUDIOBOX_WEIGHTS`` >
+    the DSP proxy. Returns True when a model-based scorer (the CLI or the
+    predictor with real weights) was used.
     """
     binary = shutil.which("audio-aes")
     if binary and not force_proxy:
@@ -120,10 +121,11 @@ def run_aesthetics(
 
     weights = weights or os.environ.get("AUDIOBOX_WEIGHTS")
     if weights and os.path.exists(weights) and not force_proxy:
-        raise NotImplementedError(
-            f"the Audiobox predictor over {weights} is not ported yet "
-            "(ROADMAP queue 1 item 5b, the Audiobox scorer); unset "
-            "$AUDIOBOX_WEIGHTS to score with the proxy")
+        from ai_music_generation_tpu_torch.eval.audiobox import AesPredictor
+
+        AesPredictor(weights=weights, batch=batch_size,
+                     device=device).score_jsonl(input_jsonl, output_jsonl)
+        return True
 
     from ai_music_generation_tpu_torch.synth.wav_io import read_wav
 
@@ -147,6 +149,7 @@ def compare_scorers(
     input_jsonl: str,
     out_dir: str,
     batch_size: int = 10,
+    device: str = "cuda",
 ) -> dict:
     """A/B harness: score the SAME wav list with the real ``audio-aes`` CLI
     and the proxy, then report per-axis deltas and rank agreement.
@@ -156,7 +159,8 @@ def compare_scorers(
     (as in this environment) the report records ``real_available: false`` —
     the harness is ready to produce calibration numbers the moment
     ``audio-aes`` lands on PATH. (VERDICT #2; ref scorer invocation:
-    abc_to_midi_wav_and_aesthetics.py:323-355.)
+    abc_to_midi_wav_and_aesthetics.py:323-355.) ``device`` is where the
+    real leg's fallback to the Audiobox predictor would run.
     """
     os.makedirs(out_dir, exist_ok=True)
     proxy_path = os.path.join(out_dir, "proxy.jsonl")
@@ -168,7 +172,7 @@ def compare_scorers(
     }
     if report["real_available"]:
         real_path = os.path.join(out_dir, "real.jsonl")
-        run_aesthetics(input_jsonl, real_path, batch_size)
+        run_aesthetics(input_jsonl, real_path, batch_size, device=device)
         report["real_jsonl"] = real_path
         real = _load_axis_rows(real_path)
         prox = _load_axis_rows(proxy_path)

@@ -3,7 +3,9 @@
 The port of ``ai_music_generation_tpu/eval/pipeline.py``: the same stages,
 output tree, JSONL schemas and aggregates (tests/test_torch_eval_pipeline.py
 holds them to the JAX package's), with the render on the card
-(``synth/render.py``; ``PipelineConfig.device``, ``"cpu"`` for the CPU).
+(``synth/render.py``) and, when ``$AUDIOBOX_WEIGHTS`` names a checkpoint,
+the Audiobox predictor's scoring there too (``eval/audiobox.py``);
+``PipelineConfig.device``, ``"cpu"`` for the CPU.
 The WAV directory keeps JAX's ``midi_to_wav_converter`` name
 (``"tpu_synth"``) so the two trees line up. ``run`` also returns each
 stage's wall seconds (``stage_seconds``).
@@ -100,7 +102,9 @@ class PipelineConfig:
     # (ROADMAP queue 1 item 6); True raises
     shard_synth: bool = False
     metrics_processes: Optional[int] = None  # Pool size for the metrics stage
-    device: str = "cuda"  # where the synth renders ("cpu" for the CPU)
+    # where the synth renders and the Audiobox predictor scores ("cpu" for
+    # the CPU)
+    device: str = "cuda"
 
 
 def extract_index(abc_content: str, filename: str) -> str:
@@ -423,7 +427,9 @@ class EvalPipeline:
                 for p in wav_paths:
                     f.write(json.dumps({"path": p}) + "\n")
             output_jsonl = os.path.join(self.audiobox_dir, "aesthetics.jsonl")
-            used_real = run_aesthetics(input_jsonl, output_jsonl, c.aesthetics_batch_size)
+            used_real = run_aesthetics(input_jsonl, output_jsonl,
+                                       c.aesthetics_batch_size,
+                                       device=c.device)
             agg = aggregate_jsonl_stats(output_jsonl, ["CE", "CU", "PC", "PQ"])
             with open(os.path.join(self.audiobox_dir, "aesthetics_aggregated.jsonl"), "w") as f:
                 json.dump(agg, f, indent=4)

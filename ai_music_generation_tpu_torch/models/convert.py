@@ -1,6 +1,7 @@
 """Weights for the port's GPT and TunesFormer: converted from the JAX
 package's params, or initialised with the JAX package's scheme; and the JAX
-optimizer states converted to the port's AdamW states (GPT and TunesFormer).
+optimizer states converted to the port's AdamW states (GPT and TunesFormer);
+the JAX Audiobox predictor's params converted to the port's state dict.
 
 The state dict uses nanoGPT's names and torch layouts, the same keys and
 values as the JAX package's ``models/nanogpt_ckpt.py::
@@ -17,6 +18,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ai_music_generation_tpu_torch.eval.audiobox import AudioboxConfig
+from ai_music_generation_tpu_torch.eval.wavlm import WavLMConfig
 from ai_music_generation_tpu_torch.models.gpt import GPT, GPTConfig
 from ai_music_generation_tpu_torch.models.tunesformer import (
     TunesFormer, TunesFormerConfig,
@@ -88,6 +91,108 @@ def tunesformer_state_dict_from_jax(params: Mapping[str, Any],
                                   config.patch_core_config(), "patch_core."))
         out.update(_core_from_jax(p["char_core"], config.char_core_config(),
                                   "char_core."))
+    return out
+
+
+def audiobox_state_dict_from_jax(params: Mapping[str, Any],
+                                config: AudioboxConfig | WavLMConfig
+                                ) -> dict[str, torch.Tensor]:
+    """The JAX Audiobox predictor's params (numpy leaves) -> the port's
+    ``state_dict``: the inverse of the JAX package's
+    ``eval/audiobox.py::convert_torch_state_dict``. ``Dense`` kernels are
+    transposed, conv kernels (torch's [O, I/g, K] in both) and
+    ``rel_attn_embed`` copied. A full predictor's tree (``AudioboxConfig``)
+    gives :class:`AudioboxAesthetics`'s keys, a bare ``WavLMEncoder``'s
+    (``WavLMConfig``) :class:`WavLMEncoder`'s. The output de-normalization
+    (``out_mean``/``out_std``) is no part of the checkpoint layout: a tree
+    whose values are not the identity (0, 1) raises, as does any leaf the
+    mapping does not consume."""
+    p = params["params"] if "params" in params else params
+    flat = _flatten(p)
+    full = isinstance(config, AudioboxConfig)
+    wcfg = config.wavlm if full else config
+    prefix = "encoder/" if full else ""
+    out = {("wavlm." if full else "") + k: v
+           for k, v in _wavlm_from_jax(flat, prefix, wcfg).items()}
+    if full:
+        for axis in config.axes:
+            out[f"layer_weights_{axis}"] = _t(flat.pop(
+                f"layer_weights_{axis}"))
+            names = [f"head_{axis}_{j}" for j in range(
+                len(config.head_hidden))] + [f"head_{axis}_out"]
+            for j, name in enumerate(names):
+                out[f"proj_{axis}.{2 * j}.weight"] = _t(
+                    flat.pop(f"{name}/kernel"), transpose=True)
+                out[f"proj_{axis}.{2 * j}.bias"] = _t(flat.pop(f"{name}/bias"))
+            for name, identity in (("out_mean", 0.0), ("out_std", 1.0)):
+                value = flat.pop(f"{name}_{axis}", identity)
+                if float(np.asarray(value)) != identity:
+                    raise ValueError(
+                        f"{name}_{axis} = {float(np.asarray(value))}: the "
+                        f"checkpoint layout has no key for it (set the "
+                        f"port model's {name} buffer)")
+    if flat:
+        raise ValueError(f"params the mapping does not place: "
+                         f"{sorted(flat)}")
+    return out
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+def _wavlm_from_jax(flat: dict, prefix: str,
+                    cfg: WavLMConfig) -> dict[str, torch.Tensor]:
+    """The encoder's leaves (popped from ``flat`` under ``prefix``) under
+    the HF ``WavLMModel`` names."""
+    def take(path, transpose=False):
+        return _t(flat.pop(prefix + path), transpose)
+
+    def dense(path, name):
+        out[name + ".weight"] = take(path + "/kernel", transpose=True)
+        out[name + ".bias"] = take(path + "/bias")
+
+    def norm(path, name):
+        out[name + ".weight"] = take(path + "/scale")
+        out[name + ".bias"] = take(path + "/bias")
+
+    out = {}
+    for i in range(len(cfg.conv_dim)):
+        c = f"feature_extractor.conv_layers.{i}."
+        out[c + "conv.weight"] = take(f"feature_encoder/conv_{i}_kernel")
+        if cfg.conv_bias:
+            out[c + "conv.bias"] = take(f"feature_encoder/conv_{i}_bias")
+        if cfg.feat_extract_norm == "layer" or i == 0:
+            out[c + "layer_norm.weight"] = take(
+                f"feature_encoder/norm_{i}_scale")
+            out[c + "layer_norm.bias"] = take(f"feature_encoder/norm_{i}_bias")
+    norm("fp_layer_norm", "feature_projection.layer_norm")
+    dense("fp_projection", "feature_projection.projection")
+    out["encoder.pos_conv_embed.conv.weight"] = take("pos_conv_kernel")
+    out["encoder.pos_conv_embed.conv.bias"] = take("pos_conv_bias")
+    norm("layer_norm", "encoder.layer_norm")
+    for i in range(cfg.num_layers):
+        src, dst = f"layer_{i}/", f"encoder.layers.{i}."
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj",
+                     "gru_rel_pos_linear"):
+            dense(src + "attention/" + name, dst + "attention." + name)
+        out[dst + "attention.gru_rel_pos_const"] = take(
+            src + "attention/gru_rel_pos_const")
+        if i == 0:
+            out[dst + "attention.rel_attn_embed.weight"] = take(
+                src + "attention/rel_attn_embed")
+        norm(src + "layer_norm", dst + "layer_norm")
+        norm(src + "final_layer_norm", dst + "final_layer_norm")
+        dense(src + "intermediate_dense",
+              dst + "feed_forward.intermediate_dense")
+        dense(src + "output_dense", dst + "feed_forward.output_dense")
     return out
 
 

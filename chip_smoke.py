@@ -5,8 +5,9 @@ path, fp32 models, the continuous-batching server and the sampling CLI),
 the training path (the train step, cli/train.py, cli/train_bench.py),
 TunesFormer inference and serving (the model, the bar generator, the
 server and its HTTP front end, the CLIs), TunesFormer training (the
-train step, curation, cli/tunesformer_train.py, the MFU probe) and
-ABC -> WAV (the synth, the eval pipeline and its CLI).
+train step, curation, cli/tunesformer_train.py, the MFU probe), ABC ->
+WAV (the synth, the eval pipeline and its CLI) and the Audiobox scorer
+(the WavLM encoder, the predictor, cli/audio_aes.py).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -222,7 +223,26 @@ printing a result):
     MIDI, render, trim and write, metrics, scoring), then the render alone
     at synth_batch 8 and 64 with its peak memory. Phases 32-33 launch none
     of K1-K7 (their counts are set to 0 before each and read after; any
-    launch fails the run). ``--profile synth`` profiles one render batch.
+    launch fails the run). ``--profile synth`` profiles one render batch;
+34. the Audiobox model: ``AudioboxConfig()`` (WavLM base, fp32) from a
+    seeded init, saved as a checkpoint with a weight-norm positional conv
+    and read back (``load_torch_checkpoint``, ``config_from_state_dict``,
+    the loader: every key placed, the config equal); four 10-s chunks
+    (noise, a rendered tune, ragged at 3.7 s, nearly silent) on the card
+    against the CPU: every hidden state and the scores within 1e-4 of their
+    range, also under PyTorch's default TF32 flags with float32 matmuls at
+    "high" (the predictor pins IEEE fp32 itself); the card's bucket table
+    at T=499 the CPU's; a file alone scoring as in a crowd; then the
+    forward (CUDA events) and ``score_waves`` (host to host) at batch 8 and
+    10, peak memory, FLOPs a chunk (``FlopCounterMode``) and their share
+    of 67 TFLOP/s;
+35. cli/audio_aes.py (``--ckpt`` = phase 34's file, ``--batch-size 10``)
+    over phase 33's 1,000 WAVs and a missing path: 1,001 rows, the missing
+    one NaN; files/min and chunks/s; then EvalPipeline through
+    cli/abc_to_midi_wav_and_aesthetics.py on 64 of phase 33's tunes with
+    ``$AUDIOBOX_WEIGHTS`` set: engine ``audio-aes``, rows within 1e-5 of
+    the CLI's. Phases 34-35 launch none of K1-K7. ``--profile audiobox``
+    profiles one forward at batch 10.
 
 The last two lines are a JSON summary of each kernel and
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` counts its
@@ -384,6 +404,15 @@ TUNES_MFU_B = (8, 32)
 SYNTH_BATCH, SYNTH_SECONDS, SYNTH_RATE, SYNTH_TUNES = 8, 120, 16_000, 1000
 SYNTH_SEED = 7
 SYNTH_FRAC = 1e-5
+# the Audiobox scorer (phases 34-35): AudioboxConfig() (WavLM base, fp32)
+# from a seeded init, 10-s chunks at 16 kHz, timed at AesPredictor's batch
+# (8) and audio-aes's (10); card vs CPU within 1e-4 of the range (the fp32
+# yardstick of phases 17 and 25); cli/audio_aes.py over phase 33's 1,000
+# WAVs, EvalPipeline over its first 64 tunes. AUDIOBOX_WAVLM overrides
+# WavLMConfig's fields (none on the card; narrow widths to rehearse)
+AUDIOBOX_WAVLM: dict = {}
+AUDIOBOX_SEED, AUDIOBOX_CHUNK, AUDIOBOX_FRAC = 0, 160_000, 1e-4
+AUDIOBOX_BATCHES, AUDIOBOX_ITERS, AUDIOBOX_PIPELINE_TUNES = (8, 10), 5, 64
 
 
 def bound(n_bytes, n_ops, ops_per_s=BF16_OPS_PER_S) -> tuple[float, str]:
@@ -2642,7 +2671,7 @@ def phase_profile_train(top=12) -> None:
 
 
 PROFILED = ("pallas", "bench", "spec", "serve", "train", "tunes",
-            "tunes_serve", "tunes_train", "synth")
+            "tunes_serve", "tunes_train", "synth", "audiobox")
 
 
 @torch.inference_mode()
@@ -4075,6 +4104,424 @@ def phase_profile_synth(top=12) -> None:
               f"ms/call  {key[:90]}")
 
 
+# -- the Audiobox scorer (phases 34-35) --------------------------------------
+
+def _audiobox_config():
+    """``AudioboxConfig()`` (WavLM base: 7 convs of 512, 12 post-norm layers
+    768 wide, 12 heads, FFN 3072, 320 buckets) with ``AUDIOBOX_WAVLM``'s
+    overrides (none on the card)."""
+    import dataclasses
+
+    from ai_music_generation_tpu_torch.eval.audiobox import AudioboxConfig
+    from ai_music_generation_tpu_torch.eval.wavlm import WavLMConfig
+
+    return AudioboxConfig(wavlm=dataclasses.replace(WavLMConfig(),
+                                                    **AUDIOBOX_WAVLM))
+
+
+def _audiobox_checkpoint(path, cfg):
+    """The seeded model saved as a torch checkpoint in the checkpoint layout,
+    its positional conv split into weight norm's
+    ``parametrizations.weight.original0/1`` (g = the kernel's norm over
+    dims 0 and 1, v = the kernel), so that reading it composes the kernel.
+    Returns the model's own state dict."""
+    from ai_music_generation_tpu_torch.eval import audiobox
+
+    model = audiobox.init_audiobox_weights(
+        audiobox.AudioboxAesthetics(cfg),
+        torch.Generator().manual_seed(AUDIOBOX_SEED))
+    own = model.state_dict()
+    sd = dict(own)
+    base = "wavlm.encoder.pos_conv_embed.conv."
+    v = sd.pop(base + "weight")
+    sd[base + "parametrizations.weight.original0"] = \
+        v.norm(dim=(0, 1), keepdim=True)
+    sd[base + "parametrizations.weight.original1"] = v
+    torch.save({"state_dict": sd}, path)
+    return own
+
+
+def _audiobox_chunks(device):
+    """Four 10-s chunks at 16 kHz and their valid samples: noise, the first
+    10 s of a protocol tune rendered by the synth, a chunk ragged at 3.7 s,
+    a nearly silent one."""
+    import numpy as np
+
+    from ai_music_generation_tpu_torch.synth import render
+
+    n = AUDIOBOX_CHUNK
+    rng = np.random.default_rng(AUDIOBOX_SEED)
+    tune = render.synthesize_midi_batch(_synth_corpus(1), device=device)[0]
+    chunks = np.zeros((4, n), np.float32)
+    chunks[0] = 0.1 * rng.normal(size=n)
+    chunks[1, :min(n, len(tune))] = tune[:n]
+    ragged = int(3.7 * SYNTH_RATE)
+    chunks[2, :ragged] = 0.1 * rng.normal(size=ragged)
+    chunks[3] = 1e-4 * rng.normal(size=n)
+    return chunks, np.array([n, n, ragged, n], np.int32)
+
+
+def _scored(pred, chunks, n_valid, pinned=True):
+    """The predictor's scores of one block and its encoder's hidden states
+    (on the host); ``pinned=False`` calls the model outside
+    ``score_block``'s IEEE fp32 pin."""
+    seen = []
+    hook = pred.model.wavlm.register_forward_hook(
+        lambda module, args, out: seen.append(out[1].cpu()))
+    try:
+        if pinned:
+            scores = pred.score_block(chunks, n_valid)
+        else:
+            with torch.inference_mode():
+                scores = pred.model(
+                    torch.from_numpy(chunks).to(pred.device),
+                    torch.from_numpy(n_valid).to(pred.device)).cpu().numpy()
+    finally:
+        hook.remove()
+    return scores, seen[0]
+
+
+def _share_of_range(got, want) -> float:
+    return float((got - want).abs().max() / (want.max() - want.min()))
+
+
+def _audiobox_errors(card, cpu_scores, cpu_hid, chunks, n_valid):
+    """The card's hidden states and scores as shares of the range of the
+    CPU's (the largest over the L+1 states), checked against
+    AUDIOBOX_FRAC."""
+    scores, hid = _scored(card, chunks, n_valid)
+    scores = torch.from_numpy(scores)
+    errs = dict(hidden=max(_share_of_range(h, w)
+                           for h, w in zip(hid, cpu_hid)),
+                scores=_share_of_range(scores, torch.from_numpy(cpu_scores)))
+    if not (torch.isfinite(hid).all() and torch.isfinite(scores).all()):
+        raise AssertionError("non-finite hidden states or scores")
+    if max(errs.values()) > AUDIOBOX_FRAC:
+        raise AssertionError(f"the Audiobox model on the card is {errs} of "
+                             f"the range off the CPU's (gate "
+                             f"{AUDIOBOX_FRAC})")
+    return errs
+
+
+@torch.inference_mode()
+def _audiobox_timing(pred, batch, iters=AUDIOBOX_ITERS) -> dict:
+    """The forward alone at ``batch`` 10-s chunks (CUDA events after a
+    warm-up), ``score_waves`` from host to host over as many 10-s waves,
+    the peak memory of a forward, and the FLOPs a chunk
+    (``FlopCounterMode``) with their share of FP32_OPS_PER_S."""
+    import numpy as np
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from ai_music_generation_tpu_torch.eval.audiobox import ieee_fp32
+
+    rng = np.random.default_rng(batch)
+    waves = (0.1 * rng.normal(size=(batch, AUDIOBOX_CHUNK))).astype(
+        np.float32)
+    x = torch.from_numpy(waves).cuda()
+    n_valid = torch.full((batch,), AUDIOBOX_CHUNK, device="cuda")
+    with ieee_fp32():
+        with FlopCounterMode(display=False) as counter:
+            pred.model(x, n_valid)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = _cuda_ms(lambda: pred.model(x, n_valid), iters)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    pred.batch = batch
+    pred.score_waves([(w, SYNTH_RATE) for w in waves])  # warm
+    t0 = time.perf_counter()
+    pred.score_waves([(w, SYNTH_RATE) for w in waves])
+    host_ms = (time.perf_counter() - t0) * 1e3
+    flops = counter.get_total_flops() / batch
+    chunk_ms = ms / batch
+    return dict(batch=batch, ms=ms, chunks_per_s=batch / ms * 1e3,
+                score_waves_ms=host_ms,
+                score_waves_chunks_per_s=batch / host_ms * 1e3,
+                peak_gib=peak, gflop_per_chunk=flops / 1e9,
+                bound_ms_per_chunk=flops / FP32_OPS_PER_S * 1e3,
+                share=flops / FP32_OPS_PER_S * 1e3 / chunk_ms)
+
+
+def phase_audiobox_model(root, device="cuda") -> dict:
+    """The Audiobox predictor at ``AudioboxConfig()`` from a seeded init:
+    its checkpoint (weight-norm positional conv) read back through
+    ``load_torch_checkpoint``, ``config_from_state_dict`` and the loader
+    (every key placed, nothing unmapped, the config equal); four 10-s
+    chunks scored on ``device`` and on the CPU (every hidden state and the
+    scores within AUDIOBOX_FRAC of their range), the card's bucket table at
+    T=499 equal to the CPU's, a file alone scoring as in a crowd; then the
+    same under PyTorch's default TF32 flags and float32 matmuls at "high"
+    (the predictor pins IEEE fp32 itself); then the forward and
+    ``score_waves`` timed at batch 8 and 10. Returns the numbers and the
+    checkpoint's path."""
+    import os
+
+    import numpy as np
+
+    from ai_music_generation_tpu_torch.eval import audiobox, wavlm
+
+    cfg = _audiobox_config()
+    ckpt = os.path.join(root, "audiobox.pth")
+    own = _audiobox_checkpoint(ckpt, cfg)
+    sd = audiobox.load_torch_checkpoint(ckpt)
+    if audiobox.config_from_state_dict(sd) != cfg:
+        raise AssertionError(f"config_from_state_dict read "
+                             f"{audiobox.config_from_state_dict(sd)}")
+    model = audiobox.AudioboxAesthetics(cfg)
+    loaded, unmapped = audiobox.load_state_dict(model, sd)
+    if unmapped or len(loaded) != len(own):
+        raise AssertionError(f"{len(loaded)} keys placed of {len(own)}, "
+                             f"unmapped {unmapped}")
+    pos = "wavlm.encoder.pos_conv_embed.conv.weight"
+    composed = _share_of_range(model.state_dict()[pos], own[pos])
+    if composed > 1e-6:
+        raise AssertionError(f"the composed positional conv is {composed} "
+                             f"of its range off the saved kernel")
+
+    card = audiobox.AesPredictor(weights=ckpt, batch=4, device=device)
+    cpu = audiobox.AesPredictor(weights=ckpt, batch=4, device="cpu")
+    chunks, n_valid = _audiobox_chunks(device)
+    t0 = time.perf_counter()
+    cpu_scores, cpu_hid = _scored(cpu, chunks, n_valid)
+    cpu_s = time.perf_counter() - t0
+    errs = _audiobox_errors(card, cpu_scores, cpu_hid, chunks, n_valid)
+    frames = cfg.wavlm.frames_for_samples(AUDIOBOX_CHUNK)
+    # the table the forward used (cached by the attention on its device)
+    table = card.model.wavlm.encoder["layers"][0].attention.buckets(frames)
+    if table.device.type != card.device.type or not torch.equal(
+            table.cpu(), wavlm.relative_position_buckets(
+                frames, frames, cfg.wavlm.num_buckets,
+                cfg.wavlm.max_distance)):
+        raise AssertionError(f"the bucket table at T={frames} on "
+                             f"{table.device} is not the CPU's")
+    rng = np.random.default_rng(AUDIOBOX_SEED + 1)
+    wave = (0.05 * rng.normal(size=int(13.7 * SYNTH_RATE))).astype(
+        np.float32)
+    alone = card.score_wave(wave)
+    crowd = card.score_waves([(chunks[1], SYNTH_RATE), (wave, SYNTH_RATE)])[1]
+    drift = (max(abs(alone[a] - crowd[a]) for a in alone)
+             / max(abs(v) for v in alone.values()))
+    if drift > 1e-5:
+        raise AssertionError(f"a file alone and in a crowd score {drift} "
+                             f"of the largest score apart")
+
+    # PyTorch's default TF32 flags (cuDNN on) and float32 matmuls at
+    # "high": the predictor keeps its products in IEEE fp32 itself
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.get_float32_matmul_precision())
+    torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        tf32_errs = _audiobox_errors(card, cpu_scores, cpu_hid, chunks,
+                                     n_valid)
+        # what a forward without the pin gives there (printed, not gated)
+        _, hid = _scored(card, chunks, n_valid, pinned=False)
+        unpinned = max(_share_of_range(h, w) for h, w in zip(hid, cpu_hid))
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
+    del cpu
+    print(f"phase 34: the Audiobox model (WavLM {cfg.wavlm.num_layers} "
+          f"layers x {cfg.wavlm.hidden_size}, {sum(v.numel() for v in own.values()) / 1e6:.1f}M "
+          f"parameters) read back from its checkpoint ({len(loaded)} keys, "
+          f"none unmapped, config equal); card vs CPU on 4 10-s chunks: "
+          f"hidden states {errs['hidden']:.3e}, scores {errs['scores']:.3e} "
+          f"of the range; under PyTorch's default TF32 flags "
+          f"{tf32_errs['hidden']:.3e} / {tf32_errs['scores']:.3e} (an "
+          f"unpinned forward there: {unpinned:.3e}); gate {AUDIOBOX_FRAC}; "
+          f"buckets at T={frames} equal; alone vs crowd {drift:.2e}; CPU "
+          f"forward {cpu_s:.1f} s")
+    timing = {}
+    if torch.device(device).type == "cuda":
+        for batch in AUDIOBOX_BATCHES:
+            timing[batch] = t = _audiobox_timing(card, batch)
+            print(f"Audiobox forward at batch {batch}: {t['ms']:.2f} ms a "
+                  f"batch, {t['chunks_per_s']:.1f} 10-s chunks/s; "
+                  f"score_waves host to host {t['score_waves_ms']:.2f} ms "
+                  f"({t['score_waves_chunks_per_s']:.1f} chunks/s); peak "
+                  f"{t['peak_gib']:.2f} GiB; {t['gflop_per_chunk']:.2f} "
+                  f"GFLOP a chunk (FlopCounterMode; reckoned ~148), bound "
+                  f"{t['bound_ms_per_chunk']:.3f} ms a chunk at 67 TFLOP/s, "
+                  f"share {t['share']:.3f}")
+    return dict(ckpt=ckpt, errs=errs, tf32_errs=tf32_errs, unpinned=unpinned,
+                drift=drift, timing=timing)
+
+
+def phase_audio_aes_cli(root, ckpt, device="cuda",
+                        n_pipeline=AUDIOBOX_PIPELINE_TUNES) -> dict:
+    """cli/audio_aes.py (``--ckpt``, ``--batch-size 10``) on ``device`` over
+    phase 33's ``wav_paths.jsonl`` under ``root`` with one missing path
+    appended: a row each, the missing one all NaN, the others finite;
+    files/min and chunks/s of the whole CLI, and the share of its wall in
+    the predictor's blocks. Then ``EvalPipeline`` through
+    cli/abc_to_midi_wav_and_aesthetics.py over the first ``n_pipeline``
+    protocol tunes with ``$AUDIOBOX_WEIGHTS`` = ``ckpt``: the engine
+    ``audio-aes`` and its rows within 1e-5 of the CLI's for the same
+    tunes."""
+    import json
+    import math
+    import os
+    import wave
+
+    from ai_music_generation_tpu_torch.cli import (
+        abc_to_midi_wav_and_aesthetics as abc_cli,
+    )
+    from ai_music_generation_tpu_torch.cli import audio_aes
+    from ai_music_generation_tpu_torch.cli.random_baselines import (
+        random_tunes,
+    )
+    from ai_music_generation_tpu_torch.eval import audiobox
+
+    aes_dir = os.path.join(root, "eval", "audiobox_aesthetics", "builtin",
+                           "tpu_synth", "builtin_sample_bank")
+    paths = [json.loads(line)["path"] for line in
+             open(os.path.join(aes_dir, "wav_paths.jsonl"))]
+    chunks = 0
+    for p in paths:
+        with wave.open(p, "rb") as w:
+            n = w.getnframes()
+        chunks += sum(1 for s in range(0, max(n, 1), AUDIOBOX_CHUNK)
+                      if s == 0 or n - s >= SYNTH_RATE // 10)
+    inp = os.path.join(root, "audio_aes_in.jsonl")
+    with open(inp, "w") as f:
+        for p in paths + [os.path.join(root, "missing.wav")]:
+            f.write(json.dumps({"path": p}) + "\n")
+    out = os.path.join(root, "audio_aes_out.jsonl")
+    block = audiobox.AesPredictor.score_block
+    block_s = []
+
+    def timed_block(self, *args):
+        t0 = time.perf_counter()
+        try:
+            return block(self, *args)  # ends in a copy to the host
+        finally:
+            block_s.append(time.perf_counter() - t0)
+
+    audiobox.AesPredictor.score_block = timed_block
+    try:
+        t0 = time.perf_counter()
+        rc = audio_aes.main([inp, "--ckpt", ckpt, "--batch-size", "10",
+                             "--output", out, f"--device={device}"])
+        wall = time.perf_counter() - t0
+    finally:
+        audiobox.AesPredictor.score_block = block
+    rows = [json.loads(line) for line in open(out)]
+    if rc != 0 or len(rows) != len(paths) + 1 or not all(
+            math.isnan(v) for v in rows[-1].values()) or not all(
+            math.isfinite(v) for r in rows[:-1] for v in r.values()):
+        raise AssertionError(f"audio_aes: rc {rc}, {len(rows)} rows for "
+                             f"{len(paths) + 1} paths")
+    by_name = {os.path.basename(p): r for p, r in zip(paths, rows)}
+    print(f"phase 35: cli/audio_aes.py on {device} over {len(paths)} WAVs "
+          f"+ 1 missing ({chunks} 10-s chunks): {len(rows)} rows, the "
+          f"missing one NaN; {len(paths) / wall * 60:.1f} files/min, "
+          f"{chunks / wall:.1f} chunks/s ({wall:.1f} s; predictor blocks "
+          f"{sum(block_s):.1f} s in {len(block_s)} calls)")
+
+    abc = os.path.join(root, "abc_aes")
+    os.makedirs(abc)
+    for i, text in enumerate(random_tunes(SYNTH_TUNES,
+                                          SYNTH_SEED)[:n_pipeline]):
+        with open(os.path.join(abc, f"sample_{i}.abc"), "w") as f:
+            f.write(text)
+    saved = os.environ.get("AUDIOBOX_WEIGHTS")
+    os.environ["AUDIOBOX_WEIGHTS"] = ckpt
+    try:
+        t0 = time.perf_counter()
+        result = abc_cli.main([abc, os.path.join(root, "eval_aes"),
+                               f"--device={device}"])
+        pipe_wall = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            del os.environ["AUDIOBOX_WEIGHTS"]
+        else:
+            os.environ["AUDIOBOX_WEIGHTS"] = saved
+    pipe_dir = os.path.join(root, "eval_aes", "audiobox_aesthetics",
+                            "builtin", "tpu_synth", "builtin_sample_bank")
+    pipe_paths = [json.loads(line)["path"] for line in
+                  open(os.path.join(pipe_dir, "wav_paths.jsonl"))]
+    pipe_rows = [json.loads(line) for line in
+                 open(os.path.join(pipe_dir, "aesthetics.jsonl"))]
+    if result["aesthetics_engine"] != "audio-aes" or result["n_failed"] or \
+            len(pipe_rows) != n_pipeline:
+        raise AssertionError(f"the pipeline scored with "
+                             f"{result['aesthetics_engine']}, "
+                             f"{len(pipe_rows)} rows, n_failed "
+                             f"{result['n_failed']}")
+    diff = max(abs(r[a] - by_name[os.path.basename(p)][a])
+               for p, r in zip(pipe_paths, pipe_rows) for a in r)
+    if diff > 1e-5:
+        raise AssertionError(f"the pipeline's rows are {diff} off the "
+                             f"CLI's for the same tunes")
+    print(f"phase 35: EvalPipeline with $AUDIOBOX_WEIGHTS over "
+          f"{n_pipeline} tunes on {device}: engine audio-aes, rows within "
+          f"{diff:.2e} of the CLI's; {pipe_wall:.1f} s (scoring "
+          f"{result['stage_seconds']['scoring']:.1f} s)")
+    return dict(files_per_min=len(paths) / wall * 60,
+                chunks_per_s=chunks / wall, wall=wall, chunks=chunks,
+                block_s=sum(block_s), pipeline_diff=diff,
+                pipeline_wall=pipe_wall)
+
+
+@torch.inference_mode()
+def phase_profile_audiobox(batch=10, top=12) -> None:
+    """One forward of the Audiobox predictor (phase 34's seeded WavLM base)
+    at ``batch`` 10-s chunks under ``torch.profiler`` after a warm-up: the
+    busy share of its wall, its kernels and the top device operations, and
+    the device time of the convolutions, the GEMMs and the rest."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ai_music_generation_tpu_torch.eval import audiobox
+
+    pred = audiobox.AesPredictor(
+        _audiobox_config(), batch=batch, device="cuda",
+        generator=torch.Generator().manual_seed(AUDIOBOX_SEED))
+    waves = (0.1 * np.random.default_rng(batch).normal(
+        size=(batch, AUDIOBOX_CHUNK))).astype(np.float32)
+    n_valid = np.full(batch, AUDIOBOX_CHUNK, np.int32)
+    pred.score_block(waves, n_valid)
+    t0 = time.perf_counter()
+    pred.score_block(waves, n_valid)
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pred.score_block(waves, n_valid)
+        profiled = time.perf_counter() - t0
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type != DeviceType.CPU
+                   and e.self_device_time_total > 0), reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    kinds = collections.Counter()
+    for ms, _, key in rows:
+        name = key.lower()
+        kinds["conv" if "conv" in name or "fprop" in name
+              else "gemm" if "gemm" in name or "gemv" in name
+              else "other"] += ms
+    # the union of the kernels' intervals: the device's busy time even where
+    # kernels overlap (their summed durations can exceed the wall)
+    union_us, end = 0.0, float("-inf")
+    for lo, hi in sorted((e.time_range.start, e.time_range.end)
+                         for e in prof.events()
+                         if e.device_type != DeviceType.CPU):
+        union_us += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    print(f"profile audiobox: one forward, {batch} x 10-s chunks, WavLM "
+          f"{pred.config.wavlm.num_layers} x {pred.config.wavlm.hidden_size}"
+          f" fp32; unprofiled {wall * 1e3:.1f} ms, profiled "
+          f"{profiled * 1e3:.1f} ms; {sum(r[1] for r in rows)} kernels, "
+          f"{busy_ms:.2f} ms of kernel time; device busy (their intervals' "
+          f"union) {union_us / 1e3:.2f} ms = "
+          f"{union_us / 1e6 / profiled:.3f} of the profiled wall; by kind "
+          f"(kernel names) "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in kinds.most_common()))
+    for ms, count, key in rows[:top]:
+        print(f"  {ms:10.2f} ms {count:7d} calls  {ms / count:.4f} "
+              f"ms/call  {key[:90]}")
+
+
 def _counted_ops() -> dict:
     """Every kernel wrapper of the port by name; each counts its launches."""
     from ai_music_generation_tpu_torch.ops import decode_attention_int8 as i8
@@ -4118,7 +4565,8 @@ def main(argv=None) -> int:
                              "one train step at 124M and at the music "
                              "widths; tunes_train: one TunesFormer train "
                              "step at the reference config; synth: one "
-                             "render batch of the eval pipeline) of each "
+                             "render batch of the eval pipeline; audiobox: "
+                             "one forward of WavLM base at batch 10) of each "
                              f"of the comma-separated paths (of "
                              f"{', '.join(PROFILED)}; default pallas): no "
                              "checks, no JSON result")
@@ -4129,6 +4577,7 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
         return 1
+    started = time.perf_counter()
     card = phase_environment()
     phase_build()
     if args.profile:
@@ -4139,6 +4588,8 @@ def main(argv=None) -> int:
                 phase_profile_tunes_train()
             elif path == "synth":
                 phase_profile_synth()
+            elif path == "audiobox":
+                phase_profile_audiobox()
             else:
                 phase_profile(path)
             torch.cuda.empty_cache()
@@ -4424,10 +4875,21 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         abc_wav, counts = _main_path(phase_abc_to_wav, tmp, "cuda")
-    synth_launches = {k: n + counts[k] for k, n in synth_launches.items()}
-    if any(synth_launches.values()):
-        raise AssertionError(f"the ABC->WAV path launched kernels of the "
-                             f"port: {synth_launches}")
+        synth_launches = {k: n + counts[k] for k, n in synth_launches.items()}
+        if any(synth_launches.values()):
+            raise AssertionError(f"the ABC->WAV path launched kernels of "
+                                 f"the port: {synth_launches}")
+        torch.cuda.empty_cache()
+        # the Audiobox scorer (phases 34-35) on phase 33's WAVs: no kernel
+        # of the port
+        aes, aes_launches = _main_path(phase_audiobox_model, tmp, "cuda")
+        torch.cuda.empty_cache()
+        aes_cli, counts = _main_path(phase_audio_aes_cli, tmp, aes["ckpt"],
+                                     "cuda")
+        aes_launches = {k: n + counts[k] for k, n in aes_launches.items()}
+        if any(aes_launches.values()):
+            raise AssertionError(f"the Audiobox path launched kernels of "
+                                 f"the port: {aes_launches}")
     torch.cuda.empty_cache()
     print(f"[{card}] ABC->WAV: launches of K1-K7 {synth_launches}; synth "
           f"card vs CPU {synth} of the range; "
@@ -4438,6 +4900,16 @@ def main(argv=None) -> int:
           + ", ".join(f"{r['tunes_per_min']:.1f} tunes/min at synth_batch "
                       f"{b} (peak {r['peak_gib']:.2f} GiB)"
                       for b, r in abc_wav["render"].items()))
+    print(f"[{card}] Audiobox: launches of K1-K7 {aes_launches}; WavLM base "
+          f"card vs CPU {aes['errs']} of the range (default TF32 flags "
+          f"{aes['tf32_errs']}); "
+          + ", ".join(f"forward {t['chunks_per_s']:.1f} 10-s chunks/s at "
+                      f"batch {b} ({t['share']:.3f} of the FLOP bound, peak "
+                      f"{t['peak_gib']:.2f} GiB)"
+                      for b, t in aes["timing"].items())
+          + f"; cli/audio_aes.py {aes_cli['files_per_min']:.1f} files/min, "
+          f"{aes_cli['chunks_per_s']:.1f} chunks/s over {SYNTH_TUNES} WAVs")
+    print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

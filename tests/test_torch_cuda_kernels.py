@@ -1359,3 +1359,81 @@ def test_synth_on_cuda_matches_cpu_and_repeats(cuda, voice, tmp_path):
     for got, ref in zip(first, want):
         assert int(render.trim_trailing_silence(got)) == \
             int(render.trim_trailing_silence(ref))
+
+
+# tests/test_audiobox.py's TINY WavLM geometry
+AUDIOBOX_TINY = dict(
+    hidden_size=64, num_layers=2, num_heads=4, intermediate_size=96,
+    conv_dim=(24, 24, 24), conv_kernel=(10, 3, 3), conv_stride=(5, 2, 2),
+    num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4,
+    num_buckets=32, max_distance=80)
+
+
+def _aes_pair(cuda):
+    from ai_music_generation_tpu_torch.eval.audiobox import (
+        AesPredictor, AudioboxConfig,
+    )
+    from ai_music_generation_tpu_torch.eval.wavlm import WavLMConfig
+
+    cfg = AudioboxConfig(wavlm=WavLMConfig(**AUDIOBOX_TINY))
+    return [AesPredictor(cfg, batch=3, chunk_seconds=0.5, device=d)
+            for d in (cuda, "cpu")]
+
+
+def _hiddens(pred):
+    """Record the encoder's hidden states of each forward."""
+    seen = []
+    pred.model.wavlm.register_forward_hook(
+        lambda module, args, out: seen.append(out[1].cpu()))
+    return seen
+
+
+@pytest.mark.cuda
+def test_tiny_predictor_on_cuda_matches_cpu_under_default_tf32(cuda):
+    """The TINY Audiobox predictor on the card against the CPU with cuDNN's
+    TF32 at PyTorch's default (on) and float32 matmuls set to "high" by the
+    caller: the predictor pins IEEE fp32 itself, so every hidden state and
+    the scores sit within 1e-4 of their range of the CPU's (noise, a
+    ragged chunk, a nearly silent one)."""
+    import numpy as np
+
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.get_float32_matmul_precision())
+    torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        card, cpu = _aes_pair(cuda)
+        rng = np.random.default_rng(0)
+        wave = (0.3 * rng.normal(size=(3, 8000))).astype(np.float32)
+        wave[1, 5000:] = 0.0
+        wave[2] *= 1e-4
+        n_valid = np.array([8000, 5000, 8000], np.int32)
+        seen_card, seen_cpu = _hiddens(card), _hiddens(cpu)
+        got, want = (p.score_block(wave, n_valid) for p in (card, cpu))
+        for i, (g, w) in enumerate(zip(seen_card[0], seen_cpu[0])):
+            span = float(w.max() - w.min())
+            assert float((g - w).abs().max()) / span <= 1e-4, i
+        span = float(want.max() - want.min())
+        assert float(np.abs(got - want).max()) / span <= 1e-4
+        assert torch.backends.cudnn.allow_tf32
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
+
+
+@pytest.mark.cuda
+def test_predictor_chunk_invariance_on_cuda(cuda):
+    """A file scores on the card alone as it does among others (the frame
+    mask reaches the encoder and every row of the canonical batch is
+    computed on its own)."""
+    import numpy as np
+
+    card, _ = _aes_pair(cuda)
+    wave = (0.05 * np.random.default_rng(1).normal(size=12345)).astype(
+        np.float32)
+    alone = card.score_wave(wave)
+    crowd = card.score_waves([(np.zeros(16000, np.float32), 16000),
+                              (wave, 16000)])[1]
+    for axis, value in alone.items():
+        assert abs(value - crowd[axis]) <= 1e-5 * abs(value) + 1e-7, axis

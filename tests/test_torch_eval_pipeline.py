@@ -21,10 +21,12 @@ import pytest
 import torch
 
 from ai_music_generation_tpu.cli import abc_to_midi_wav_and_aesthetics as jax_abc_cli
+from ai_music_generation_tpu.cli import midi_and_wav_to_aesthetics as jax_mw_cli
 from ai_music_generation_tpu.cli import midi_to_wav_and_aesthetics as jax_midi_cli
 from ai_music_generation_tpu.eval import pipeline as jax_pipeline
 from ai_music_generation_tpu_torch.abcnotation.to_midi import abc_file_to_midi_file
 from ai_music_generation_tpu_torch.cli import abc_to_midi_wav_and_aesthetics as abc_cli
+from ai_music_generation_tpu_torch.cli import midi_and_wav_to_aesthetics as mw_cli
 from ai_music_generation_tpu_torch.cli import midi_to_wav_and_aesthetics as midi_cli
 from ai_music_generation_tpu_torch.cli.random_baselines import random_tunes
 from ai_music_generation_tpu_torch.eval import aesthetics
@@ -203,22 +205,77 @@ def test_music21_converter_fails_every_tune_as_jax_does(tmp_path):
 
 
 def test_audiobox_weights_raise_naming_item_5b(tmp_path, monkeypatch):
-    """Where JAX would score with its Audiobox predictor, the port raises:
-    it never scores with the proxy in its place."""
-    weights = tmp_path / "audiobox.pth"
-    weights.write_bytes(b"not read")
+    """Where JAX scores with its Audiobox predictor, so does the port (it
+    raised here, naming ROADMAP item 5b, until the scorer was ported):
+    with ``$AUDIOBOX_WEIGHTS`` naming a checkpoint, ``run_aesthetics``
+    scores with ``eval/audiobox.py`` on the caller's device and returns
+    True, and the pipeline reports ``aesthetics_engine: "audio-aes"`` with
+    model rows (no ``proxy`` key). It never scores with the proxy in its
+    place; a name that is no file leaves the proxy, as in JAX."""
+    from ai_music_generation_tpu_torch.eval import audiobox
+    from ai_music_generation_tpu_torch.eval.wavlm import WavLMConfig
+
+    cfg = audiobox.AudioboxConfig(wavlm=WavLMConfig(
+        hidden_size=32, num_layers=1, num_heads=2, intermediate_size=48,
+        conv_dim=(16, 16, 16), conv_kernel=(10, 3, 3), conv_stride=(5, 2, 2),
+        num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4,
+        num_buckets=32))
+    model = audiobox.init_audiobox_weights(audiobox.AudioboxAesthetics(cfg),
+                                           torch.Generator().manual_seed(0))
+    weights = str(tmp_path / "audiobox.pth")
+    torch.save(model.state_dict(), weights)
+    real, devices = audiobox.AesPredictor, []
+
+    def short_chunks(*args, **kwargs):  # CPU attention is quadratic in frames
+        devices.append(kwargs.get("device"))
+        return real(*args, **dict(kwargs, chunk_seconds=0.5))
+
+    monkeypatch.setattr(audiobox, "AesPredictor", short_chunks)
+    monkeypatch.setattr(aesthetics.shutil, "which", lambda _: None)
     paths = tmp_path / "wav_paths.jsonl"
     paths.write_text(json.dumps({"path": str(tmp_path / "x.wav")}) + "\n")
-    monkeypatch.setenv("AUDIOBOX_WEIGHTS", str(weights))
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        aesthetics.run_aesthetics(str(paths), str(tmp_path / "out.jsonl"))
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        abc_cli.main([_abc_dir(str(tmp_path / "abc"), SHORT_TUNES[:1]),
-                      str(tmp_path / "out"), "--device=cpu"])
+    monkeypatch.setenv("AUDIOBOX_WEIGHTS", weights)
+    out = tmp_path / "out.jsonl"
+    assert aesthetics.run_aesthetics(str(paths), str(out), device="cpu")
+    assert [k for k, v in json.loads(out.read_text()).items()
+            if v == v] == []  # the unreadable file's row: all NaN
+    result = abc_cli.main([_abc_dir(str(tmp_path / "abc"), SHORT_TUNES[:1]),
+                           str(tmp_path / "out"), "--device=cpu"])
+    assert result["aesthetics_engine"] == "audio-aes"
+    assert devices == ["cpu", "cpu"]
+    rows = [json.loads(line) for line in open(os.path.join(
+        str(tmp_path / "out"), "audiobox_aesthetics", "builtin", "tpu_synth",
+        "builtin_sample_bank", "aesthetics.jsonl"))]
+    assert len(rows) == 1 and set(rows[0]) == {"CE", "CU", "PC", "PQ"}
+    assert all(np.isfinite(v) for v in rows[0].values())
     monkeypatch.delenv("AUDIOBOX_WEIGHTS")
     assert aesthetics.run_aesthetics(str(paths), str(tmp_path / "o.jsonl"),
                                      weights=str(tmp_path / "missing")) \
         is False  # a name that is no file leaves the proxy, as in JAX
+
+
+def test_midi_and_wav_cli_writes_jax_tree_without_aesthetics(tmp_path):
+    """cli/midi_and_wav_to_aesthetics.py keeps the JAX CLI's behaviour: the
+    pipeline runs with render_wav=False, so the structural tree is written
+    (byte-equal to JAX's) and no aesthetics stage runs on either side;
+    no stage needs a card."""
+    midi_dir = str(tmp_path / "midi")
+    os.makedirs(midi_dir)
+    for i, text in enumerate(SHORT_TUNES):
+        src = os.path.join(str(tmp_path), f"{i}.abc")
+        with open(src, "w") as f:
+            f.write(text)
+        abc_file_to_midi_file(src, os.path.join(midi_dir, f"sample_{i}.mid"))
+    flags = ["--n_conditioned_measures=1"]
+    got, want, ours, theirs = _run_both(
+        tmp_path, lambda out: jax_mw_cli.main([midi_dir, out, *flags]),
+        lambda out: mw_cli.main([midi_dir, out, *flags]))
+    assert got["n_failed"] == want["n_failed"] == 0
+    assert "aesthetics_engine" not in got and "aesthetics_engine" not in want
+    assert got["aggregated_similarities"] == want["aggregated_similarities"]
+    assert not [f for f in _files(ours)
+                if f.endswith((".wav", "aesthetics.jsonl"))]
+    _check_trees(ours, theirs)
 
 
 def test_no_card_no_mesh(tmp_path, monkeypatch):

@@ -556,3 +556,223 @@ def test_aggregates_equal_jax_with_nan_rows(tmp_path):
                           "rhythm": [0.25, 0.5, float("nan"), 0.0]})
     assert json.dumps(aesthetics.frame_ci_stats(frame)) == \
         json.dumps(jax_aes.frame_ci_stats(frame))
+
+
+# -- the eval tree's last host copies: plotting, the ranking, the IrishMAN
+# pipeline and the A/B harness ----------------------------------------------
+
+
+def _similarity_results(tmp_path):
+    """The same SimilarityResult from each package's calculator (one of a
+    tune, one with no best-match distances, one with an empty matrix)."""
+    paths = _metric_midis(tmp_path, 2)
+    pf, _ = vectorization.MidiVectorizer() \
+        .midi_or_score_to_notes_and_offsets_feature_vectors(paths[0])
+    pairs = [(calculate.calculate_inner_similarity_of_music_vectors(
+        pf, similarities.cyclic_pitch_similarity),
+        jax_calc.calculate_inner_similarity_of_music_vectors(
+            pf, jax_sim.cyclic_pitch_similarity))]
+    for matrix, best in (([[1.0, 0.25], [0.25, 1.0]], [(0.25, [0], [])]),
+                         ([], [])):
+        pairs.append(tuple(mod.SimilarityResult(
+            similarity_matrix=matrix, best_matches=best,
+            mean_best_similarities=0.5) for mod in (calculate, jax_calc)))
+    return pairs
+
+
+def _figure_data(fig):
+    ax = fig.axes[0]
+    return dict(title=ax.get_title(), x=ax.get_xlabel(), y=ax.get_ylabel(),
+                images=[np.asarray(im.get_array()).tolist()
+                        for im in ax.images],
+                bars=[(p.get_x(), p.get_width(), p.get_height())
+                      for p in ax.patches])
+
+
+def test_plotting_copy_equals_jax(tmp_path):
+    """eval/plotting.py: each figure's data (the matrix image, the
+    histograms' bars, titles and labels) and the saved PNG bytes equal
+    the original's."""
+    import matplotlib.pyplot as plt
+
+    from ai_music_generation_tpu.eval import plotting as jax_plotting
+    from ai_music_generation_tpu_torch.eval import plotting
+
+    for i, (ours, theirs) in enumerate(_similarity_results(tmp_path)):
+        for name in ("plot_similarity_matrix",
+                     "plot_distribution_of_best_similarities",
+                     "plot_distribution_of_best_match_measure_distances"):
+            figs = [getattr(mod, name)(res) for mod, res in
+                    ((plotting, ours), (jax_plotting, theirs))]
+            assert _figure_data(figs[0]) == _figure_data(figs[1]), name
+            for fig in figs:
+                plt.close(fig)
+            saved = [str(tmp_path / f"{name}_{i}_{tag}.png")
+                     for tag in ("port", "jax")]
+            getattr(plotting, name)(ours, save_path=saved[0])
+            getattr(jax_plotting, name)(theirs, save_path=saved[1])
+            assert filecmp.cmp(*saved, shallow=False), name
+
+
+def _ranking_inputs(root):
+    """Structural similarity JSONLs (with ties, a file missing from the
+    prefix metric) and the aesthetics dir the ranking CLI joins."""
+    sm, ad = root / "structure", root / "aes"
+    sm.mkdir()
+    ad.mkdir()
+    names = ["file_sample_bwv103.6", "sample_7", "file_12", "plain"]
+    rng = np.random.default_rng(3)
+
+    def rows(n):
+        return "".join(json.dumps({
+            "path": f"/gen/{name}.mid",
+            "melody": {"mean_best_similarities": float(v[0])},
+            "rhythm": {"mean_best_similarities": float(v[1])}}) + "\n"
+            for name, v in zip(names[:n], np.round(
+                rng.uniform(size=(n, 2)), 1)))
+
+    (sm / "inner_similarity.jsonl").write_text(rows(4))
+    (sm / "conditional_prefix_similarity.jsonl").write_text(rows(3))
+    (sm / "reference_similarity.jsonl").write_text(rows(4))
+    (ad / "wav_paths.jsonl").write_text("".join(
+        json.dumps({"path": f"/wav/{n}.wav"}) + "\n" for n in names))
+    (ad / "aesthetics.jsonl").write_text("".join(
+        json.dumps({a: float(v) for a, v in zip(("CE", "CU", "PC", "PQ"),
+                                                np.round(rng.uniform(
+                                                    1, 10, 4), 0))}) + "\n"
+        for _ in names[:3]))
+    return str(sm), str(ad)
+
+
+@pytest.mark.parametrize("with_reference", [False, True],
+                         ids=["plain", "reference"])
+def test_create_generations_ranking_equals_jax(tmp_path, with_reference):
+    """cli/create_generations_ranking.py: all_metrics.csv,
+    detailed_ranking.csv, final_ranking.csv and ranked_identifiers.txt
+    byte-equal to the original's (ties ranked with method="min", a file
+    without aesthetics), and the same returned frame."""
+    from ai_music_generation_tpu.cli import create_generations_ranking as jax_rank
+    from ai_music_generation_tpu_torch.cli import create_generations_ranking
+
+    sm, ad = _ranking_inputs(tmp_path)
+    flags = ["--include_reference_similarities"] if with_reference else []
+    got = create_generations_ranking.main(
+        [sm, ad, str(tmp_path / "port"), *flags])
+    want = jax_rank.main([sm, ad, str(tmp_path / "jax"), *flags])
+    assert got.equals(want)
+    files = sorted(os.listdir(tmp_path / "jax"))
+    assert files == sorted(os.listdir(tmp_path / "port")) == [
+        "all_metrics.csv", "detailed_ranking.csv", "final_ranking.csv",
+        "ranked_identifiers.txt"]
+    for name in files:
+        assert filecmp.cmp(tmp_path / "port" / name, tmp_path / "jax" / name,
+                           shallow=False), name
+    assert create_generations_ranking.extract_identifier_from_path(
+        "/a/file_sample_x.1.wav") == "x.1"
+
+
+IRISH = [{"abc notation": f"X:{i}\nL:1/8\nM:4/4\nK:{key}\n{body}|\n",
+          "control code": f"S:{i % 3}"}
+         for i, (key, body) in enumerate([
+             ("C", "CDEF GABc"), ("G", "GABc d2B2"), ("D", "DEFG A4"),
+             ("A", "ABcd e4"), ("C", "c2B2 A2G2"), ("F", "FGAB c4")])]
+IRISH.append({"abc notation": "L:1/8\nK:C\nCDEF|\n"})  # no X: header
+
+
+def _irish_run(main, root, inputs):
+    """preprocess, leadsheet-subset, split-validation and to-midi through
+    one CLI's ``main``, writing under ``root``."""
+    pre = os.path.join(root, "pre")
+    main(["preprocess", *inputs, "--out_dir", pre])
+    ids = os.path.join(root, "ids.json")
+    with open(ids, "w") as f:
+        json.dump([1, "3", 5, 99], f)
+    pre_files = [os.path.join(pre, os.path.basename(p)) for p in inputs]
+    main(["leadsheet-subset", *pre_files, "--leadsheet_ids", ids,
+          "--out_dir", os.path.join(root, "lead")])
+    main(["split-validation", pre_files[0], "--out_dir",
+          os.path.join(root, "split"), "--seed", "7"])
+    main(["to-midi", pre_files[0], "--out_dir", os.path.join(root, "midi")])
+
+
+def test_irishman_pipeline_equals_jax(tmp_path):
+    """cli/irishman_pipeline.py: the preprocess, leadsheet-subset and
+    split-validation JSON byte-equal to the original's, and to-midi's .abc
+    and MIDI bytes equal (a tune without an X: header included)."""
+    from ai_music_generation_tpu.cli import irishman_pipeline as jax_irish
+    from ai_music_generation_tpu_torch.cli import irishman_pipeline
+
+    inputs = []
+    for name, entries in (("train.json", IRISH), ("valid.json", IRISH[2:5])):
+        inputs.append(str(tmp_path / name))
+        with open(inputs[-1], "w") as f:
+            json.dump(entries, f)
+    _irish_run(irishman_pipeline.main, str(tmp_path / "port"), inputs)
+    _irish_run(jax_irish.main, str(tmp_path / "jax"), inputs)
+
+    def tree(root):
+        return sorted(os.path.relpath(os.path.join(d, f), root)
+                      for d, _, fs in os.walk(root) for f in fs)
+
+    files = tree(tmp_path / "jax")
+    assert files == tree(tmp_path / "port")
+    assert sum(f.endswith(".mid") for f in files) == len(IRISH)
+    for rel in files:
+        assert filecmp.cmp(tmp_path / "port" / rel, tmp_path / "jax" / rel,
+                           shallow=False), rel
+
+
+def test_irishman_to_midi_renders_and_scores_on_the_device(tmp_path,
+                                                          monkeypatch):
+    """to-midi --render_wav renders and scores on ``--device`` (cpu here):
+    a WAV per tune, a proxy row each, the aggregate; without a card the
+    default device raises before any tune is written."""
+    from ai_music_generation_tpu_torch.cli import irishman_pipeline
+
+    src = str(tmp_path / "tunes.json")
+    with open(src, "w") as f:
+        json.dump(IRISH[:2], f)
+    out = tmp_path / "out"
+    irishman_pipeline.main(["to-midi", src, "--out_dir", str(out),
+                            "--render_wav", "--device", "cpu"])
+    assert sorted(os.listdir(out / "wav")) == ["0.wav", "1.wav"]
+    rows = [json.loads(line) for line in open(out / "aesthetics.jsonl")]
+    assert len(rows) == 2 and all(r["proxy"] for r in rows)
+    assert set(json.load(open(out / "aesthetics_aggregated.json"))) >= {
+        "mean", "ci95_lower"}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        irishman_pipeline.main(["to-midi", src, "--out_dir",
+                                str(tmp_path / "none"), "--render_wav"])
+    assert not os.path.exists(tmp_path / "none")
+
+
+def test_aesthetics_ab_report_equals_jax(tmp_path, monkeypatch):
+    """cli/aesthetics_ab.py without audio-aes on PATH: proxy.jsonl
+    byte-equal to the original's and the same ab_report.json (its
+    ``real_available: false``, the proxy file's path aside)."""
+    from ai_music_generation_tpu.cli import aesthetics_ab as jax_ab_cli
+    from ai_music_generation_tpu_torch.cli import aesthetics_ab
+
+    monkeypatch.setattr(aesthetics.shutil, "which", lambda _: None)
+    rng = np.random.default_rng(8)
+    paths = []
+    for i, sec in enumerate((1.5, 3.0)):
+        paths.append(str(tmp_path / f"{i}.wav"))
+        wav_io.write_wav(paths[-1], (0.3 * rng.normal(size=int(16000 * sec)))
+                         .astype(np.float32))
+    paths.append(str(tmp_path / "missing.wav"))
+    jsonl = tmp_path / "wav_paths.jsonl"
+    jsonl.write_text("".join(json.dumps({"path": p}) + "\n" for p in paths))
+    got = aesthetics_ab.main([str(jsonl), str(tmp_path / "port"),
+                              "--device", "cpu"])
+    want = jax_ab_cli.main([str(jsonl), str(tmp_path / "jax")])
+    assert got["real_available"] is want["real_available"] is False
+    assert filecmp.cmp(tmp_path / "port" / "proxy.jsonl",
+                       tmp_path / "jax" / "proxy.jsonl", shallow=False)
+    reports = [json.load(open(tmp_path / side / "ab_report.json"))
+               for side in ("port", "jax")]
+    for report, side in zip(reports, ("port", "jax")):
+        assert report.pop("proxy_jsonl") == str(tmp_path / side /
+                                                "proxy.jsonl")
+    assert reports[0] == reports[1] == {"real_available": False, "axes": {}}

@@ -21,6 +21,11 @@ MODULES = [
     "ai_music_generation_tpu_torch.abcnotation.to_midi",
     "ai_music_generation_tpu_torch.cli.abc_to_midi_wav_and_aesthetics",
     "ai_music_generation_tpu_torch.cli.add_control_codes",
+    "ai_music_generation_tpu_torch.cli.aesthetics_ab",
+    "ai_music_generation_tpu_torch.cli.audio_aes",
+    "ai_music_generation_tpu_torch.cli.create_generations_ranking",
+    "ai_music_generation_tpu_torch.cli.irishman_pipeline",
+    "ai_music_generation_tpu_torch.cli.midi_and_wav_to_aesthetics",
     "ai_music_generation_tpu_torch.cli.midi_to_wav_and_aesthetics",
     "ai_music_generation_tpu_torch.cli.random_baselines",
     "ai_music_generation_tpu_torch.cli.sample",
@@ -45,10 +50,13 @@ MODULES = [
     "ai_music_generation_tpu_torch.decode.speculative",
     "ai_music_generation_tpu_torch.decode.tunes_generate",
     "ai_music_generation_tpu_torch.eval.aesthetics",
+    "ai_music_generation_tpu_torch.eval.audiobox",
     "ai_music_generation_tpu_torch.eval.calculate",
     "ai_music_generation_tpu_torch.eval.pipeline",
+    "ai_music_generation_tpu_torch.eval.plotting",
     "ai_music_generation_tpu_torch.eval.similarities",
     "ai_music_generation_tpu_torch.eval.vectorization",
+    "ai_music_generation_tpu_torch.eval.wavlm",
     "ai_music_generation_tpu_torch.experiments",
     "ai_music_generation_tpu_torch.experiments.int4_kernel_probe",
     "ai_music_generation_tpu_torch.experiments.k1_ab",
@@ -170,6 +178,16 @@ def test_port_imports_without_triton_or_nvcc():
         "render_events\n"
         "assert render_events([[60.0, 0.0, 800.0, 0.5]], 1600, "
         "device='cpu').shape == (1600,)\n"
+        "import numpy as np\n"
+        "from ai_music_generation_tpu_torch.eval.audiobox import "
+        "AesPredictor, AudioboxConfig\n"
+        "from ai_music_generation_tpu_torch.eval.wavlm import WavLMConfig\n"
+        "aes = AesPredictor(AudioboxConfig(wavlm=WavLMConfig(hidden_size=32, "
+        "num_layers=1, num_heads=2, intermediate_size=32, conv_dim=(8, 8), "
+        "conv_kernel=(10, 3), conv_stride=(5, 2), num_conv_pos_embeddings=4, "
+        "num_conv_pos_embedding_groups=2, num_buckets=8, max_distance=16)), "
+        "batch=2, chunk_seconds=0.1, device='cpu')\n"
+        "assert len(aes.score_wave(np.zeros(2000, np.float32))) == 4\n"
         "print(_build.load_library.cache_info().currsize, "
         "gqa_decode_update.launches, spec_attention_update.launches, "
         "decode_attention.launches, lean_attention.launches)\n",
