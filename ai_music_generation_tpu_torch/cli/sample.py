@@ -21,7 +21,8 @@ reference's nanoGPT sampler):
   port's sampling streams are its own (torch, not JAX threefry): greedy
   fp32 output equals the JAX CLI's, sampled output does not;
 - the model loads from ``<out_dir>/ckpt.pt`` (nanoGPT format,
-  ``models/nanogpt_ckpt.py``) onto the CUDA card. ``--device=cpu`` runs on
+  ``models/nanogpt_ckpt.py``; a GQA or MoE architecture from its
+  ``model_args``) onto the CUDA card. ``--device=cpu`` runs on
   the CPU (the tests do); without a card and without that override the run
   raises. An out_dir with only the JAX package's orbax checkpoint raises
   with the conversion command, and ``init_from=gpt2*`` raises: that needs

@@ -11,7 +11,9 @@ then:
 
 The headline serving configuration of docs/SERVING.md, for a GQA
 checkpoint: ``--kv_quantized=True --flat_kv=True --n_slots=8192
---cache_len=128 --ticks_per_call=64 --admit_group=512``. ``--mesh`` (sharded
+--cache_len=128 --ticks_per_call=64 --admit_group=512``. An MoE checkpoint
+(``model_args`` with ``n_expert``) serves as it is: every slot ticks, so the
+experts route all ``n_slots`` rows of a tick together. ``--mesh`` (sharded
 serving) is not ported yet and raises; ``--device=cpu`` serves from the CPU
 (the plain twins, for tests).
 """

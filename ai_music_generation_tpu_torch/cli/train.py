@@ -10,7 +10,9 @@ A positional argument is a Python config file executed over the defaults;
 ``--device=cpu`` trains on the CPU (the tests do), and without a card and
 without that flag it raises. It writes ``<out_dir>/ckpt.pt``,
 ``last_iter_ckpt.pt`` and ``losses.jsonl``; ``--init_from=resume``
-continues from ``last_iter_ckpt.pt``.
+continues from ``last_iter_ckpt.pt``. ``--n_expert=4 --expert_top_k=2
+--capacity_factor=1.25 --moe_aux_coef=0.01`` trains a Mixture-of-Experts
+GPT (``models/moe.py``), as the JAX CLI does.
 """
 
 import sys

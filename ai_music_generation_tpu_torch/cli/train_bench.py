@@ -14,7 +14,10 @@ train_bench.py``; nanoGPT's bench.py):
 Batches are memmap samples when ``dataset`` is given, else random tokens
 from a ``torch.Generator`` seeded with ``seed`` on the device, new for every
 step. The step is ``train/step.py``'s with AdamW at lr 6e-4 and a clip at 1.
-The run is on the card unless ``--device=cpu``.
+``--n_expert=4`` (with ``--expert_top_k``, ``--capacity_factor``,
+``--moe_aux_coef``) times an MoE model; its MFU counts every expert, as
+JAX's does, so it is inflated. The run is on the card unless
+``--device=cpu``.
 """
 
 from __future__ import annotations
@@ -58,6 +61,10 @@ DEFAULTS = dict(
     device="cuda",
     remat=False,
     attn_impl="xla",  # "flash": scaled_dot_product_attention
+    n_expert=0,  # Mixture-of-Experts (models/moe.py): experts a block MLP
+    expert_top_k=2,
+    capacity_factor=1.25,
+    moe_aux_coef=0.01,
 )
 
 
@@ -74,7 +81,10 @@ def setup(c: dict) -> dict:
         block_size=c["block_size"], vocab_size=c["vocab_size"],
         n_layer=c["n_layer"], n_head=c["n_head"], n_embd=c["n_embd"],
         dropout=c["dropout"], bias=c["bias"], remat=c["remat"],
-        attn_impl=c["attn_impl"],
+        attn_impl=c["attn_impl"], n_expert=c["n_expert"],
+        expert_top_k=c["expert_top_k"],
+        capacity_factor=c["capacity_factor"],
+        moe_aux_coef=c["moe_aux_coef"],
         dtype=torch.bfloat16 if c["dtype"] == "bfloat16" else torch.float32,
     )
     model = init_weights(GPT(cfg, device=device),

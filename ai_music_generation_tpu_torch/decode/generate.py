@@ -14,6 +14,12 @@ The protocol is the JAX Generator's:
 Each decode step runs eagerly and never syncs with the host: the cache
 length, the prompt test and the sampling all stay on the device.
 
+Every model call sees the tokens the JAX Generator's sees: the whole
+power-of-two prefill bucket, every row of the batch (finished rows too) and
+the same refresh length. An MoE model's routing couples the rows of a call
+(the experts' capacity is shared), so this is what keeps its tokens equal
+to JAX's.
+
 Sampling draws from a ``torch.Generator`` seeded with ``seed``, consumed in
 step order. JAX's ``fold_in`` streams cannot be reproduced, so the port's
 contract is its own: the same seed and inputs give identical tokens.

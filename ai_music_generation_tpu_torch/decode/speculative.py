@@ -17,7 +17,8 @@ one read of the cache:
 
 Rows accept different numbers of drafts, yet every step writes all rows'
 fresh K/V as one slab at the shared cursor; rejected drafts' columns are
-re-marked dead in ``col_pos``. Past the cache's capacity the last
+re-marked dead in ``col_pos``. An MoE model routes the B x (n_draft + 1)
+tokens of a verify step together, as JAX does. Past the cache's capacity the last
 ``block_size - refresh`` committed tokens are re-prefilled, which also
 compacts the dead columns away.
 

@@ -34,7 +34,6 @@ GELU -> Linear(256->1), per the paper), configurable via ``head_hidden``.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import json
 import re
@@ -47,7 +46,10 @@ from torch import nn
 from ai_music_generation_tpu_torch.eval.wavlm import (
     WavLMConfig, WavLMEncoder, _truncated, init_wavlm_weights,
 )
-from ai_music_generation_tpu_torch.utils.device import resolve_device
+from ai_music_generation_tpu_torch.utils.device import (
+    ieee_fp32,
+    resolve_device,
+)
 
 AXES = ("CE", "CU", "PC", "PQ")
 SAMPLE_RATE = 16_000
@@ -340,23 +342,6 @@ def load_torch_checkpoint(path: str) -> dict:
 
 
 # ---------------------------------------------------------------- inference
-
-
-@contextlib.contextmanager
-def ieee_fp32():
-    """IEEE fp32 products inside the block: cuDNN's convolutions without
-    TF32 (on by default in PyTorch) and float32 matmuls at "highest",
-    whatever the process set; both restored on exit."""
-    cudnn = torch.backends.cudnn
-    matmul = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                         deterministic=cudnn.deterministic,
-                         allow_tf32=False):
-            yield
-    finally:
-        torch.set_float32_matmul_precision(matmul)
 
 
 class AesPredictor:

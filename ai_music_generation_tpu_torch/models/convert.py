@@ -21,6 +21,7 @@ from torch import nn
 from ai_music_generation_tpu_torch.eval.audiobox import AudioboxConfig
 from ai_music_generation_tpu_torch.eval.wavlm import WavLMConfig
 from ai_music_generation_tpu_torch.models.gpt import GPT, GPTConfig
+from ai_music_generation_tpu_torch.models.moe import MoEMLP
 from ai_music_generation_tpu_torch.models.tunesformer import (
     TunesFormer, TunesFormerConfig,
 )
@@ -50,12 +51,19 @@ def _t(x, transpose=False) -> torch.Tensor:
 def _core_from_jax(p: Mapping[str, Any], config: GPTConfig,
                    prefix: str) -> dict[str, torch.Tensor]:
     """``wpe``, the blocks and ``ln_f`` of one JAX GPT stack (a GPT's
-    params or a TunesFormer core's) under ``prefix``."""
+    params or a TunesFormer core's) under ``prefix``. An MoE block's
+    ``moe`` leaves (JAX moe.py:54-78) keep their layouts (``w_fc`` [E, C,
+    4C], ``w_proj`` [E, 4C, C], the biases [E, .]); its router kernel
+    [C, E] is transposed to the ``Linear`` weight."""
     out = {prefix + "wpe.weight": _t(p["wpe"]["embedding"])}
+    mlp = () if config.n_expert > 0 else (("mlp", ("c_fc", "c_proj")),)
     for i in range(config.n_layer):
         blk, h = p[f"h_{i}"], f"{prefix}h.{i}."
+        if config.n_expert > 0:
+            out.update({h + "moe." + k: v for k, v in
+                        moe_state_dict_from_jax(blk["moe"]).items()})
         for mod, names in (("ln_1", None), ("attn", ("c_attn", "c_proj")),
-                           ("ln_2", None), ("mlp", ("c_fc", "c_proj"))):
+                           ("ln_2", None)) + mlp:
             if names is None:  # LayerNorm
                 out[h + mod + ".weight"] = _t(blk[mod]["scale"])
                 if config.bias:
@@ -69,6 +77,16 @@ def _core_from_jax(p: Mapping[str, Any], config: GPTConfig,
     out[prefix + "ln_f.weight"] = _t(p["ln_f"]["scale"])
     if config.bias:
         out[prefix + "ln_f.bias"] = _t(p["ln_f"]["bias"])
+    return out
+
+
+def moe_state_dict_from_jax(p: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """One JAX ``MoEMLP``'s params (numpy leaves) -> the port's
+    ``MoEMLP`` state dict: the experts and their biases (when present) as
+    they are, the router kernel transposed."""
+    out = {n: _t(p[n]) for n in ("w_fc", "w_proj", "b_fc", "b_proj")
+           if n in p}
+    out["router.weight"] = _t(p["router"]["kernel"], transpose=True)
     return out
 
 
@@ -200,8 +218,10 @@ def _wavlm_from_jax(flat: dict, prefix: str,
 def init_weights(model: GPT, generator: torch.Generator) -> GPT:
     """The JAX package's init in place: every Linear and Embedding weight
     N(0, 0.02), the residual projections (both ``c_proj``) N(0,
-    0.02/sqrt(2*n_layer)), biases 0, LayerNorm scales 1. ``generator`` must
-    be on the model's device."""
+    0.02/sqrt(2*n_layer)), biases 0, LayerNorm scales 1; an MoE block's
+    experts as its MLP would be (``w_fc`` N(0, 0.02), ``w_proj`` the
+    residual std, biases 0) and its router N(0, 0.02) (JAX moe.py:54-78).
+    ``generator`` must be on the model's device."""
     _init_modules(model, model.config.n_layer, generator)
     return model
 
@@ -210,7 +230,13 @@ def _init_modules(root: nn.Module, n_layer: int,
                   generator: torch.Generator) -> None:
     proj_std = 0.02 / math.sqrt(2 * n_layer)
     for name, module in root.named_modules():
-        if isinstance(module, nn.Linear):
+        if isinstance(module, MoEMLP):
+            module.w_fc.normal_(0.0, 0.02, generator=generator)
+            module.w_proj.normal_(0.0, proj_std, generator=generator)
+            for bias in (module.b_fc, module.b_proj):
+                if bias is not None:
+                    bias.zero_()
+        elif isinstance(module, nn.Linear):
             if name == "lm_head":
                 continue  # tied to transformer.wte, initialised there
             std = proj_std if name.endswith("c_proj") else 0.02

@@ -38,7 +38,12 @@ when ``remat`` recomputes a block; ``remat`` checkpoints each block
 (``torch.utils.checkpoint``); :func:`estimate_mfu` is the PaLM formula over
 :func:`peak_flops_for`'s peak of the card.
 
-Not ported yet: MoE and sequence parallelism.
+MoE (JAX gpt.py:843-848, 962-1007): with ``n_expert > 0`` each block's MLP
+is ``models.moe.MoEMLP``, the forward sums its load-balance aux over the
+layers and a loss with targets gains ``moe_aux_coef * aux / n_layer``.
+Routing couples the tokens of a call (the experts' capacity is shared), so
+every cache mode runs the MoE sublayer on all the call's tokens, as JAX
+does. Not ported yet: sequence parallelism.
 """
 
 from __future__ import annotations
@@ -79,8 +84,11 @@ class GPTConfig:
     prefill (plain torch ops, as XLA einsums in JAX), and of the no-cache
     forward only ``"flash"`` does. ``spec_int8_dots`` selects the int8 x
     int8 products of the speculative verify attention on an int8 spec
-    cache (on the CPU as well: there the op runs that mode's plain twin). ``n_expert > 0`` and
-    ``seq_axis`` are refused by :class:`GPT`."""
+    cache (on the CPU as well: there the op runs that mode's plain twin).
+    ``n_expert > 0`` replaces every block's MLP with ``n_expert`` routed
+    experts (``models/moe.py``: ``expert_top_k`` a token, buffers of
+    ``capacity_factor`` x the balanced share, the aux loss weighted by
+    ``moe_aux_coef``). ``seq_axis`` is refused by :class:`GPT`."""
 
     block_size: int = 1024
     vocab_size: int = 50304
@@ -511,22 +519,37 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block."""
+    """Pre-LN transformer block. With ``config.n_expert > 0`` the MLP is
+    the routed ``moe`` (``models/moe.py``) and ``forward`` returns
+    ``(x, aux)``, else ``x``: the arity is fixed by the config, as in JAX
+    (gpt.py:818-848), so the dense callers (TunesFormer) are unchanged.
+    ``aux=False`` skips the load-balance term (aux None) where no loss
+    reads it; JAX's jit drops that dead value, the eager port must not
+    launch it."""
 
     def __init__(self, config: GPTConfig):
         super().__init__()
         C = config.n_embd
+        self.config = config
         self.ln_1 = nn.LayerNorm(C, eps=1e-5, bias=config.bias,
                                  dtype=config.param_dtype)
         self.attn = CausalSelfAttention(config)
         self.ln_2 = nn.LayerNorm(C, eps=1e-5, bias=config.bias,
                                  dtype=config.param_dtype)
-        self.mlp = MLP(config)
+        if config.n_expert > 0:
+            from ai_music_generation_tpu_torch.models.moe import MoEMLP
+
+            self.moe = MoEMLP(config)
+        else:
+            self.mlp = MLP(config)
 
     def forward(self, x, layer_cache=None, cache_len=None, cursor=None,
-                spec_col_pos=None, mask_rel=None, drop=None):
+                spec_col_pos=None, mask_rel=None, drop=None, aux=True):
         x = x + self.attn(_layer_norm(x, self.ln_1), layer_cache, cache_len,
                           cursor, spec_col_pos, mask_rel, drop)
+        if self.config.n_expert > 0:
+            y, aux = self.moe(_layer_norm(x, self.ln_2), drop, aux)
+            return x + y, aux
         return x + self.mlp(_layer_norm(x, self.ln_2), drop)
 
 
@@ -559,9 +582,9 @@ class GPT(nn.Module):
 
     def __init__(self, config: GPTConfig, device=None):
         super().__init__()
-        if config.n_expert > 0 or config.seq_axis is not None:
+        if config.seq_axis is not None:
             raise NotImplementedError(
-                "MoE and sequence parallelism are not ported yet")
+                "sequence parallelism is not ported yet")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -625,28 +648,43 @@ class GPT(nn.Module):
             x = dropout(x, *drop, 0, SITE_EMBED)
         # remat (JAX gpt.py:945-948): each block's activations are
         # recomputed in the backward pass; the masks are counter hashes, so
-        # no RNG state needs restoring
+        # no RNG state needs restoring, and an MoE block's routing is a
+        # function of its input, so the recompute routes as it did
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
+        # only the loss reads the MoE aux (targets never come with a cache)
+        need_aux = targets is not None
+        aux_total = None
         for i, block in enumerate(self.transformer.h):
             if cache is None:
                 layer_drop = None if drop is None else (*drop, i)
                 if remat:
-                    x = checkpoint(block, x, drop=layer_drop,
-                                   use_reentrant=False,
-                                   preserve_rng_state=False)
+                    out = checkpoint(block, x, drop=layer_drop, aux=need_aux,
+                                     use_reentrant=False,
+                                     preserve_rng_state=False)
                 else:
-                    x = block(x, drop=layer_drop)
-                continue
-            layer_cache = (
-                cache.k[i], cache.v[i],
-                None if cache.k_scale is None else cache.k_scale[i],
-                None if cache.v_scale is None else cache.v_scale[i])
-            x = block(x, layer_cache, cache.length, cache.cursor,
-                      spec_col_pos, mask_rel)
+                    out = block(x, drop=layer_drop, aux=need_aux)
+            else:
+                layer_cache = (
+                    cache.k[i], cache.v[i],
+                    None if cache.k_scale is None else cache.k_scale[i],
+                    None if cache.v_scale is None else cache.v_scale[i])
+                out = block(x, layer_cache, cache.length, cache.cursor,
+                            spec_col_pos, mask_rel, aux=False)
+            if cfg.n_expert > 0:
+                x, aux = out
+                if need_aux:
+                    aux_total = aux if aux_total is None else aux_total + aux
+            else:
+                x = out
         x = _layer_norm(x, self.transformer.ln_f)
         if targets is not None:
             logits = F.linear(x, wte)  # weight tying
-            return logits, cross_entropy_ignore_index(logits, targets)
+            loss = cross_entropy_ignore_index(logits, targets)
+            if cfg.n_expert > 0:
+                # the aux averaged over layers, so moe_aux_coef does not
+                # depend on the depth (JAX gpt.py:1004-1007)
+                loss = loss + cfg.moe_aux_coef * aux_total / cfg.n_layer
+            return logits, loss
         if spec_col_pos is not None:
             # JAX gpt.py:981-998: the cursor advances by the 8-aligned
             # write width, the length as if every token were accepted
@@ -721,7 +759,9 @@ def estimate_mfu(config: GPTConfig, n_params: int, fwdbwd_per_iter: float,
                  dt: float, peak_flops: Optional[float] = None) -> float:
     """PaLM-appendix-B MFU estimate (JAX gpt.py:1089-1095): ``n_params``
     without the position table (``GPT.num_params()``), ``fwdbwd_per_iter``
-    sequences of block_size tokens per iteration of ``dt`` seconds."""
+    sequences of block_size tokens per iteration of ``dt`` seconds. As in
+    JAX, an MoE model's every expert counts, though a token runs only
+    ``expert_top_k`` of them: its MFU is inflated."""
     L, H, Q, T = (config.n_layer, config.n_head, config.head_dim,
                   config.block_size)
     flops_per_token = 6 * n_params + 12 * L * H * Q * T

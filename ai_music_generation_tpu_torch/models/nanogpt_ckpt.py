@@ -12,15 +12,22 @@ format around them:
   non-flash reference build registers; a state without ``lm_head.weight``
   takes it from the tied ``transformer.wte.weight``;
 - the config comes from ``model_args`` (``n_kv_head`` too, when a GQA
-  checkpoint carries it);
+  checkpoint carries it, and ``MOE_KEYS`` when an MoE one does);
 - save writes the full key set with the tied ``lm_head.weight`` sharing
   ``transformer.wte.weight``'s storage, the trainer's AdamW state (on the
   CPU) or, without one, a fresh AdamW state with nanoGPT's decay /
   no-decay groups (so a reference resume loads it), ``model_args``
   (with ``n_kv_head`` for a GQA model, which the JAX
-  ``load_reference_ckpt`` reads with an ``n_kv_head`` override), and
+  ``load_reference_ckpt`` reads with an ``n_kv_head`` override, and
+  ``MOE_KEYS`` for an MoE model, as the JAX trainer writes them), and
   ``iter_num``, ``best_val_loss`` and the training ``config`` (whose
   ``dataset`` names the codec's meta.pkl).
+
+An MoE model's state dict holds the port's ``transformer.h.{i}.moe.*``
+parameters in place of ``mlp.*``: nanoGPT has no MoE layer
+(nanoGPT/model.py:78-92), so nanoGPT itself cannot load such a file (the
+JAX exporter refuses MoE models for the same reason,
+``nanogpt_ckpt.py:140-143``); the port's loaders and trainer read it.
 
 ``torch.load`` unpickles: load only checkpoints this program or a trusted
 trainer wrote.
@@ -38,6 +45,11 @@ from ai_music_generation_tpu_torch.models.gpt import GPT, GPTConfig
 MODEL_ARGS_KEYS = ("n_layer", "n_head", "n_embd", "block_size", "bias",
                    "vocab_size")
 
+# the MoE architecture, in model_args only when n_expert > 0 (JAX
+# train/trainer.py:97-99, 151-152), so dense checkpoints keep nanoGPT's
+# exact key set
+MOE_KEYS = ("n_expert", "expert_top_k", "capacity_factor", "moe_aux_coef")
+
 _ORIG_MOD = "_orig_mod."
 _MASK_BUFFERS = (".attn.bias", ".attn.masked_bias")
 
@@ -52,12 +64,14 @@ def strip_compile_prefix(state: Mapping[str, Any]) -> dict[str, Any]:
 
 def config_from_model_args(model_args: Mapping[str, Any],
                            **overrides) -> GPTConfig:
-    """GPTConfig from a checkpoint's model_args dict; ``n_kv_head`` is
-    taken when present."""
+    """GPTConfig from a checkpoint's model_args dict; ``n_kv_head`` and
+    the ``MOE_KEYS`` are taken when present."""
     kwargs = {k: model_args[k] for k in MODEL_ARGS_KEYS}
     kwargs["dropout"] = float(model_args.get("dropout", 0.0))
     if model_args.get("n_kv_head") is not None:
         kwargs["n_kv_head"] = int(model_args["n_kv_head"])
+    if model_args.get("n_expert"):
+        kwargs.update({k: model_args[k] for k in MOE_KEYS})
     kwargs.update(overrides)
     return GPTConfig(**kwargs)
 
@@ -87,7 +101,9 @@ def load_ckpt(path: str, device=None, **config_overrides):
     model = GPT(config, device=device)
     model.load_state_dict(model_state(ckpt))
     meta = {
-        "model_args": {k: ckpt["model_args"][k] for k in MODEL_ARGS_KEYS},
+        "model_args": {k: ckpt["model_args"][k]
+                       for k in MODEL_ARGS_KEYS + MOE_KEYS
+                       if k in ckpt["model_args"]},
         "iter_num": int(ckpt.get("iter_num", 0)),
         "best_val_loss": float(ckpt.get("best_val_loss", 1e9)),
         "config": dict(ckpt.get("config", {})),
@@ -131,13 +147,16 @@ def save_ckpt(path: str, model: GPT, iter_num: int = 0,
     ``optimizer`` (the trainer's AdamW, ``train/optimizer.py``) is stored
     as its ``state_dict`` on the CPU; without one the checkpoint holds a
     fresh AdamW state. GQA models are written too: their ``c_attn`` is
-    [C + 2*KH*D, C] and ``model_args`` carries ``n_kv_head``."""
+    [C + 2*KH*D, C] and ``model_args`` carries ``n_kv_head``; so are MoE
+    models, with ``MOE_KEYS`` in ``model_args`` (module docstring)."""
     config = model.config
     train_config = dict(train_config or {})
     model_args = {k: getattr(config, k) for k in MODEL_ARGS_KEYS}
     model_args["dropout"] = config.dropout
     if config.kv_heads != config.n_head:
         model_args["n_kv_head"] = config.n_kv_head
+    if config.n_expert > 0:
+        model_args.update({k: getattr(config, k) for k in MOE_KEYS})
     # one CPU tensor per parameter: the tied lm_head / wte share storage,
     # so torch.save writes it once and a loader sees the tie
     copies: dict[int, torch.Tensor] = {}

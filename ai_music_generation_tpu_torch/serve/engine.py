@@ -47,7 +47,11 @@ The hash is integer arithmetic in plain torch ops on int64 (no product
 reaches 2^63), so it gives the same bits on the CPU and the card. A
 request's output therefore does not depend on its slot, on the batch
 composition or on when it arrived (up to the floating-point differences of
-other batch shapes in the prefill's matrix products).
+other batch shapes in the prefill's matrix products). An MoE model is the
+exception: its experts' capacity is shared by the rows of a call, so a
+row's routing, and its tokens, depend on the other slots; every slot ticks,
+idle ones included, as in JAX, so the port's engine routes the tokens the
+JAX engine routes.
 
 Slots whose request finished keep ticking masked (``active`` False pins
 their cache length and logits) until new work is admitted.

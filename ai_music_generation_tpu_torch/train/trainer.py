@@ -20,9 +20,11 @@ trainer.py`` (and, through it, of nanoGPT's train.py):
 One card: ``n_data`` is 1, so the micro-batch is ``batch_size`` and
 ``grad_accum`` is ``gradient_accumulation_steps``. ``device`` ("cuda" by
 default) replaces the JAX package's mesh; ``dtype`` is the compute type.
-The mesh knobs ``n_model > 1`` and ``fsdp``, and MoE (``n_expert > 0``),
-raise until ROADMAP queue 1 item 6 ports them; ``init_from=gpt2*`` raises
-until item 7 imports the HF weights.
+MoE (``n_expert > 0``, ``models/moe.py``) trains as in JAX: the loss the
+step reports includes the aux term, ``model_args`` carries ``MOE_KEYS``
+and a resume restores the MoE architecture from them. The mesh knobs
+``n_model > 1`` and ``fsdp`` raise until ROADMAP queue 1 item 6 ports
+them; ``init_from=gpt2*`` raises until item 7 imports the HF weights.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from ai_music_generation_tpu_torch.models.gpt import (
     peak_flops_for,
 )
 from ai_music_generation_tpu_torch.models.nanogpt_ckpt import (
+    MOE_KEYS,
     model_state,
     read_ckpt,
 )
@@ -94,7 +97,7 @@ DEFAULTS: dict[str, Any] = dict(
     data_root="data",  # datasets live at <data_root>/<dataset>/
     n_model=1,  # tensor parallelism: not ported (queue 1 item 6)
     fsdp=False,  # not ported (queue 1 item 6)
-    n_expert=0,  # MoE: not ported (queue 1 item 6)
+    n_expert=0,  # Mixture-of-Experts: experts per block MLP (0 = dense)
     n_kv_head=0,  # grouped-query attention: K/V heads (0 = n_head)
     expert_top_k=2,
     capacity_factor=1.25,
@@ -105,9 +108,8 @@ DEFAULTS: dict[str, Any] = dict(
 )
 
 ARCH_KEYS = ("n_layer", "n_head", "n_embd", "block_size", "bias", "vocab_size")
-MOE_KEYS = ("n_expert", "expert_top_k", "capacity_factor", "moe_aux_coef")
-# ride model_args only when set (GQA), so dense checkpoints keep nanoGPT's
-# exact key set
+# ride model_args only when set (MoE, GQA), so dense checkpoints keep
+# nanoGPT's exact key set
 OPT_ARCH_KEYS = MOE_KEYS + ("n_kv_head",)
 
 
@@ -116,10 +118,11 @@ class Trainer:
         self.c = dict(DEFAULTS)
         self.c.update(config)
         c = self.c
-        if c["n_model"] > 1 or c["fsdp"] or c["n_expert"] > 0:
+        if c["n_model"] > 1 or c["fsdp"]:
             raise NotImplementedError(
-                "n_model > 1, fsdp and n_expert > 0 are not ported yet "
-                "(ROADMAP queue 1 item 6: MoE and parallelism)")
+                "n_model > 1 and fsdp (and with n_expert > 0 the expert "
+                "parallelism over the model axis) are not ported yet "
+                "(ROADMAP queue 1 item 6: parallelism)")
         self.device = resolve_device(c["device"])
         os.makedirs(c["out_dir"], exist_ok=True)
         self.grad_accum = max(1, c["gradient_accumulation_steps"])
@@ -148,6 +151,8 @@ class Trainer:
             block_size=c["block_size"], bias=c["bias"],
             vocab_size=self.meta_vocab_size or 50304,
         )
+        if c["n_expert"] > 0:
+            args.update({k: c[k] for k in MOE_KEYS})
         if c["n_kv_head"]:
             args["n_kv_head"] = c["n_kv_head"]
         return args
@@ -156,7 +161,7 @@ class Trainer:
         """The architecture keys of a checkpoint's model_args win over the
         config's (the reference's resume rule)."""
         model_args.update({k: source[k] for k in ARCH_KEYS})
-        for k in OPT_ARCH_KEYS:  # an MoE checkpoint's: GPT refuses MoE
+        for k in OPT_ARCH_KEYS:  # only on MoE / GQA checkpoints
             if source.get(k) is not None:
                 model_args[k] = source[k]
 

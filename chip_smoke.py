@@ -6,8 +6,9 @@ the training path (the train step, cli/train.py, cli/train_bench.py),
 TunesFormer inference and serving (the model, the bar generator, the
 server and its HTTP front end, the CLIs), TunesFormer training (the
 train step, curation, cli/tunesformer_train.py, the MFU probe), ABC ->
-WAV (the synth, the eval pipeline and its CLI) and the Audiobox scorer
-(the WavLM encoder, the predictor, cli/audio_aes.py).
+WAV (the synth, the eval pipeline and its CLI), the Audiobox scorer
+(the WavLM encoder, the predictor, cli/audio_aes.py) and the
+Mixture-of-Experts GPT (the model, training, decode, serving, sampling).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -242,15 +243,45 @@ printing a result):
     cli/abc_to_midi_wav_and_aesthetics.py on 64 of phase 33's tunes with
     ``$AUDIOBOX_WEIGHTS`` set: engine ``audio-aes``, rows within 1e-5 of
     the CLI's. Phases 34-35 launch none of K1-K7. ``--profile audiobox``
-    profiles one forward at batch 10.
+    profiles one forward at batch 10;
+36. MoE: K1 vs twin at every shape the MoE paths give it (the trained
+    model's decode, B=256, and sampling, B=64: S=256, MHA, bf16 cache; the
+    bench config's decode, B=4096, S=128, KH=2, int8; its serving tick,
+    B=8192, ring), then timed at the decode step beside SDPA; the MoE
+    protocol's model (6L/6H/384, block 256, vocab 128, 4 experts, top 2,
+    capacity 1.25) on the card against the CPU over 8 x 256 tokens: the
+    card's routing equal to ``route`` on its own probabilities, a token
+    routed otherwise only where its ranked probabilities lie within twice
+    their card-vs-CPU difference (counted); fp32 routing equal but for
+    near-ties (ranked probabilities within 1e-6, counted), logits within
+    FP32_MODEL_FRAC of the range, bf16 within 2^-4; the same under PyTorch's default TF32 flags; with float32
+    matmuls at "high" the pinned router within 1e-5 of the CPU's
+    probabilities (an unpinned one printed);
+37. MoE training: ``cli/train.py`` at the protocol (experiments/
+    moe_probe.py's corpus; batch 64, lr 1e-3, bf16) for 150 iterations:
+    the val loss falls, model_args carries the MoE keys, a resume to 200
+    with the dense flags keeps the MoE architecture; ms/iter; then the
+    dense and the MoE train step timed (CUDA events), their ratio beside
+    the FLOP ratio, peak memory. No kernel of the port runs;
+38. MoE decode: the trained model at B=256, 200 new tokens (two same-seed
+    generates bit-equal, 1200 K1 launches a generate), and the bench
+    config with 4 experts at the bench protocol (3000 K1 launches a
+    generate): tok/s, peak memory;
+39. MoE serving: ``GenerationServer`` over the bench config with 4 experts
+    at 8192 slots, cache_len 128, 8,192 requests after a cold pass: every
+    request finishes with its budget, K1 ring launches = n_layer x ticks;
+    tok/s, latency p50/p95/p99, peak memory;
+40. MoE sampling: cli/sample.py over the trained ckpt.pt, 64 samples, 1206
+    K1 launches. Every MoE path's K1 shapes must be among phase 36's.
 
 The last two lines are a JSON summary of each kernel and
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` counts its
 launches in its path's main-path run (phases 5, 8, 12, 15, 19, 20, 22,
-26, 27, 28, 30;
+26, 27, 28, 30, 37-40;
 every count is set to 0 just before each of them and read just after); a
 kernel with no caller on any path (K3, K5, K6) shows its count summed over
-those runs there, and its kernel-vs-twin launches as ``check_launches``.
+those runs up to phase 30 (phases 37-40 are asserted to launch K1 alone),
+and its kernel-vs-twin launches as ``check_launches``.
 K1's entry carries its ring mode (``ring``: phase 19's launches, the
 B=8192 timing) and its fp32 mode (``fp32``: phase 20's fp32 run), K2's its
 fp32 mode (``fp32``: phase 20's fp32 speculative run, with the refresh and
@@ -263,7 +294,10 @@ step), each timed at B=1024 with its launches on phases 26-28 and 30's
 sampling (counted by
 mode by a wrapper on the models' K1 call, their sum checked against K1's
 own count) and the batches it ran at; their ``library_ms`` is SDPA's
-attention alone, which writes no column.
+attention alone, which writes no column. ``gqa_decode_update/moe`` is K1 on
+the MoE paths (phases 38-40): timed at the trained model's decode step,
+its launches those of the lockstep paths, ``ring_launches`` the serving
+path's, ``by_path`` each path's and ``shapes`` the shapes they ran at.
 ``bound_ms`` is the least time the card could take for the timed call: its
 bytes (each input read once, each output written once) over 3.35 TB/s or
 its operations over 989 TFLOP/s (1979 TOP/s for int8 x int8 products; the
@@ -2671,21 +2705,23 @@ def phase_profile_train(top=12) -> None:
 
 
 PROFILED = ("pallas", "bench", "spec", "serve", "train", "tunes",
-            "tunes_serve", "tunes_train", "synth", "audiobox")
+            "tunes_serve", "tunes_train", "synth", "audiobox", "moe",
+            "moe_serve")
 
 
 @torch.inference_mode()
 def phase_profile(path="pallas", B=BATCH, max_new=MAX_NEW, top=12) -> None:
     """One generate of ``path`` (pallas: phase 12's protocol, bench: phase
-    5's, spec: phase 8's; serve: one hot pass of phase 19's load; tunes:
+    5's, spec: phase 8's, moe: phase 38's bench config with 4 experts;
+    serve: one hot pass of phase 19's load, moe_serve: of phase 39's; tunes:
     phase 26's generate at B=16; tunes_serve: one hot pass of phase 27's
     load) under ``torch.profiler`` (CPU and CUDA activities) after a
     warm-up and an unprofiled run (timed with CUDA events; serve and the
     tunes paths: their wall after a synchronize): device self time by
     kernel, summed only over entries whose device type is not the CPU (a
     CPU op's entry repeats its kernels' device time), the device's busy
-    share of the profiled wall and, for the tunes paths, kernel launches a
-    bar."""
+    share of the profiled wall, the device kernels of the run and, for the
+    tunes paths, kernel launches a bar."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2700,24 +2736,27 @@ def phase_profile(path="pallas", B=BATCH, max_new=MAX_NEW, top=12) -> None:
     kw = dict(max_new_tokens=max_new, temperature=0.8, top_k=200)
     if path in ("tunes", "tunes_serve"):
         run, wall, what = _tunes_profiled(path)
-    elif path == "serve":
-        # one hot pass of phase 19's load on a warm server
-        _, model = _bench_model("cuda", BENCH)
+    elif path in ("serve", "moe_serve"):
+        # one hot pass of phase 19's (39's) load on a warm server
+        moe = path == "moe_serve"
+        n = MOE_SERVE_REQUESTS if moe else SERVE_REQUESTS
+        _, model = _bench_model("cuda", MOE_BENCH if moe else BENCH)
         srv = GenerationServer(model, n_slots=SERVE_SLOTS,
                                ticks_per_call=SERVE_TICKS,
                                admit_group=SERVE_GROUP, cache_len=SERVE_CACHE)
-        serve_bench.run_pass(srv, SERVE_REQUESTS, SERVE_MAX_NEW, 1)
-        _, wall = serve_bench.run_pass(srv, SERVE_REQUESTS, SERVE_MAX_NEW, 2)
+        serve_bench.run_pass(srv, n, SERVE_MAX_NEW, 1)
+        _, wall = serve_bench.run_pass(srv, n, SERVE_MAX_NEW, 2)
         run = lambda: serve_bench.run_pass(  # noqa: E731
-            srv, SERVE_REQUESTS, SERVE_MAX_NEW, 3)
-        what = (f"{SERVE_SLOTS} slots, {SERVE_REQUESTS} requests (phase 19's "
-                f"hot pass)")
+            srv, n, SERVE_MAX_NEW, 3)
+        what = (f"{SERVE_SLOTS} slots, {n} requests (phase "
+                f"{39 if moe else 19}'s hot pass)")
     else:
-        _, model = _bench_model("cuda", {"pallas": PALLAS, "bench": BENCH,
-                                         "spec": SPEC}[path])
+        _, model = _bench_model("cuda", {
+            "pallas": PALLAS, "bench": BENCH, "spec": SPEC,
+            "moe": MOE_BENCH}[path])
         gen = (SpecGenerator(model, n_draft=N_DRAFT, **kw) if path == "spec"
-               else Generator(model, window=WINDOW, **kw) if path == "bench"
-               else Generator(model, **kw))
+               else Generator(model, window=WINDOW, **kw)
+               if path in ("bench", "moe") else Generator(model, **kw))
         prompts = torch.randint(0, model.config.vocab_size,
                                 (B, PROMPT_LEN),
                                 generator=torch.Generator().manual_seed(6),
@@ -2738,11 +2777,14 @@ def phase_profile(path="pallas", B=BATCH, max_new=MAX_NEW, top=12) -> None:
                    if e.device_type != DeviceType.CPU
                    and e.self_device_time_total > 0), reverse=True)
     busy_ms = sum(r[0] for r in rows)
+    launches = sum(r[1] for r in rows)
     if bar_count.bars:
-        bars, launches = bar_count.bars, sum(r[1] for r in rows)
+        bars = bar_count.bars
         what += (f"; {bars} bars, {launches} kernels = {launches / bars:.0f} "
                  f"a bar, {profiled / bars * 1e3:.2f} ms a bar profiled, "
                  f"{busy_ms / bars:.2f} ms of device time a bar")
+    else:
+        what += f"; {launches} kernels"
     print(f"profile {path}: {what}; unprofiled run {wall:.3f} s, profiled "
           f"{profiled:.3f} s; device busy {busy_ms:.1f} ms = "
           f"{busy_ms / 1e3 / profiled:.3f} of the profiled wall, "
@@ -3083,14 +3125,20 @@ def _k1_mode(S, ring):
 
 class _K1Calls:
     """Inside a ``with`` block, the K1 calls of the models (a wrapper on
-    ``models.gpt``'s ``gqa_decode_update``): the (B, S, ring) shapes they
-    took, and their launches by mode (``_k1_mode``), each call's read from
-    the kernel wrapper's own count."""
+    ``models.gpt``'s ``gqa_decode_update``): the (B, S, KH*D, dtype, ring)
+    of each (``keys``; ``shapes`` their (B, S, ring)), and their launches
+    by TunesFormer mode (``_k1_mode``), each call's read from the kernel
+    wrapper's own count."""
+
+    @property
+    def shapes(self) -> set:
+        return {(B, S, ring) for B, S, _, _, ring in self.keys}
 
     def __enter__(self):
         from ai_music_generation_tpu_torch.models import gpt
 
-        self.shapes, self.launches = set(), collections.Counter()
+        self.keys = set()
+        self.launches = collections.Counter()
         self._gpt, orig = gpt, gpt.gqa_decode_update
 
         def recorded(q, k, v, k_slab, v_slab, k_scale, v_scale, mask_rel,
@@ -3099,7 +3147,7 @@ class _K1Calls:
             out = orig(q, k, v, k_slab, v_slab, k_scale, v_scale, mask_rel,
                        pos)
             B, S, ring = k.shape[0], k.shape[1], mask_rel is not None
-            self.shapes.add((B, S, ring))
+            self.keys.add((B, S, k.shape[2], k.dtype, ring))
             self.launches[_k1_mode(S, ring)] += orig.launches - before
             return out
 
@@ -4522,6 +4570,541 @@ def phase_profile_audiobox(batch=10, top=12) -> None:
               f"ms/call  {key[:90]}")
 
 
+# MoE (phases 36-40): the repo's MoE protocol (docs/experiments/moe_tpu.py:
+# 97-124, experiments/moe_probe.py): GPT 6 layers, 6 heads, 384 wide, block
+# 256, vocab 128, bf16, 4 experts, top 2, capacity factor 1.25, aux weight
+# 0.01; training at batch 64, lr 1e-3 (warmup 30, min 1e-4), dropout 0, on
+# the probe's corpus; decode at B=256, 8-token prompts, 200 new tokens, T
+# 0.8, top_k 200. Beside it the bench config with the same four experts
+# (MOE_BENCH) at the bench protocol (B=4096, window 128, 500 new tokens)
+# and served at docs/SERVING.md's headline (8192 slots, cache_len 128).
+# Card vs CPU: routing equal but for tokens whose ranked probabilities lie
+# within MOE_TIE of each other (counted); logits within 2^-4 of the range
+# in bf16, FP32_MODEL_FRAC in fp32
+MOE = dict(n_expert=4, expert_top_k=2, capacity_factor=1.25,
+           moe_aux_coef=0.01)
+MOE_GPT = dict(block_size=256, vocab_size=128, n_layer=6, n_head=6,
+               n_embd=384, dropout=0.0, bias=False, dtype=torch.bfloat16,
+               **MOE)
+MOE_BENCH = dict(BENCH, **MOE)
+MOE_TIE = 1e-6
+# (the resume runs MOE_RESUME more iterations, a multiple of the eval
+# interval, so that it ends on a checkpoint)
+MOE_ITERS, MOE_EVAL, MOE_EVAL_ITERS, MOE_RESUME = 150, 50, 10, 50
+MOE_DECODE_B, MOE_PROMPT, MOE_NEW, MOE_SAMPLES = 256, 8, 200, 64
+MOE_SERVE_REQUESTS = 8192
+# K1 at every shape the MoE paths give it, as (B, S, KH, int8, ring): the
+# trained model's decode and sampling CLI (MHA, bf16 cache, block 256), the
+# bench config's decode (KH=2, int8, window 128) and its serving tick
+# (ring, 8192 slots)
+MOE_K1_SHAPES = ((MOE_DECODE_B, 256, 6, False, False),
+                 (MOE_SAMPLES, 256, 6, False, False),
+                 (BATCH, WINDOW, 2, True, False),
+                 (SERVE_SLOTS, SERVE_CACHE, 2, True, True))
+
+
+def phase_moe_kernel_vs_twin(device) -> tuple[float, set]:
+    """K1 at ``MOE_K1_SHAPES`` (pos 0, 7, 8, S-1; ring rows at random
+    lengths): caches bit-exact, the output within one bf16 ulp of its
+    range of the twin in fp32. Returns (the largest error, the shapes
+    checked as (B, S, KH*D, cache dtype, ring))."""
+    worst, checked = 0.0, set()
+    for b, s_len, kh, quant, ring in MOE_K1_SHAPES:
+        for pos in (0, 7, 8, s_len - 1):
+            cpu = _decode_inputs(quant, ring, pos, b, s_len, KH=kh)
+            err, _ = _check_k1(_to(cpu, device), [
+                None if a is None else a.clone() for a in cpu], pos, device,
+                f"MoE shape B={b} S={s_len} KH={kh} int8={quant} "
+                f"ring={ring} pos={pos}")
+            worst = max(worst, err)
+        checked.add((b, s_len, kh * 64, torch.int8 if quant
+                     else torch.bfloat16, ring))
+    print(f"K1 at the MoE paths' shapes (B, S, KH, int8, ring) "
+          f"{list(MOE_K1_SHAPES)}, pos 0, 7, 8, S-1: caches bit-exact, out "
+          f"max abs err {worst} vs the fp32 twin")
+    return worst, checked
+
+
+def phase_moe_kernel_timing(B=MOE_DECODE_B, S=MOE_GPT["block_size"]) -> dict:
+    """K1 and its twin timed on the card (plain, kernel, kernel, plain) at
+    the trained MoE model's decode step (B rows, MHA H = KH = 6, D = 64,
+    bf16 cache, lockstep, pos S-1: every column valid), beside
+    ``scaled_dot_product_attention`` over the same columns (attention only:
+    it writes no column). The timed inputs are first held against the
+    twin. Returns the JSON numbers."""
+    import torch.nn.functional as F
+
+    from ai_music_generation_tpu_torch.ops.gqa_decode import (
+        gqa_decode_reference, gqa_decode_update,
+    )
+
+    pos, H, D = S - 1, MOE_GPT["n_head"], 64
+    cpu = _decode_inputs(False, False, pos, B, S, H=H, KH=H, seed=3)
+    err, _ = _check_k1(_to(cpu, "cuda"), [a if a is None else a.clone()
+                                          for a in cpu], pos, "cuda",
+                       "MoE timing")
+    x = _to(cpu, "cuda")
+    p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    qs = x[0][:, :, None, :].contiguous()
+    ks, vs = (t.view(B, S, H, D).transpose(1, 2).contiguous()
+              for t in x[1:3])
+    kernel, plain = _timed(lambda: gqa_decode_update(*x, p),
+                           lambda: gqa_decode_reference(*x, p), 50, 10)
+    library = min(_cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs),
+                           50) for _ in range(2))
+    bound_ms, bound_by = _k1_tunes_bound(x, pos)
+    ms = min(kernel)
+    print(f"K1 at the MoE decode step (B={B}, S={S}, H=KH={H}, bf16, "
+          f"lockstep): kernel {kernel} ms, twin {plain} ms (plain, kernel, "
+          f"kernel, plain); SDPA (attention only) {library:.4f} ms; bound "
+          f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.3f} of it")
+    return dict(ms=ms, plain_ms=min(plain), bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library, max_abs_err=err)
+
+
+def _moe_routes(model, out):
+    """Forward hooks that append each MoE layer's (probabilities, expert
+    indices, keep, slot, input) of each call to ``out``, on the CPU, as
+    ``models.moe.route`` decides them."""
+    from ai_music_generation_tpu_torch.models.moe import capacity_of, route
+
+    def hook(moe, args, _):
+        cfg = moe.config
+        probs = moe.probs(args[0])
+        K = min(cfg.expert_top_k, cfg.n_expert)
+        _, idx, keep, slot = route(probs, K, capacity_of(
+            probs.shape[0], cfg.n_expert, K, cfg.capacity_factor))
+        out.append(tuple(t.cpu() for t in (probs, idx, keep, slot, args[0])))
+
+    return [b.moe.register_forward_hook(hook) for b in model.transformer.h]
+
+
+class _ForcedRouting:
+    """Inside a ``with`` block, ``models.moe.route`` returns the given
+    decisions (expert indices, keep, slot), one MoE layer after another,
+    with gates renormalised from the caller's own probabilities: the CPU
+    replays the card's routing, so that the two are compared on the same
+    discrete choices."""
+
+    def __init__(self, decisions):
+        self.decisions = list(decisions)
+
+    def __enter__(self):
+        from ai_music_generation_tpu_torch.models import moe
+
+        self._moe, self._orig = moe, moe.route
+        queue = iter(self.decisions)
+
+        def forced(probs, top_k, capacity):
+            idx, keep, slot = (t.to(probs.device) for t in next(queue))
+            gate = probs.gather(1, idx)
+            return gate / gate.sum(-1, keepdim=True), idx, keep, slot
+
+        moe.route = forced
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._orig
+
+
+def _moe_compare(device, dtype, ids, frac, gate_routing):
+    """One forward of the MoE_GPT model (all positions) on ``device``, and
+    on the CPU from the same init weights replaying the card's routing
+    (``_ForcedRouting``): the logits' error as a share of the range. The
+    routing, in every dtype: the card's decisions (expert indices, keep,
+    slot) must equal ``models.moe.route`` run on the CPU over the card's own
+    probabilities; where the CPU's own choice on its input differs from the
+    card's, the token is counted, and the CPU's ranked probabilities there
+    must lie within 2 x the largest card-vs-CPU difference of that token's
+    probabilities (the most by which rounding can reorder two experts: a
+    routing fault is any flip it does not explain); with ``gate_routing``,
+    every such token must also be a near-tie (ranked probabilities within
+    MOE_TIE). Returns (share, near-tie tokens, tokens routed otherwise, the
+    largest ranked-probability gap of those, the largest share of its bound
+    that such a gap took, the CPU's layer-0 MoE input and probabilities, the
+    card's model)."""
+    from ai_music_generation_tpu_torch.models.moe import capacity_of, route
+
+    cpu_model, model = _bench_model(device, dict(MOE_GPT, dtype=dtype))
+    card, cpu = [], []
+    hooks = _moe_routes(model, card)
+    got, _ = model(ids.to(device), return_all_logits=True)
+    hooks += _moe_routes(cpu_model, cpu)
+    with _ForcedRouting([r[1:4] for r in card]):
+        want, _ = cpu_model(ids, return_all_logits=True)
+    for h in hooks:
+        h.remove()
+    got, want = got.float().cpu(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError("non-finite MoE logits on the card")
+    share = (got - want).abs().max().item() / want.abs().max().item()
+    ties = flips = 0
+    widest = explained = 0.0
+    for (p_d, i_d, k_d, s_d, _), (p_c, i_c, k_c, _, _) in zip(card, cpu):
+        N, E = p_c.shape
+        K = i_c.shape[1]
+        replay = route(p_d, K, capacity_of(N, E, K, MOE["capacity_factor"]))
+        if not all(torch.equal(a, b) for a, b in zip(replay[1:],
+                                                     (i_d, k_d, s_d))):
+            raise AssertionError(f"MoE routing ({dtype}) on the card is not "
+                                 f"route's on the card's own probabilities")
+        # float64 differences of fp32 values are exact
+        ranked = torch.sort(p_c.double(), -1, descending=True).values
+        gaps = (ranked[:, :K] - ranked[:, 1:K + 1]).min(-1).values
+        near = gaps < MOE_TIE
+        moved = (i_d != i_c).any(-1)
+        differ = moved | (k_d != k_c).any(-1)
+        ties, flips = ties + int(near.sum()), flips + int(differ.sum())
+        if moved.any():
+            widest = max(widest, gaps[moved].max().item())
+            bound = 2 * (p_d.double() - p_c.double()).abs().max(-1).values
+            if (gaps[moved] > bound[moved]).any():
+                raise AssertionError(
+                    f"MoE routing ({dtype}) differs card vs CPU at "
+                    f"{int((moved & (gaps > bound)).sum())} tokens whose "
+                    f"ranked probabilities lie further apart than twice "
+                    f"their card-vs-CPU difference")
+            explained = max(explained, (gaps[moved] / bound[moved]).max()
+                            .item())
+        if gate_routing and (differ & ~near).any():
+            raise AssertionError(
+                f"MoE routing ({dtype}) differs card vs CPU at "
+                f"{int((differ & ~near).sum())} tokens that are no near-tie")
+    if not share <= frac:
+        raise AssertionError(f"MoE logits ({dtype}) differ by {share} of the "
+                             f"range > {frac}")
+    return share, ties, flips, widest, explained, cpu[0][4], cpu[0][0], model
+
+
+@torch.inference_mode()
+def phase_moe_model(device, B=8) -> dict:
+    """The MoE protocol's model (MOE_GPT, init weights from seed 0) on the
+    card against the CPU, one forward of B x 256 tokens (all positions'
+    logits; the CPU replays the card's routing, ``_moe_compare``, which
+    in every dtype holds the card's routing to ``route`` on its own
+    probabilities and each token routed otherwise to twice its
+    probabilities' card-vs-CPU difference): fp32 (routing equal but for
+    near-ties within MOE_TIE, which are counted; logits within
+    FP32_MODEL_FRAC of the range), bf16 (logits within 2^-4; the tokens
+    that bf16 rounding routes otherwise are counted with the widest gap
+    among them: at init the router's probabilities lie close, and a token
+    on another expert has other logits), fp32 again under PyTorch's
+    default TF32 flags (cuDNN TF32 on, float32 matmuls at "highest"), and
+    with float32 matmuls at "high" (TF32) the router on the CPU's layer-0
+    input: pinned (``MoEMLP.probs``, IEEE fp32) within 1e-5 of the CPU's
+    probabilities; an unpinned ``F.linear`` there is printed beside it."""
+    import torch.nn.functional as F
+
+    ids = torch.randint(0, MOE_GPT["vocab_size"], (B, MOE_GPT["block_size"]),
+                        generator=torch.Generator().manual_seed(4),
+                        dtype=torch.int32)
+    res = {}
+    fp32 = _moe_compare(device, torch.float32, ids, FP32_MODEL_FRAC, True)
+    res["fp32"] = fp32[:5]
+    res["bf16"] = _moe_compare(device, torch.bfloat16, ids, 2.0 ** -4,
+                               False)[:5]
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.get_float32_matmul_precision())
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.set_float32_matmul_precision("highest")
+        res["fp32 default flags"] = _moe_compare(
+            device, torch.float32, ids, FP32_MODEL_FRAC, True)[:5]
+        torch.set_float32_matmul_precision("high")
+        x, probs, model = fp32[5:]
+        moe = model.transformer.h[0].moe
+        xd = x.to(device).float().reshape(-1, x.shape[-1])
+        pinned = (moe.probs(xd).cpu() - probs).abs().max().item()
+        plain = (torch.softmax(F.linear(xd, moe.router.weight), -1).cpu()
+                 - probs).abs().max().item()
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
+    if not pinned <= 1e-5:
+        raise AssertionError(f"the pinned router under TF32 differs from "
+                             f"the CPU's by {pinned}")
+    res["router at high"] = (pinned, plain)
+    for name, (share, ties, flips, widest, explained) in list(
+            res.items())[:3]:
+        print(f"MoE model {name} (4 experts, top 2, {B} x "
+              f"{MOE_GPT['block_size']} tokens, {MOE_GPT['n_layer']} layers) "
+              f"card vs CPU: logits {share:.3e} of the range (the CPU "
+              f"replaying the card's routing); the card's routing is route's "
+              f"on its probabilities; {ties} near-tie token decisions "
+              f"(ranked probabilities within {MOE_TIE}); {flips} tokens the "
+              f"CPU would route otherwise on the same input, ranked "
+              f"probabilities at most {widest:.3e} apart, at most "
+              f"{explained:.3f} of twice their card-vs-CPU difference")
+    print(f"MoE router with float32 matmuls at 'high' (TF32): pinned "
+          f"(MoEMLP.probs) {pinned:.3e} from the CPU's probabilities, "
+          f"unpinned F.linear {plain:.3e}")
+    return res
+
+
+def _moe_flags(config: dict) -> list:
+    return [f"--{k}={v}" for k, v in config.items()]
+
+
+def phase_moe_train(root, device) -> dict:
+    """``cli/train.py`` at the MoE protocol (experiments/moe_probe.py's
+    corpus, PROTOCOL and MOE flags) for MOE_ITERS iterations with an eval
+    every MOE_EVAL: the val loss falls, ckpt.pt and last_iter_ckpt.pt
+    exist, ``model_args`` carries the MoE keys; ``--init_from=resume`` with
+    the dense flags continues from the checkpoint's iteration with its MoE
+    model_args to MOE_ITERS + MOE_RESUME. ms/iter: the median over the
+    iterations after the fifth whose window holds no eval; MFU: the
+    trainer's EMA (every expert counted, so inflated). Then the train step
+    of a dense and an MoE trainer at the protocol (``moe_probe.
+    time_steps``: 20 steps, CUDA events): ms, their ratio beside the FLOP
+    ratio (``moe_probe.step_flops``), peak memory. Returns the numbers, the
+    out_dir and the corpus."""
+    import os
+    import statistics
+
+    from ai_music_generation_tpu_torch.cli import train as train_cli
+    from ai_music_generation_tpu_torch.experiments import moe_probe
+    from ai_music_generation_tpu_torch.models.nanogpt_ckpt import MOE_KEYS
+    from ai_music_generation_tpu_torch.train import checkpoint as ckpt_lib
+    from ai_music_generation_tpu_torch.train.trainer import Trainer
+
+    data_root = os.path.join(root, "data")
+    moe_probe.write_corpus(data_root)
+    out = os.path.join(root, "moe")
+    base = [f"--dataset={moe_probe.CORPUS}", f"--data_root={data_root}",
+            f"--out_dir={out}", f"--eval_interval={MOE_EVAL}",
+            f"--eval_iters={MOE_EVAL_ITERS}", "--log_interval=1",
+            f"--lr_decay_iters={MOE_ITERS}", f"--device={device}"]
+    base += _moe_flags(moe_probe.PROTOCOL)
+    t0 = time.perf_counter()
+    log = _tee(train_cli.main, base + _moe_flags(moe_probe.MOE)
+               + [f"--max_iters={MOE_ITERS}"])
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out, "losses.jsonl")) as f:
+        evals = [json.loads(line)["val/loss"] for line in f]
+    if not min(evals[1:]) < evals[0]:
+        raise AssertionError(f"the MoE run's val loss did not fall: {evals}")
+    last = ckpt_lib.load_checkpoint(out, ckpt_lib.LAST)
+    if not ckpt_lib.checkpoint_exists(out, ckpt_lib.BEST) or {
+            k: last["model_args"].get(k) for k in MOE_KEYS} != moe_probe.MOE:
+        raise AssertionError(f"the MoE run's checkpoints: model_args "
+                             f"{last['model_args']}")
+    lines = _iter_lines(log)
+    ms = statistics.median(m for i, m, _ in lines if i >= 5 and i % MOE_EVAL)
+    resumed = _iter_lines(_tee(train_cli.main, base + [
+        f"--max_iters={MOE_ITERS + MOE_RESUME}", "--init_from=resume"]))
+    after = ckpt_lib.load_checkpoint(out, ckpt_lib.LAST)
+    if (resumed[0][0] != last["iter_num"]
+            or after["iter_num"] != MOE_ITERS + MOE_RESUME
+            or after["model_args"] != last["model_args"]):
+        raise AssertionError(f"MoE resume: first iteration {resumed[0][0]}, "
+                             f"checkpoint {last['iter_num']} -> "
+                             f"{after['iter_num']}, model_args "
+                             f"{after['model_args']}")
+    steps = {}
+    for name, moe in (("dense", False), ("moe", True)):
+        t = Trainer(moe_probe.trainer_config(
+            data_root, os.path.join(root, f"steps_{name}"), MOE_ITERS, moe,
+            device))
+        steps[name] = dict(moe_probe.time_steps(t), tflop=moe_probe.step_flops(
+            t.gpt_config, t.micro_batch) / 1e12)
+        del t
+        torch.cuda.empty_cache()
+    ratio = steps["moe"]["ms"] / steps["dense"]["ms"]
+    flop_ratio = steps["moe"]["tflop"] / steps["dense"]["tflop"]
+    print(f"MoE train CLI ({device}): {MOE_ITERS} iterations in {wall:.1f} s,"
+          f" val loss {[round(v, 4) for v in evals]}; {ms:.2f} ms/iter "
+          f"(median), MFU {lines[-1][2]:.2f}% (every expert counted: "
+          f"inflated); resumed at {resumed[0][0]} to {after['iter_num']} with"
+          f" model_args {after['model_args']}")
+    print(f"MoE vs dense train step (20 steps, CUDA events): dense "
+          f"{steps['dense']['ms']:.2f} ms, MoE {steps['moe']['ms']:.2f} ms, "
+          f"ratio {ratio:.3f} beside the FLOP ratio {flop_ratio:.3f} "
+          f"({steps['moe']['tflop']:.3f} / {steps['dense']['tflop']:.3f} "
+          f"TFLOP a step); peak {steps['dense']['peak_gib']} / "
+          f"{steps['moe']['peak_gib']} GiB")
+    return dict(out_dir=out, data_root=data_root, ms=ms, mfu=lines[-1][2],
+                val=evals, steps=steps, ratio=ratio, flop_ratio=flop_ratio)
+
+
+def _k1_launches():
+    from ai_music_generation_tpu_torch.ops.gqa_decode import gqa_decode_update
+
+    return gqa_decode_update.launches
+
+
+@torch.inference_mode()
+def phase_moe_decode(train, device) -> dict:
+    """The trained MoE model (its ckpt.pt, bf16) through ``moe_probe.
+    decode`` at B=256, 8-token val.bin prompts, 200 new tokens, T 0.8,
+    top_k 200: two same-seed generates bit-equal, then two timed (CUDA
+    events); exactly n_layer x 200 K1 launches a generate (4 generates).
+    Returns tok/s, peak memory and launches."""
+    import os
+
+    from ai_music_generation_tpu_torch.experiments import moe_probe
+    from ai_music_generation_tpu_torch.models.nanogpt_ckpt import load_ckpt
+
+    model, _ = load_ckpt(os.path.join(train["out_dir"], "ckpt.pt"),
+                         device=device)
+    if model.config.n_expert != MOE["n_expert"]:
+        raise AssertionError(f"the trained model: {model.config}")
+    prompts = moe_probe.val_prompts(train["data_root"], MOE_DECODE_B,
+                                    MOE_PROMPT)
+    _reset_peak(device)
+    before = _k1_launches()
+    res = moe_probe.decode(model, prompts, MOE_NEW, runs=2)
+    launches = _k1_launches() - before
+    want = (4 * model.config.n_layer * MOE_NEW
+            if torch.device(device).type == "cuda" else 0)
+    if launches != want:
+        raise AssertionError(f"MoE decode: {launches} K1 launches for 4 "
+                             f"generates (want {want})")
+    res.update(peak_gib=_peak_gib(device), launches=launches)
+    print(f"MoE decode (trained, B={MOE_DECODE_B}, {MOE_NEW} new tokens): "
+          f"same seed bit-equal, {res['tok_s']:.1f} tok/s {res['seconds']} s,"
+          f" peak {res['peak_gib']:.2f} GiB; {launches} K1 launches = 4 x "
+          f"n_layer x {MOE_NEW}")
+    return res
+
+
+@torch.inference_mode()
+def phase_moe_bench_decode(device) -> dict:
+    """The bench config with 4 experts (MOE_BENCH, init weights) at the
+    bench protocol (B=4096, 8-token prompts, window 128, 500 new tokens, T
+    0.8, top_k 200): two same-seed generates bit-equal, each exactly
+    n_layer x 500 = 3000 K1 launches; then one generate timed (CUDA
+    events): tok/s, peak memory (the windowed refresh routes 4096 x 64
+    tokens a layer through the index dispatch)."""
+    from ai_music_generation_tpu_torch.decode.generate import Generator
+
+    _, model = _bench_model(device, MOE_BENCH)
+    gen = Generator(model, max_new_tokens=MAX_NEW, temperature=0.8,
+                    top_k=200, window=WINDOW)
+    prompts = torch.randint(0, model.config.vocab_size, (BATCH, PROMPT_LEN),
+                            generator=torch.Generator().manual_seed(2),
+                            dtype=torch.int32)
+    _reset_peak(device)
+    runs = []
+    for _ in range(2):
+        before = _k1_launches()
+        out = gen.generate(prompts, seed=1234)
+        _sync(device)
+        runs.append((out.cpu(), _k1_launches() - before))
+    want = (model.config.n_layer * MAX_NEW
+            if torch.device(device).type == "cuda" else 0)
+    if not (torch.equal(runs[0][0], runs[1][0])
+            and runs[0][1] == runs[1][1] == want):
+        raise AssertionError(f"MoE bench decode: same seed equal "
+                             f"{torch.equal(runs[0][0], runs[1][0])}, K1 "
+                             f"launches {runs[0][1]}, {runs[1][1]} (want "
+                             f"{want})")
+    out = runs[0][0]
+    if not (torch.equal(out[:, :PROMPT_LEN], prompts)
+            and ((out >= 0) & (out < model.config.vocab_size)).all()):
+        raise AssertionError("MoE bench decode: prompts or token range")
+    seconds = _event_seconds(lambda: gen.generate(prompts, seed=1235))
+    tok_s = BATCH * MAX_NEW / seconds
+    peak = _peak_gib(device)
+    print(f"MoE bench decode (bench config + 4 experts, B={BATCH}, window "
+          f"{WINDOW}, {MAX_NEW} new tokens): same seed bit-equal, "
+          f"{runs[0][1]} K1 launches a generate; {tok_s:.1f} tok/s "
+          f"({seconds:.3f} s), peak {peak:.2f} GiB")
+    return dict(tok_s=tok_s, peak_gib=peak)
+
+
+@torch.inference_mode()
+def phase_moe_serve(device, requests=MOE_SERVE_REQUESTS) -> dict:
+    """``GenerationServer`` over MOE_BENCH at the serving headline (8192
+    slots, cache_len 128, waves of 512, 64 ticks a call) under
+    cli/serve_bench.py's load: a cold pass of requests / 4, then a hot
+    pass of ``requests`` (128-256 new tokens): every request finishes with
+    its budget, tokens in range, K1 (ring) launches = n_layer x ticks.
+    tok/s and latency of the hot pass, peak memory."""
+    from ai_music_generation_tpu_torch.cli import serve_bench
+    from ai_music_generation_tpu_torch.serve.engine import GenerationServer
+
+    _, model = _bench_model(device, MOE_BENCH)
+    srv = GenerationServer(model, n_slots=SERVE_SLOTS,
+                           ticks_per_call=SERVE_TICKS,
+                           admit_group=SERVE_GROUP, cache_len=SERVE_CACHE)
+    ticks = []
+    handle = model.register_forward_pre_hook(
+        lambda _, args: ticks.append(1) if args[0].shape[1] == 1 else None)
+    _reset_peak(device)
+    before = _k1_launches()
+    try:
+        _, cold = serve_bench.run_pass(srv, requests // 4, SERVE_MAX_NEW,
+                                       1338)
+        srv.reset_stats()
+        finished, wall = serve_bench.run_pass(srv, requests, SERVE_MAX_NEW,
+                                              1337)
+    finally:
+        handle.remove()
+    launches = _k1_launches() - before
+    V = model.config.vocab_size
+    if len(finished) != requests or any(
+            len(r.generated) != r.max_new_tokens or not all(
+                0 <= t < V for t in r.generated) for r in finished):
+        raise AssertionError("MoE serving: a request did not finish with "
+                             "its budget in range")
+    cuda = torch.device(device).type == "cuda"
+    if launches != (model.config.n_layer * len(ticks) if cuda else 0):
+        raise AssertionError(f"MoE serving: {launches} K1 launches for "
+                             f"{len(ticks)} ticks")
+    tokens = sum(len(r.generated) for r in finished)
+    latency = srv.latency_stats()
+    peak = _peak_gib(device)
+    print(f"MoE serving (bench config + 4 experts, {SERVE_SLOTS} slots, "
+          f"cache_len {SERVE_CACHE}): cold pass {requests // 4} requests "
+          f"{cold:.3f} s; hot pass {requests} requests, {tokens} tokens in "
+          f"{wall:.3f} s = {tokens / wall:.1f} tok/s, latency {latency}, "
+          f"phases {srv.stats}; {launches} K1 ring launches = n_layer x "
+          f"{len(ticks)} ticks; peak {peak:.2f} GiB")
+    return dict(tok_s=tokens / wall, latency=latency, launches=launches,
+                peak_gib=peak)
+
+
+def phase_moe_sample_cli(train, device) -> dict:
+    """cli/sample.py from the trained MoE ckpt.pt: MOE_SAMPLES samples of
+    the ``$X:`` prompt (the corpus's tune header after the CLI's marker)
+    in one batch, 200 new tokens, T 0.8, top_k 200: one
+    samples/sample_<i>.txt each, exactly n_layer x 201 K1 launches (the
+    3-token prompt prefills 2 tokens).
+    Returns samples/s and the launches."""
+    import os
+    import shutil
+
+    from ai_music_generation_tpu_torch.cli import sample as cli
+    from ai_music_generation_tpu_torch.experiments import moe_probe
+
+    out = train["out_dir"]
+    shutil.rmtree(os.path.join(out, "samples"), ignore_errors=True)
+    before = _k1_launches()
+    t0 = time.perf_counter()
+    cli.main([f"--out_dir={out}", f"--data_root={train['data_root']}",
+              f"--dataset={moe_probe.CORPUS}", "--tokens_format=char",
+              "--use_validation_prefixes=False", "--start=$X:",
+              f"--num_samples={MOE_SAMPLES}", f"--batch_size={MOE_SAMPLES}",
+              f"--max_new_tokens={MOE_NEW}", "--temperature=0.8",
+              "--top_k=200", f"--device={device}"])
+    wall = time.perf_counter() - t0
+    launches = _k1_launches() - before
+    files = _sample_files(out)
+    # the prompt's 3 tokens prefill at the power-of-two bucket of 2; every
+    # later position is a T=1 step
+    steps = len("$X:") + MOE_NEW - 2
+    want = (MOE_GPT["n_layer"] * steps
+            if torch.device(device).type == "cuda" else 0)
+    if sorted(files) != sorted(f"sample_{i}.txt" for i in range(MOE_SAMPLES)) \
+            or launches != want:
+        raise AssertionError(f"MoE sample CLI: {len(files)} files, "
+                             f"{launches} K1 launches (want {want})")
+    print(f"MoE sample CLI from the trained ckpt.pt: {MOE_SAMPLES} samples x "
+          f"{MOE_NEW} new tokens in {wall:.2f} s; {launches} K1 launches; "
+          f"first: {files['sample_0.txt'][:80]!r}")
+    return dict(samples_s=MOE_SAMPLES / wall, launches=launches)
+
+
 def _counted_ops() -> dict:
     """Every kernel wrapper of the port by name; each counts its launches."""
     from ai_music_generation_tpu_torch.ops import decode_attention_int8 as i8
@@ -4831,7 +5414,8 @@ def main(argv=None) -> int:
                               refresh=fp32_ms["k2_fp32_refresh"],
                               cli=fp32_ms["k2_fp32_cli"])
     # K3, K5 and K6 have no caller on any path: their launches are the sum
-    # of their counts over the six main paths (phases 5, 8, 12, 15, 19, 20)
+    # of their counts over the main paths so far (phases 5-30; the MoE
+    # paths below are asserted to launch K1 alone)
     kernels.append(_entry("spec_attention", SPEC_SOURCE,
                           SPEC_REPLACES["spec_attention"],
                           on_path["spec_attention"],
@@ -4909,6 +5493,72 @@ def main(argv=None) -> int:
                       for b, t in aes["timing"].items())
           + f"; cli/audio_aes.py {aes_cli['files_per_min']:.1f} files/min, "
           f"{aes_cli['chunks_per_s']:.1f} chunks/s over {SYNTH_TUNES} WAVs")
+    # MoE (phases 36-40): K1 at the MoE paths' shapes; the model card vs
+    # CPU; the train CLI and a resume (no kernel); decode of the trained
+    # model and of the bench config with 4 experts; serving; the sampling
+    # CLI. Each decode path launches K1 only, at shapes phase 36 checked
+    moe_err, moe_checked = phase_moe_kernel_vs_twin("cuda")
+    moe_k1 = phase_moe_kernel_timing()
+    moe_model = phase_moe_model("cuda")
+    torch.cuda.empty_cache()
+    moe_counts = {}
+    with _K1Calls() as moe_calls:
+        with tempfile.TemporaryDirectory() as tmp:
+            moe_train, moe_counts["train"] = _main_path(phase_moe_train, tmp,
+                                                        "cuda")
+            torch.cuda.empty_cache()
+            moe_dec, moe_counts["decode"] = _main_path(
+                phase_moe_decode, moe_train, "cuda")
+            moe_cli, moe_counts["sample_cli"] = _main_path(
+                phase_moe_sample_cli, moe_train, "cuda")
+        torch.cuda.empty_cache()
+        moe_bench, moe_counts["bench"] = _main_path(phase_moe_bench_decode,
+                                                    "cuda")
+        torch.cuda.empty_cache()
+        moe_srv, moe_counts["serve"] = _main_path(phase_moe_serve, "cuda")
+        torch.cuda.empty_cache()
+    if any(moe_counts["train"].values()):
+        raise AssertionError(f"MoE training launched kernels of the port: "
+                             f"{moe_counts['train']}")
+    for path, c in moe_counts.items():
+        if any(n for k, n in c.items() if k != "gqa_decode_update"):
+            raise AssertionError(f"the MoE {path} path launched another "
+                                 f"kernel than K1: {c}")
+    if not moe_calls.keys <= moe_checked:
+        raise AssertionError(f"the MoE paths ran K1 at "
+                             f"{sorted(moe_calls.keys - moe_checked)}, "
+                             f"which phase 36 did not hold against the twin")
+    moe_k1_launches = {p: c["gqa_decode_update"]
+                       for p, c in moe_counts.items() if p != "train"}
+    kernels.append(_entry(
+        "gqa_decode_update/moe", KERNEL_SOURCE, KERNEL_REPLACES,
+        sum(n for p, n in moe_k1_launches.items() if p != "serve"),
+        max(moe_err, moe_k1.pop("max_abs_err")), moe_k1,
+        ring_launches=moe_k1_launches["serve"], by_path=moe_k1_launches,
+        shapes=sorted(f"B={b} S={S} KHD={khd} {str(dt)[6:]} "
+                      f"{'ring' if ring else 'lockstep'}"
+                      for b, S, khd, dt, ring in moe_calls.keys)))
+    steps = moe_train["steps"]
+    print(f"[{card}] MoE (4 experts, top 2): model card vs CPU "
+          f"{ {k: v for k, v in moe_model.items()} }; train CLI "
+          f"{moe_train['ms']:.2f} ms/iter (MFU {moe_train['mfu']:.2f}%, "
+          f"inflated), val loss {[round(v, 4) for v in moe_train['val']]}; "
+          f"train step dense {steps['dense']['ms']:.2f} ms vs MoE "
+          f"{steps['moe']['ms']:.2f} ms = {moe_train['ratio']:.3f} (FLOP "
+          f"ratio {moe_train['flop_ratio']:.3f}), peak "
+          f"{steps['dense']['peak_gib']:.3f} / {steps['moe']['peak_gib']:.3f}"
+          f" GiB; decode (trained, B={MOE_DECODE_B}) {moe_dec['tok_s']:.1f} "
+          f"tok/s, peak {moe_dec['peak_gib']:.2f} GiB; bench config "
+          f"(B={BATCH}, window {WINDOW}) {moe_bench['tok_s']:.1f} tok/s, "
+          f"peak {moe_bench['peak_gib']:.2f} GiB; serving "
+          f"{moe_srv['tok_s']:.1f} tok/s at {SERVE_SLOTS} slots (p50 "
+          f"{moe_srv['latency']['p50_s']} "
+          f"s, p95 {moe_srv['latency']['p95_s']} s, p99 "
+          f"{moe_srv['latency']['p99_s']} s, peak {moe_srv['peak_gib']:.2f} "
+          f"GiB); sample CLI {moe_cli['samples_s']:.2f} samples/s; K1 "
+          f"launches {moe_k1_launches}; K1 at the decode step "
+          f"{moe_k1['ms']:.4f} ms (bound {moe_k1['bound_ms']:.4f}, SDPA "
+          f"{moe_k1['library_ms']:.4f})")
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

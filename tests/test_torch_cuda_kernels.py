@@ -1437,3 +1437,64 @@ def test_predictor_chunk_invariance_on_cuda(cuda):
                               (wave, 16000)])[1]
     for axis, value in alone.items():
         assert abs(value - crowd[axis]) <= 1e-5 * abs(value) + 1e-7, axis
+
+
+MOE_SMALL = dict(n_expert=4, expert_top_k=2, capacity_factor=1.25)
+# the router's weights scaled up, and prompts (seed 3) on which no routing
+# decision of the CPU run lies within MOE_MARGIN (in log-probability) of a
+# tie: fp32 sums on the card and the CPU in other orders (~1e-6 of a
+# value), and a near-tie token may then take another expert; the CPU run
+# asserts the margin
+MOE_ROUTER_SCALE, MOE_MARGIN = 20.0, 1e-4
+
+
+def _moe_margins(model):
+    """Forward hooks on each MoE layer that record the smallest gap between
+    the log-probabilities of a token's j-th and (j+1)-th expert, j <= K."""
+    gaps = []
+    K = model.config.expert_top_k
+
+    def hook(moe, args, out):
+        logp = torch.sort(moe.probs(args[0]).log(), -1, descending=True)[0]
+        gaps.append(float((logp[:, :K] - logp[:, 1:K + 1]).min()))
+
+    return gaps, [b.moe.register_forward_hook(hook)
+                  for b in model.transformer.h]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", [
+    dict(kv_quantized=True, n_kv_head=2, flat_kv=True),
+    dict(kv_quantized=False, n_kv_head=None),
+], ids=["int8-kh2-flat", "fp32-mha"])
+def test_moe_generator_on_cuda_matches_cpu(cuda, variant, monkeypatch):
+    """A greedy fp32 MoE Generator (4 experts, top 2; window 64, 100 new
+    tokens: two refreshes) on the card gives the CPU's tokens, through K1
+    (n_layer launches per step) and never the twin; the routing of the CPU
+    run clears MOE_MARGIN."""
+    from ai_music_generation_tpu_torch.ops import gqa_decode as ops
+
+    cpu = init_weights(GPT(GPTConfig(**{**FP32_SMALL, **MOE_SMALL,
+                                        **variant}), device="cpu"),
+                       torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        cpu.transformer.wte.weight.mul_(10.0)
+        for block in cpu.transformer.h:
+            block.moe.router.weight.mul_(MOE_ROUTER_SCALE)
+    gpu = copy.deepcopy(cpu).to(cuda).eval()
+    prompts = torch.randint(0, 128, (16, 8), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(3))
+    kw = dict(max_new_tokens=100, temperature=0.0, top_k=None)
+    gaps, hooks = _moe_margins(cpu)
+    want = Generator(cpu.eval(), **kw).generate(prompts)
+    for h in hooks:
+        h.remove()
+    assert min(gaps) > MOE_MARGIN
+    twin_calls = []
+    monkeypatch.setattr(ops, "gqa_decode_reference",
+                        lambda *a: twin_calls.append(1))
+    before = gqa_decode_update.launches
+    got = Generator(gpu, **kw).generate(prompts).cpu()
+    assert gqa_decode_update.launches - before == 2 * 100
+    assert not twin_calls
+    assert torch.equal(got, want)

@@ -203,6 +203,10 @@ def test_init_weights_follows_jax_scheme():
 
 
 def test_refuses_unported_features():
-    for kw in ({"n_expert": 4}, {"seq_axis": "seq"}):
-        with pytest.raises(NotImplementedError):
-            GPT(dataclasses.replace(_configs("kh2")[1], **kw), device="cpu")
+    cfg = _configs("kh2")[1]
+    with pytest.raises(NotImplementedError):
+        GPT(dataclasses.replace(cfg, seq_axis="seq"), device="cpu")
+    # MoE is ported: its blocks hold the routed experts, not the MLP
+    model = GPT(dataclasses.replace(cfg, n_expert=4), device="cpu")
+    assert all(hasattr(b, "moe") and not hasattr(b, "mlp")
+               for b in model.transformer.h)

@@ -60,10 +60,12 @@ MODULES = [
     "ai_music_generation_tpu_torch.experiments",
     "ai_music_generation_tpu_torch.experiments.int4_kernel_probe",
     "ai_music_generation_tpu_torch.experiments.k1_ab",
+    "ai_music_generation_tpu_torch.experiments.moe_probe",
     "ai_music_generation_tpu_torch.experiments.register_caps",
     "ai_music_generation_tpu_torch.experiments.tunes_mfu",
     "ai_music_generation_tpu_torch.models.convert",
     "ai_music_generation_tpu_torch.models.gpt",
+    "ai_music_generation_tpu_torch.models.moe",
     "ai_music_generation_tpu_torch.models.nanogpt_ckpt",
     "ai_music_generation_tpu_torch.models.tunesformer",
     "ai_music_generation_tpu_torch.models.tunesformer_export",
@@ -134,6 +136,8 @@ def test_port_imports_without_triton_or_nvcc():
         "cfg = GPTConfig(block_size=16, vocab_size=16, n_layer=1, n_head=2, "
         "n_embd=32)\n"
         "GPT(cfg, device='cpu')(torch.zeros((1, 4), dtype=torch.int32))\n"
+        "GPT(dataclasses.replace(cfg, n_expert=2), device='cpu')("
+        "torch.zeros((1, 4), dtype=torch.int32))\n"
         "Generator(GPT(dataclasses.replace(cfg, attn_impl='pallas'), "
         "device='cpu'), max_new_tokens=4).generate([[1, 2, 3]])\n"
         "SpecGenerator(GPT(cfg, device='cpu'), max_new_tokens=4).generate("

@@ -196,7 +196,8 @@ def test_vocab_falls_back_to_50304_without_meta(corpus, tmp_path):
     (dict(init_from="gpt2"), NotImplementedError, "item 7"),
     (dict(init_from="gpt2-xl"), NotImplementedError, "item 7"),
     (dict(fsdp=True), NotImplementedError, "item 6"),
-    (dict(n_expert=2), NotImplementedError, "item 6"),
+    (dict(n_expert=2, n_model=2), NotImplementedError,
+     "expert parallelism"),
     (dict(n_model=2), NotImplementedError, "item 6"),
     (dict(init_from="nothing"), ValueError, "unknown init_from"),
 ], ids=["gpt2", "gpt2-xl", "fsdp", "n_expert", "n_model", "unknown"])
