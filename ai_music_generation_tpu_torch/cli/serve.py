@@ -14,7 +14,8 @@ checkpoint: ``--kv_quantized=True --flat_kv=True --n_slots=8192
 --cache_len=128 --ticks_per_call=64 --admit_group=512``. An MoE checkpoint
 (``model_args`` with ``n_expert``) serves as it is: every slot ticks, so the
 experts route all ``n_slots`` rows of a tick together. ``--mesh`` (sharded
-serving) is not ported yet and raises; ``--device=cpu`` serves from the CPU
+serving) is not ported yet and raises (ROADMAP queue 1 item 6b);
+``--device=cpu`` serves from the CPU
 (the plain twins, for tests).
 """
 
@@ -43,7 +44,7 @@ DEFAULTS = dict(
     kv_quantized=False,
     flat_kv=False,
     prewarm=False,  # run every admission shape once before serving
-    mesh="",  # "NxM" sharded serving: not ported yet
+    mesh="",  # "NxM" sharded serving: not ported yet (item 6b)
     device="cuda",
 )
 

@@ -32,8 +32,18 @@ the split generator's shuffles of the epochs before the checkpoint, so it
 continues the uninterrupted run's batch order (the JAX CLI restarts it);
 the losses are summed on the device (in fp64, the JAX CLI's host sums) and
 read once an epoch; ``ms_per_iter`` is the median time between the ends
-of an epoch's steps (CUDA events on the card). ``--n_model > 1`` (tensor
-parallelism over a mesh) is not ported.
+of an epoch's steps (CUDA events on the card).
+
+Under ``torchrun`` (one process per card; gloo with ``--device=cpu``) the
+JAX CLI's mesh rule applies: over ``world`` processes, ``n_data = world //
+n_model``, and the steps run sharded (``train/tunes_step.py::
+shard_tunesformer_step``: the batch on the data axis, tensor parallelism
+over ``--n_model``) when ``world > 1``, ``world % n_model == 0`` and the
+batch divides over ``n_data``; else each process trains a whole replica
+(rank 0 says so). Without a process group ``--n_model > 1`` raises, as
+``train/trainer.py`` does. Only rank 0 prints and
+writes; ``weights.pth`` holds the whole model and optimizer state whatever
+the mesh, and a resume loads it into any mesh.
 """
 
 from __future__ import annotations
@@ -48,7 +58,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ai_music_generation_tpu_torch.parallel.distributed import (
+    initialize_distributed,
+    is_main_process,
+    shutdown,
+)
 from ai_music_generation_tpu_torch.tokenizers.patchilizer import Patchilizer
 from ai_music_generation_tpu_torch.train.optimizer import (
     adamw_count,
@@ -72,7 +88,7 @@ DEFAULTS = dict(
     load_from_checkpoint=False,
     torch_init="",  # a reference weights.pth to fine-tune from (weights only)
     patch_sampling_batch_size=0,  # ref config.py:9; 0 = full context
-    n_model=1,  # tensor-parallel mesh axis: only 1 is ported
+    n_model=1,  # model axis of the mesh under torchrun (tensor parallel)
     seed=42,
     eval_ratio=0.1,
     dtype="bfloat16",
@@ -162,6 +178,22 @@ class _StepClock:
 def main(argv=None):
     """Train; returns a dict: ``min_eval_loss``, ``best_epoch`` and the
     run's ``epochs`` (epoch, train_loss, eval_loss, steps, ms_per_iter)."""
+    argv = sys.argv[1:] if argv is None else argv
+    c = apply_overrides(dict(DEFAULTS), argv)
+    joined = not dist.is_initialized()  # leave a caller's group up
+    initialize_distributed(c["device"])
+    try:
+        return _train(c)
+    finally:
+        if joined:
+            shutdown()
+
+
+def _train(c):
+    if int(c["n_model"]) > 1 and not dist.is_initialized():
+        raise RuntimeError(
+            "--n_model > 1 trains over a mesh: start under torchrun "
+            "(main() joins the process group)")
     from ai_music_generation_tpu_torch.models.convert import (
         init_tunesformer_weights,
     )
@@ -175,24 +207,21 @@ def main(argv=None):
         load_reference_checkpoint, optimizer_state_from_reference,
         read_reference,
     )
+    from ai_music_generation_tpu_torch.parallel.mesh import make_mesh
     from ai_music_generation_tpu_torch.train.optimizer import optax_adamw
     from ai_music_generation_tpu_torch.train.tunes_step import (
         make_tunesformer_eval_step, make_tunesformer_train_step,
+        shard_tunesformer_step,
     )
     from ai_music_generation_tpu_torch.utils.device import resolve_device
 
-    argv = sys.argv[1:] if argv is None else argv
-    c = apply_overrides(dict(DEFAULTS), argv)
-    if int(c["n_model"]) > 1:
-        raise NotImplementedError(
-            "--n_model > 1 (tensor parallelism over a (data, model) mesh, "
-            "the JAX package's shard_tunesformer_step) is not ported: it "
-            "waits for the sharded rules of ROADMAP.md item 6")
     device = resolve_device(c["device"])
+    main = is_main_process()
+    say = print if main else (lambda *a, **k: None)
     os.makedirs(c["out_dir"], exist_ok=True)
 
     with open(c["data_path"]) as f:
-        print("Loading Data...")
+        say("Loading Data...")
         data = json.load(f)
     if c["max_examples"]:
         data = data[: c["max_examples"]]
@@ -201,7 +230,7 @@ def main(argv=None):
     train_arrs = encode_dataset(train_items, c["patch_length"],
                                 c["patch_size"])
     eval_arrs = encode_dataset(eval_items, c["patch_length"], c["patch_size"])
-    print(f"train {len(train_arrs)} / eval {len(eval_arrs)} examples")
+    say(f"train {len(train_arrs)} / eval {len(eval_arrs)} examples")
 
     cfg = TunesFormerConfig(
         patch_length=c["patch_length"], patch_size=c["patch_size"],
@@ -213,12 +242,12 @@ def main(argv=None):
     model = TunesFormer(cfg, device="cpu")
     if c["torch_init"]:
         model.load_state_dict(load_reference_checkpoint(c["torch_init"], cfg))
-        print(f"initialized from reference checkpoint {c['torch_init']}")
+        say(f"initialized from reference checkpoint {c['torch_init']}")
     else:
         init_tunesformer_weights(model,
                                  torch.Generator().manual_seed(c["seed"]))
     model.to(device)
-    print(f"Parameter Number: {sum(p.numel() for p in model.parameters())}")
+    say(f"Parameter Number: {sum(p.numel() for p in model.parameters())}")
 
     B = c["batch_size"]
     steps_per_epoch = max(1, len(train_arrs) // B)
@@ -245,12 +274,27 @@ def main(argv=None):
         for _ in range(pre_epoch):
             rng_py.shuffle(list(range(len(train_arrs))))
             rng_py.shuffle(list(range(len(eval_arrs))))
-        print(f"Successfully Loaded Checkpoint from Epoch {pre_epoch}")
+        say(f"Successfully Loaded Checkpoint from Epoch {pre_epoch}")
+
+    # the JAX CLI's mesh rule (its :154-173)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n_model = max(int(c["n_model"]), 1)
+    n_data = world // n_model
+    plan = None
+    if world > 1 and world % n_model == 0 and B % n_data == 0:
+        mesh = make_mesh(n_data, n_model, device.type)
+        say(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+        train_step, eval_step, model, optimizer, plan = (
+            shard_tunesformer_step(mesh, model, schedule,
+                                   optimizer.state_dict()))
+    elif world > 1:
+        say(f"no mesh ({world} processes, --n_model={n_model}, batch {B}): "
+            f"every process trains a whole replica on its own")
 
     psbs = c["patch_sampling_batch_size"]
     epochs = []
     for epoch in range(pre_epoch + 1, c["num_epochs"] + 1):
-        print("-" * 21 + f"Epoch {epoch}" + "-" * 21)
+        say("-" * 21 + f"Epoch {epoch}" + "-" * 21)
         tl = torch.zeros((), dtype=torch.float64, device=device)
         tn = torch.zeros((), dtype=torch.int64, device=device)
         clock = _StepClock(device)
@@ -279,24 +323,36 @@ def main(argv=None):
         train_loss = float(tl) / max(int(tn), 1)
         eval_loss = float(el) / max(int(en), 1)
         ms = statistics.median(steps_ms) if steps_ms else float("nan")
-        print(f"train_loss: {train_loss:.4f} eval_loss: {eval_loss:.4f} "
-              f"({len(steps_ms)} steps, {ms:.2f} ms/iter)")
-        with open(os.path.join(c["out_dir"], "logs.txt"), "a") as f:
-            f.write(
-                f"Epoch {epoch}\ntrain_loss: {train_loss}\neval_loss: "
-                f"{eval_loss}\ntime: {time.asctime()}\n\n")
+        say(f"train_loss: {train_loss:.4f} eval_loss: {eval_loss:.4f} "
+            f"({len(steps_ms)} steps, {ms:.2f} ms/iter)")
+        if main:
+            with open(os.path.join(c["out_dir"], "logs.txt"), "a") as f:
+                f.write(
+                    f"Epoch {epoch}\ntrain_loss: {train_loss}\neval_loss: "
+                    f"{eval_loss}\ntime: {time.asctime()}\n\n")
         epochs.append(dict(epoch=epoch, train_loss=train_loss,
                            eval_loss=eval_loss, steps=len(steps_ms),
                            ms_per_iter=ms))
         if eval_loss < min_eval_loss:
             best_epoch, min_eval_loss = epoch, eval_loss
-            save_reference_checkpoint(
-                path, model, epoch=epoch, best_epoch=best_epoch,
-                min_eval_loss=min_eval_loss, optimizer=optimizer,
-                base_lr=c["learning_rate"],
-                lr=float(schedule(adamw_count(optimizer))))
-    print(f"Best Eval Epoch : {best_epoch}")
-    print(f"Min Eval Loss : {min_eval_loss}")
+            lr = float(schedule(adamw_count(optimizer)))
+            whole, whole_opt = model, optimizer
+            if plan is not None:  # every rank gathers
+                state, opt_state = plan.gather_state(model, optimizer)
+            if main and plan is not None:  # a whole copy on the CPU
+                whole = TunesFormer(cfg, device="cpu")
+                whole.load_state_dict(state)
+                whole_opt = optax_adamw(whole.parameters())
+                whole_opt.load_state_dict(opt_state)
+            if main:
+                save_reference_checkpoint(
+                    path, whole, epoch=epoch, best_epoch=best_epoch,
+                    min_eval_loss=min_eval_loss, optimizer=whole_opt,
+                    base_lr=c["learning_rate"], lr=lr)
+            if plan is not None:  # the file is there for every rank
+                dist.barrier()
+    say(f"Best Eval Epoch : {best_epoch}")
+    say(f"Min Eval Loss : {min_eval_loss}")
     return dict(min_eval_loss=min_eval_loss, best_epoch=best_epoch,
                 epochs=epochs)
 

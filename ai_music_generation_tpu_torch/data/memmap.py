@@ -1,8 +1,7 @@
 """Memmap token datasets and batch sampling: a copy of
-``ai_music_generation_tpu/data/memmap.py`` without ``sharded_sample`` (a
-mesh feature; the port's trainer calls ``sample``). tests/test_torch_host_copies.py
+``ai_music_generation_tpu/data/memmap.py``. tests/test_torch_host_copies.py
 holds the file helpers to the originals, tests/test_torch_train_pieces.py
-the batches.
+the batches, tests/test_torch_parallel_rules.py ``sharded_sample``.
 
 - The token dtype is recorded in ``meta.pkl`` (key ``bin_dtype``), uint16
   when it is not there.
@@ -62,6 +61,26 @@ class BinDataset:
         n = int(np.prod(batch_shape))
         ix = self.global_indices(seed, it, n, block_size).reshape(batch_shape)
         return self.gather(ix, block_size)
+
+    def sharded_sample(self, seed: int, it: int,
+                       batch_shape: tuple[int, ...], block_size: int,
+                       shard: tuple[int, int] = (0, 1)):
+        """This rank's rows of :meth:`sample`'s batch: every rank draws the
+        same global offset grid, then gathers only its block of the last
+        batch dim, the ``shard = (index, count)``-th of ``count`` equal
+        blocks (the data axis: ``(data_rank, n_data)``), so the global
+        batch does not depend on the mesh (JAX ``sharded_sample``, which
+        gathers the rows of its addressable devices)."""
+        index, count = shard
+        rows = batch_shape[-1]
+        if rows % count:
+            raise ValueError(f"{rows} rows do not split over {count} ranks")
+        ix = self.global_indices(
+            seed, it, int(np.prod(batch_shape)), block_size
+        ).reshape(batch_shape)
+        per = rows // count
+        return self.gather(ix[..., index * per:(index + 1) * per],
+                           block_size)
 
 
 def load_meta(meta_path: str) -> Optional[dict]:

@@ -99,7 +99,7 @@ class PipelineConfig:
     aesthetics_batch_size: int = 10
     synth_batch: int = 8  # tunes rendered per device call (batched synth)
     # shard the render batch over a mesh of all devices: not ported yet
-    # (ROADMAP queue 1 item 6); True raises
+    # (ROADMAP queue 1 item 6b); True raises
     shard_synth: bool = False
     metrics_processes: Optional[int] = None  # Pool size for the metrics stage
     # where the synth renders and the Audiobox predictor scores ("cpu" for
@@ -169,8 +169,8 @@ class EvalPipeline:
         if config.shard_synth:
             raise NotImplementedError(
                 "a render sharded over a mesh (shard_synth) is not ported "
-                "yet (ROADMAP queue 1 item 6, MoE, parallelism and sharded "
-                "serving)")
+                "yet (ROADMAP queue 1 item 6b, sharded serving and the "
+                "sharded synth)")
         if config.render_wav:
             # a CUDA device without a card raises here, before any stage:
             # the render never carries on on the CPU

@@ -43,7 +43,18 @@ is ``models.moe.MoEMLP``, the forward sums its load-balance aux over the
 layers and a loss with targets gains ``moe_aux_coef * aux / n_layer``.
 Routing couples the tokens of a call (the experts' capacity is shared), so
 every cache mode runs the MoE sublayer on all the call's tokens, as JAX
-does. Not ported yet: sequence parallelism.
+does. Not ported yet: sequence parallelism (ROADMAP queue 1 item 6c).
+
+On a (data, model) mesh (``parallel/sharding.py`` sets each split
+module's ``layout``), the training forward (targets, no cache) runs this
+rank's part: its rows of the batch; its heads (the fused ``c_attn`` output
+keeps JAX's placement, a contiguous slice of the [C + 2*KH*D] columns, so
+the q/k/v slab is gathered over the model axis and each rank takes its
+heads from it), its MLP columns and its vocab slice of the tied
+embedding, whose logits go to a cross-entropy over the vocab shards. The
+masks index the single-card site by global coordinates, so a sharded step
+drops what the single-card step drops, and the loss is each rank's share
+of the global mean (its data-axis mean is the single-card loss).
 """
 
 from __future__ import annotations
@@ -63,6 +74,12 @@ from ai_music_generation_tpu_torch.ops.decode_attention import (
 from ai_music_generation_tpu_torch.ops.gqa_decode import gqa_decode_update
 from ai_music_generation_tpu_torch.ops.spec_attention import (
     spec_attention_update,
+)
+from ai_music_generation_tpu_torch.parallel.collectives import (
+    all_reduce_,
+    copy_to,
+    gather_last,
+    reduce_from,
 )
 from ai_music_generation_tpu_torch.utils.hash32 import GOLDEN, M32, mix32, mul32
 
@@ -348,30 +365,71 @@ def dropout_key(seed: int, it: int, micro: int = 0) -> int:
 
 
 def dropout_keep(shape, p: float, key: int, layer: int, site: int,
-                 device=None) -> torch.Tensor:
+                 device=None, start=None, full=None) -> torch.Tensor:
     """The keep mask (bool, ``shape``) of one dropout site: element i is
     kept iff ``mix32(mul32(i, GOLDEN) ^ k) >= p * 2^32``, ``k`` a hash of
     (key, layer, site) and i the row-major index, so each element is kept
     with probability 1 - p. Integer ops only: the same bits on every
-    device."""
-    n = math.prod(shape)
+    device. ``start`` and ``full`` (per dim) make the mask the block at
+    ``start`` of the site of shape ``full``: a rank's part of a site that a
+    mesh splits."""
+    if start is None:
+        start, full = (0,) * len(shape), tuple(shape)
+    n = math.prod(full)
     if n >= 1 << 32:
         raise ValueError(f"a dropout site of {n} elements passes 2^32")
     k = mix32(key ^ mul32(layer * 4 + site + 1, GOLDEN))
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+    if tuple(full) == tuple(shape):
+        idx = torch.arange(n, dtype=torch.int64, device=device)
+    else:
+        idx, stride = torch.zeros((), dtype=torch.int64, device=device), 1
+        for d in reversed(range(len(shape))):
+            axis = torch.arange(start[d], start[d] + shape[d],
+                                dtype=torch.int64, device=device) * stride
+            idx = idx + axis.view([-1] + [1] * (len(shape) - 1 - d))
+            stride *= full[d]
     bits = mix32(mul32(idx, GOLDEN) ^ k)
     return (bits >= round(p * 2.0 ** 32)).view(shape)
 
 
-def dropout(x: torch.Tensor, p: float, key: int, layer: int,
-            site: int) -> torch.Tensor:
+def dropout(x: torch.Tensor, p: float, key: int, layer: int, site: int,
+            layout=None, head0: int = 0,
+            n_head: Optional[int] = None) -> torch.Tensor:
     """Flax ``nn.Dropout`` with the mask of :func:`dropout_keep`: kept
-    values divided by 1 - p in x's dtype, the rest 0."""
-    keep = dropout_keep(x.shape, p, key, layer, site, x.device)
+    values divided by 1 - p in x's dtype, the rest 0. On a mesh
+    (``layout``) x is this rank's part of the site: its rows of the data
+    axis (dim 0) and, at the attention probabilities, the heads ``head0
+    ..`` of ``n_head`` (dim 1); the mask is the single-card mask at those
+    coordinates."""
+    start = full = None
+    if layout is not None:
+        start = [layout.data_rank * x.shape[0]] + [0] * (x.dim() - 1)
+        full = [x.shape[0] * layout.n_data, *x.shape[1:]]
+        if n_head is not None:
+            start[1], full[1] = head0, n_head
+    keep = dropout_keep(x.shape, p, key, layer, site, x.device, start, full)
     return torch.where(keep, true_divide(x, 1.0 - p), 0.0)
 
 
+def vocab_embedding(ids: torch.Tensor, weight: torch.Tensor,
+                    layout) -> torch.Tensor:
+    """``F.embedding(ids, table)`` of a table whose rows (the vocab) are
+    split over the model axis, ``weight`` this rank's slice: each rank
+    looks up the ids in its slice, the rest are 0, and the sum over the
+    axis is the whole lookup."""
+    V = weight.shape[0]
+    local = ids.long() - layout.model_rank * V
+    inside = (local >= 0) & (local < V)
+    rows = F.embedding(local.clamp(0, V - 1), weight)
+    return reduce_from(torch.where(inside[..., None], rows, 0.0),
+                       layout.model_group)
+
+
 class CausalSelfAttention(nn.Module):
+    # on a mesh (module docstring): a parallel.mesh.Layout, and the names
+    # of the parameters that parallel/sharding.py split over the model axis
+    layout, split = None, frozenset()
+
     def __init__(self, config: GPTConfig):
         super().__init__()
         self.config = config
@@ -393,6 +451,11 @@ class CausalSelfAttention(nn.Module):
         B, T, C = x.shape
         H, KH, D = cfg.n_head, cfg.kv_heads, cfg.head_dim
         KHD = KH * D
+        if self.layout is not None:
+            if layer_cache is not None or spec_col_pos is not None:
+                raise ValueError("an attention split over a mesh runs the "
+                                 "no-cache (training) forward only")
+            return self._sharded_forward(x, drop)
         q, k, v = _linear(x, self.c_attn).split([C, KHD, KHD], dim=-1)
         if spec_col_pos is not None:
             return self._spec_forward(q, k, v, layer_cache, cache_len,
@@ -446,12 +509,55 @@ class CausalSelfAttention(nn.Module):
                    cv.view(B, S, KH, D), ck_scale, cv_scale, mask[None, None])
         return _linear(y, self.c_proj)
 
-    def _causal(self, q, k, v, drop):
+    def _sharded_forward(self, x, drop):
+        """The no-cache forward of this rank's part on a mesh. The fused
+        ``c_attn`` output is split over the model axis in contiguous column
+        slices (JAX's placement), which mix q, k and v: the slabs are
+        gathered, and each rank attends with its heads (all heads when the
+        axis does not divide them) and its K/V heads for them, then runs
+        its rows of the row-parallel ``c_proj``; the axis sums the
+        partial outputs."""
+        cfg, lay = self.config, self.layout
+        B, T, C = x.shape
+        H, KH, D = cfg.n_head, cfg.kv_heads, cfg.head_dim
+        group, n, r = lay.model_group, lay.n_model, lay.model_rank
+        attn_split = "c_attn.weight" in self.split
+        proj_split = "c_proj.weight" in self.split
+        if attn_split:  # its columns: each rank's dx is partial
+            x = copy_to(x, group)
+        qkv = _linear(x, self.c_attn)
+        if attn_split:
+            qkv = gather_last(qkv, group, sum_grad=proj_split)
+        elif proj_split:  # the ranks use the replicated slab differently
+            qkv = copy_to(qkv, group)
+        heads_split = proj_split and H % n == 0
+        h0, Hl = (r * (H // n), H // n) if heads_split else (0, H)
+        kv = torch.arange(h0, h0 + Hl, device=x.device) // (H // KH)
+        q = qkv[..., h0 * D:(h0 + Hl) * D].reshape(B, T, Hl, D)
+        k = qkv[..., C:C + KH * D].reshape(B, T, KH, D).index_select(2, kv)
+        v = qkv[..., C + KH * D:].reshape(B, T, KH, D).index_select(2, kv)
+        y = self._causal(q, k, v, drop, h0)
+        if not proj_split:
+            y = _linear(y, self.c_proj)
+        else:
+            if not heads_split:  # its rows of c_proj's input
+                Cl = C // n
+                y = y[..., r * Cl:(r + 1) * Cl]
+            y = reduce_from(F.linear(y, self.c_proj.weight.to(y.dtype)),
+                            group)
+            if self.c_proj.bias is not None:
+                y = y + self.c_proj.bias.to(y.dtype)
+        if drop is not None:
+            y = dropout(y, *drop, SITE_ATTN_OUT, lay)
+        return y
+
+    def _causal(self, q, k, v, drop, head0=0):
         """No-cache causal attention (JAX gpt.py:745-786): K/V repeated to
         the H query heads, then ``scaled_dot_product_attention`` for
         ``attn_impl="flash"`` without active dropout (the counterpart of
         JAX's stock flash kernel), else the einsum chain with fp32 softmax
-        and dropout on the probabilities. [B, T, H, D] -> [B, T, H*D]."""
+        and dropout on the probabilities. [B, T, H, D] -> [B, T, H*D]; on a
+        mesh the heads are ``head0 ..`` of ``n_head``."""
         cfg = self.config
         B, T, H, D = q.shape
         G = H // k.shape[2]
@@ -468,7 +574,8 @@ class CausalSelfAttention(nn.Module):
         att = att.masked_fill(~mask, float("-inf"))
         att = torch.softmax(att.float(), dim=-1).to(q.dtype)
         if drop is not None:
-            att = dropout(att, *drop, SITE_ATTN_PROBS)
+            att = dropout(att, *drop, SITE_ATTN_PROBS, self.layout, head0,
+                          cfg.n_head)
         return torch.einsum("bhts,bshd->bthd", att, v).reshape(B, T, H * D)
 
     def _spec_forward(self, q, k, v, layer_cache, lengths, cursor, col_pos):
@@ -501,6 +608,10 @@ class CausalSelfAttention(nn.Module):
 
 
 class MLP(nn.Module):
+    # on a mesh (module docstring): a parallel.mesh.Layout, and the names
+    # of the parameters that parallel/sharding.py split over the model axis
+    layout, split = None, frozenset()
+
     def __init__(self, config: GPTConfig):
         super().__init__()
         C = config.n_embd
@@ -510,11 +621,21 @@ class MLP(nn.Module):
                                 dtype=config.param_dtype)
 
     def forward(self, x, drop=None):
+        lay = self.layout
+        split = "c_proj.weight" in self.split  # c_fc's columns with it
+        if split:  # column-parallel c_fc, row-parallel c_proj
+            x = copy_to(x, lay.model_group)
         # Flax's nn.gelu is the tanh approximation
-        y = _linear(F.gelu(_linear(x, self.c_fc), approximate="tanh"),
-                    self.c_proj)
+        h = F.gelu(_linear(x, self.c_fc), approximate="tanh")
+        if split:
+            y = reduce_from(F.linear(h, self.c_proj.weight.to(h.dtype)),
+                            lay.model_group)
+            if self.c_proj.bias is not None:
+                y = y + self.c_proj.bias.to(y.dtype)
+        else:
+            y = _linear(h, self.c_proj)
         if drop is not None:
-            y = dropout(y, *drop, SITE_MLP_OUT)
+            y = dropout(y, *drop, SITE_MLP_OUT, lay)
         return y
 
 
@@ -580,11 +701,16 @@ class GPT(nn.Module):
     pass ``device="cpu"`` for a CPU model.
     """
 
+    # on a mesh (module docstring): a parallel.mesh.Layout, and the names
+    # of the parameters that parallel/sharding.py split over the model axis
+    layout, split = None, frozenset()
+
     def __init__(self, config: GPTConfig, device=None):
         super().__init__()
         if config.seq_axis is not None:
             raise NotImplementedError(
-                "sequence parallelism is not ported yet")
+                "sequence parallelism is not ported yet (ROADMAP queue 1 "
+                "item 6c)")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -617,6 +743,10 @@ class GPT(nn.Module):
                 f"sequence length {T} exceeds block_size {cfg.block_size}")
         if targets is not None and cache is not None:
             raise ValueError("targets take the no-cache forward")
+        lay = self.layout
+        if lay is not None and targets is None:
+            raise ValueError("a model split over a mesh runs the training "
+                             "forward only (targets, no cache)")
         drop = None
         if self.training and cfg.dropout > 0 and cache is None:
             if dropout_key is None:
@@ -642,10 +772,12 @@ class GPT(nn.Module):
             pos, mask_rel = ring_positions(cache, T, cfg.block_size)
         elif cache is not None:
             pos = pos + cache.length
-        x = (F.embedding(idx, wte)
-             + F.embedding(pos, self.transformer.wpe.weight.to(cfg.dtype)))
+        vocab_split = "transformer.wte.weight" in self.split
+        tok = (vocab_embedding(idx, wte, lay) if vocab_split
+               else F.embedding(idx, wte))
+        x = tok + F.embedding(pos, self.transformer.wpe.weight.to(cfg.dtype))
         if drop is not None:
-            x = dropout(x, *drop, 0, SITE_EMBED)
+            x = dropout(x, *drop, 0, SITE_EMBED, lay)
         # remat (JAX gpt.py:945-948): each block's activations are
         # recomputed in the backward pass; the masks are counter hashes, so
         # no RNG state needs restoring, and an MoE block's routing is a
@@ -678,8 +810,11 @@ class GPT(nn.Module):
                 x = out
         x = _layer_norm(x, self.transformer.ln_f)
         if targets is not None:
+            if vocab_split:  # this rank's vocab slice of the logits
+                x = copy_to(x, lay.model_group)
             logits = F.linear(x, wte)  # weight tying
-            loss = cross_entropy_ignore_index(logits, targets)
+            loss = cross_entropy_ignore_index(logits, targets, layout=lay,
+                                              vocab_split=vocab_split)
             if cfg.n_expert > 0:
                 # the aux averaged over layers, so moe_aux_coef does not
                 # depend on the depth (JAX gpt.py:1004-1007)
@@ -716,18 +851,43 @@ class GPT(nn.Module):
 
 
 def cross_entropy_ignore_index(logits: torch.Tensor, targets: torch.Tensor,
-                               ignore_index: int = -1) -> torch.Tensor:
+                               ignore_index: int = -1, layout=None,
+                               vocab_split: bool = False) -> torch.Tensor:
     """Mean token cross-entropy over the targets that are not
     ``ignore_index`` (JAX gpt.py:1019-1050): ``logsumexp - logit[target]``
     in fp32 (the logits are upcast here, not before the head), masked,
     divided by ``max(count, 1)``, so a batch whose every target is ignored
-    gives 0 (``F.cross_entropy(..., ignore_index=-1)`` gives nan there)."""
+    gives 0 (``F.cross_entropy(..., ignore_index=-1)`` gives nan there).
+
+    On a mesh (``layout``): with ``vocab_split`` the logits are this rank's
+    vocab slice (rank r holds ``[r*V_local, (r+1)*V_local)``), and the
+    logsumexp and the target's logit are summed over the model axis; the
+    rows are this rank's of the data axis, and the result is its share of
+    the global mean (its sum over the global count, times the data-axis
+    size), so the data-axis mean of the ranks' values, and of their
+    gradients, is the global mean's."""
     logits = logits.float()
     mask = targets != ignore_index
     safe = torch.where(mask, targets, 0).long()
-    tgt = logits.gather(-1, safe[..., None])[..., 0]
-    nll = torch.logsumexp(logits, dim=-1) - tgt
-    return (nll * mask).sum() / mask.sum().clamp_min(1)
+    if vocab_split:
+        group, V = layout.model_group, logits.shape[-1]
+        top = all_reduce_(logits.detach().amax(-1), group,
+                          torch.distributed.ReduceOp.MAX)
+        lse = top + reduce_from((logits - top[..., None]).exp().sum(-1),
+                                group).log()
+        local = safe - layout.model_rank * V
+        inside = (local >= 0) & (local < V)
+        tgt = logits.gather(-1, local.clamp(0, V - 1)[..., None])[..., 0]
+        tgt = reduce_from(torch.where(inside, tgt, 0.0), group)
+        nll = lse - tgt
+    else:
+        tgt = logits.gather(-1, safe[..., None])[..., 0]
+        nll = torch.logsumexp(logits, dim=-1) - tgt
+    count = mask.sum()
+    if layout is None or layout.n_data == 1:
+        return (nll * mask).sum() / count.clamp_min(1)
+    count = all_reduce_(count, layout.data_group)
+    return (nll * mask).sum() / count.clamp_min(1) * layout.n_data
 
 
 # dense bf16 peak per card for MFU, by a substring of its CUDA name (the

@@ -33,6 +33,18 @@ capacity 10,240) each would hold 671M elements a layer, and the index form
 computes the same sums. Every shape depends only on N, so a step never
 syncs with the host.
 
+On a (data, model) mesh (``layout``, set by ``parallel/sharding.py``)
+the layer routes as the single-card layer routes the global batch: the
+capacity counts every rank's tokens, and a pair's buffer row is its
+priority among all of them (each rank adds the earlier ranks' and earlier
+choices' counts, gathered over the data axis, to its own). Each rank of the
+model axis holds ``E / n_model`` experts (expert parallelism, JAX
+parallel/mesh.py:67-75): the tokens are replicated over that axis, each
+rank runs its experts on their pairs and the combine is summed over the
+axis. Routing, the gates and the aux loss are computed on every rank alike;
+the aux term is this rank's share, as the loss (``models/gpt.py::
+cross_entropy_ignore_index``), with the global f.
+
 Parameters keep the JAX layouts (``w_fc`` [E, C, 4C], ``w_proj``
 [E, 4C, C], ``b_fc`` [E, 4C], ``b_proj`` [E, C]); the router is a
 ``Linear`` (weight [E, C], the JAX kernel transposed).
@@ -47,6 +59,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ai_music_generation_tpu_torch.models.gpt import SITE_MLP_OUT, dropout
+from ai_music_generation_tpu_torch.parallel.collectives import (
+    all_gather_stack,
+    copy_to,
+    reduce_from,
+)
 from ai_music_generation_tpu_torch.utils.device import ieee_fp32
 
 
@@ -97,11 +114,33 @@ def route(probs: torch.Tensor, top_k: int, capacity: int):
     return gate, expert_idx, slot < capacity, slot
 
 
+def data_priority(expert_idx: torch.Tensor, n_expert: int, layout):
+    """[N, K] offsets that turn this rank's buffer rows (``route``'s slot
+    over its own tokens) into the rows over the global batch of the data
+    axis, and the [K, E] counts of every choice over it: a pair (n, k) of
+    expert e comes after every rank's pairs of the earlier choices and the
+    earlier ranks' pairs of choice k (k-major, then token order, the global
+    tokens being the ranks' in rank order)."""
+    K = expert_idx.shape[1]
+    counts = torch.zeros(K, n_expert, dtype=torch.int64,
+                         device=expert_idx.device).scatter_add_(
+        1, expert_idx.t(), torch.ones_like(expert_idx.t()))
+    every = all_gather_stack(counts, layout.data_group)  # [n_data, K, E]
+    total = every.sum(0)
+    others = total - counts  # the other ranks' pairs
+    offset = others.cumsum(0) - others + every[:layout.data_rank].sum(0)
+    return offset.gather(1, expert_idx.t()).t(), total
+
+
 class MoEMLP(nn.Module):
     """Drop-in for ``models.gpt.MLP`` when ``config.n_expert > 0``;
     ``forward(x, drop=None, aux=True)`` returns ``(y, aux)``, aux an fp32
     0-dim load-balance term, or None with ``aux=False`` (the forwards whose
     loss does not read it: decode, serving, logits only)."""
+
+    # on a mesh (module docstring): a parallel.mesh.Layout, and the names
+    # of the parameters that parallel/sharding.py split over the model axis
+    layout, split = None, frozenset()
 
     def __init__(self, config):
         super().__init__()
@@ -122,21 +161,38 @@ class MoEMLP(nn.Module):
         return torch.softmax(_IEEELinear.apply(xt, self.router.weight), -1)
 
     def forward(self, x: torch.Tensor, drop=None, aux: bool = True):
-        cfg = self.config
+        cfg, lay = self.config, self.layout
         B, T, C = x.shape
         E, K = cfg.n_expert, min(cfg.expert_top_k, cfg.n_expert)
         N, dt = B * T, x.dtype
+        n_data = 1 if lay is None else lay.n_data
         probs = self.probs(x)
-        capacity = capacity_of(N, E, K, cfg.capacity_factor)
+        capacity = capacity_of(N * n_data, E, K, cfg.capacity_factor)
         gate, expert_idx, keep, slot = route(probs, K, capacity)
+        # a pair's row in its expert's buffer: over the global batch its
+        # slot decides whether it is kept, its row among this rank's own
+        # pairs (< N) places it
+        row, rows_per = slot, capacity
+        if n_data > 1:
+            offset, total = data_priority(expert_idx, E, lay)
+            keep, rows_per = slot + offset < capacity, min(capacity, N)
+        # this rank's experts: all of them, or E / n_model on a model axis
+        experts_split = "w_fc" in self.split
+        E_local, e0, mine = self.w_fc.shape[0], 0, keep
+        if experts_split:
+            e0 = lay.model_rank * E_local
+            mine = keep & (expert_idx >= e0) & (expert_idx < e0 + E_local)
+            x = copy_to(x, lay.model_group)
+            gate = copy_to(gate, lay.model_group)
 
-        # dispatch: kept pair (n, k) fills row expert * capacity + slot;
+        # dispatch: kept pair (n, k) fills row expert * rows_per + row;
         # dropped pairs write a spare last row that no expert reads
-        rows = torch.where(keep, expert_idx * capacity + slot, E * capacity)
+        rows = torch.where(mine, (expert_idx - e0) * rows_per + row,
+                           E_local * rows_per)
         xk = x.reshape(N, 1, C).expand(N, K, C).reshape(N * K, C)
-        buf = x.new_zeros(E * capacity + 1, C).index_put(
+        buf = x.new_zeros(E_local * rows_per + 1, C).index_put(
             (rows.reshape(-1),), xk)
-        xe = buf[:-1].view(E, capacity, C)
+        xe = buf[:-1].view(E_local, rows_per, C)
         h = torch.bmm(xe, self.w_fc.to(dt))
         if self.b_fc is not None:
             h = h + self.b_fc[:, None, :].to(dt)
@@ -147,21 +203,26 @@ class MoEMLP(nn.Module):
 
         # combine: each kept pair's output weighted by its gate (in the
         # compute dtype), summed over k in fp32; a dropped pair weighs 0
-        ye = ye.reshape(E * capacity, C)
-        weight = torch.where(keep, gate, 0.0).to(dt)
-        out = torch.where(keep, rows, 0)
+        ye = ye.reshape(E_local * rows_per, C)
+        weight = torch.where(mine, gate, 0.0).to(dt)
+        out = torch.where(mine, rows, 0)
         y = None
         for k in range(K):
             term = weight[:, k, None].float() * ye[out[:, k]].float()
             y = term if y is None else y + term
+        if experts_split:
+            y = reduce_from(y, lay.model_group)
         y = y.to(dt).reshape(B, T, C)
         if drop is not None:
-            y = dropout(y, *drop, SITE_MLP_OUT)
+            y = dropout(y, *drop, SITE_MLP_OUT, lay)
         if not aux:
             return y, None
 
         # load balance (Switch eq. 4): f from the pre-capacity selections
-        counts = torch.zeros(N, E, device=x.device).scatter_add_(
-            1, expert_idx, torch.ones(N, K, device=x.device))
-        f = counts.mean(0) / K
+        if n_data > 1:
+            f = total.sum(0).float() / (N * n_data) / K
+        else:
+            counts = torch.zeros(N, E, device=x.device).scatter_add_(
+                1, expert_idx, torch.ones(N, K, device=x.device))
+            f = counts.mean(0) / K
         return y, E * (f * probs.mean(0)).sum()

@@ -140,7 +140,9 @@ def _to_cpu(obj):
 def save_ckpt(path: str, model: GPT, iter_num: int = 0,
               best_val_loss: float = 1e9,
               train_config: Optional[Mapping[str, Any]] = None,
-              optimizer: Optional[torch.optim.Optimizer] = None) -> None:
+              optimizer: Optional[torch.optim.Optimizer] = None,
+              state: Optional[Mapping[str, torch.Tensor]] = None,
+              optimizer_state: Optional[Mapping[str, Any]] = None) -> None:
     """Write ``model`` as a ``ckpt.pt`` (fp32 weights on the CPU).
     ``train_config`` is stored as the checkpoint's ``config`` (its
     ``dataset`` names the meta.pkl the sampling CLI decodes with).
@@ -148,7 +150,11 @@ def save_ckpt(path: str, model: GPT, iter_num: int = 0,
     as its ``state_dict`` on the CPU; without one the checkpoint holds a
     fresh AdamW state. GQA models are written too: their ``c_attn`` is
     [C + 2*KH*D, C] and ``model_args`` carries ``n_kv_head``; so are MoE
-    models, with ``MOE_KEYS`` in ``model_args`` (module docstring)."""
+    models, with ``MOE_KEYS`` in ``model_args`` (module docstring).
+    ``state`` and ``optimizer_state`` (whole ``state_dict`` s on the CPU,
+    a model split over a mesh gathers them: ``parallel/sharding.py``)
+    replace ``model``'s and ``optimizer``'s; ``model`` then gives the
+    config only."""
     config = model.config
     train_config = dict(train_config or {})
     model_args = {k: getattr(config, k) for k in MODEL_ARGS_KEYS}
@@ -160,20 +166,23 @@ def save_ckpt(path: str, model: GPT, iter_num: int = 0,
     # one CPU tensor per parameter: the tied lm_head / wte share storage,
     # so torch.save writes it once and a loader sees the tie
     copies: dict[int, torch.Tensor] = {}
-    state = {}
-    for name, t in model.state_dict(keep_vars=True).items():
+    weights = {}
+    for name, t in (state if state is not None
+                    else model.state_dict(keep_vars=True)).items():
         if id(t) not in copies:
             copies[id(t)] = t.detach().to("cpu", torch.float32).clone()
-        state[name] = copies[id(t)]
+        weights[name] = copies[id(t)]
+    if optimizer_state is None and optimizer is not None:
+        optimizer_state = _to_cpu(optimizer.state_dict())
     ckpt = {
-        "model": state,
+        "model": weights,
         "optimizer": _fresh_adamw_state_dict(
             list(copies.values()),
             learning_rate=float(train_config.get("learning_rate", 6e-4)),
             weight_decay=float(train_config.get("weight_decay", 0.1)),
             beta1=float(train_config.get("beta1", 0.9)),
             beta2=float(train_config.get("beta2", 0.95)))
-        if optimizer is None else _to_cpu(optimizer.state_dict()),
+        if optimizer_state is None else optimizer_state,
         "model_args": model_args,
         "iter_num": int(iter_num),
         "best_val_loss": float(best_val_loss),

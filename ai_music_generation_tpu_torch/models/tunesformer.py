@@ -28,6 +28,14 @@ attention output and the MLP output) with the port's counter-hash masks
 drops with its own key, :func:`core_dropout_key` of the step key and the
 core's tag, so the patch and the char core never share mask bits (with
 ``share_weights`` the one core runs twice, under the two keys).
+
+On a (data, model) mesh (``train/tunes_step.py::shard_tunesformer_step``
+sets each split module's ``layout``) the loss forward runs this rank's
+part, as ``models/gpt.py`` does: the patch embedding's table is split on
+n_embd (JAX's column-parallel rule) and its slabs are gathered over the
+model axis, both cores run tensor parallel, ``char_wte`` is split on the
+vocab with the tied head's cross-entropy over the vocab shards, and the
+masks index each site by global coordinates.
 """
 
 from __future__ import annotations
@@ -50,6 +58,11 @@ from ai_music_generation_tpu_torch.models.gpt import (
     cross_entropy_ignore_index,
     dropout,
     ring_positions,
+    vocab_embedding,
+)
+from ai_music_generation_tpu_torch.parallel.collectives import (
+    copy_to,
+    gather_last,
 )
 from ai_music_generation_tpu_torch.utils.hash32 import mix32, mul32
 
@@ -108,6 +121,10 @@ class TransformerCore(nn.Module):
     ``drop`` = (p, the core's key) drops at the embedding sum and at each
     block's three sites (no-cache forward only), as GPT.forward does."""
 
+    # on a mesh (module docstring): a parallel.mesh.Layout, and the names
+    # of the parameters that parallel/sharding.py split over the model axis
+    layout, split = None, frozenset()
+
     def __init__(self, config: GPTConfig):
         super().__init__()
         self.config = config
@@ -134,7 +151,7 @@ class TransformerCore(nn.Module):
         x = embeds.to(cfg.dtype) + F.embedding(
             pos, self.wpe.weight.to(cfg.dtype))
         if drop is not None and cache is None:
-            x = dropout(x, *drop, 0, SITE_EMBED)
+            x = dropout(x, *drop, 0, SITE_EMBED, self.layout)
         for i, block in enumerate(self.h):
             if cache is None:
                 x = block(x, drop=None if drop is None else (*drop, i))
@@ -156,7 +173,12 @@ class PatchEmbedding(nn.Module):
     [patch_size * 128, n_embd] table (the reference Linear's weight
     transposed), ``bias`` [n_embd]. [B, P, S] int -> [B, P, n_embd] in the
     compute dtype: the S rows at ``patches + 128 * arange(S)``, cast to the
-    compute dtype, summed, plus the bias (JAX tunesformer.py:134-150)."""
+    compute dtype, summed, plus the bias (JAX tunesformer.py:134-150).
+    On a mesh the table and the bias are this rank's n_embd columns."""
+
+    # on a mesh (module docstring): a parallel.mesh.Layout, and the names
+    # of the parameters that parallel/sharding.py split over the model axis
+    layout, split = None, frozenset()
 
     def __init__(self, config: TunesFormerConfig):
         super().__init__()
@@ -171,7 +193,10 @@ class PatchEmbedding(nn.Module):
         cfg = self.config
         offs = torch.arange(cfg.patch_size, device=patches.device) * CHAR_VOCAB
         rows = F.embedding(patches.long() + offs, self.weight.to(cfg.dtype))
-        return rows.sum(dim=2) + self.bias.to(cfg.dtype)
+        out = rows.sum(dim=2) + self.bias.to(cfg.dtype)
+        if "weight" in self.split:  # gather the columns
+            out = gather_last(out, self.layout.model_group, sum_grad=False)
+        return out
 
 
 class TunesFormer(nn.Module):
@@ -186,10 +211,13 @@ class TunesFormer(nn.Module):
 
     Weights: load a state dict (``models.convert.
     tunesformer_state_dict_from_jax``, ``models.tunesformer_import``) or call
-    ``models.convert.init_tunesformer_weights``. ``device`` None creates the
+    ``models.convert.init_tunesformer_weights``. ``layout`` (on a mesh):
+    see the module docstring. ``device`` None creates the
     parameters on the card and raises when there is none; pass
     ``device="cpu"`` for a CPU model. With ``share_weights`` one core
     (``core``) serves both levels, as JAX tunesformer.py:164-168."""
+
+    layout, split = None, frozenset()
 
     def __init__(self, config: TunesFormerConfig, device=None):
         super().__init__()
@@ -249,11 +277,19 @@ class TunesFormer(nn.Module):
         position 0's embedding is the encoded patch, the head is tied to
         ``char_wte`` (``drop``: the char core's (p, key))."""
         wte = self._wte()
-        tok = F.embedding(tokens.long(), wte)
+        if self._vocab_split():  # this rank's vocab slice of the logits
+            tok = vocab_embedding(tokens, wte, self.layout)
+        else:
+            tok = F.embedding(tokens.long(), wte)
         embeds = torch.cat([encoded_patch[:, None, :].to(wte.dtype),
                             tok[:, 1:, :]], dim=1)
         hidden, _ = self.char_core(embeds, drop=drop)
+        if self._vocab_split():
+            hidden = copy_to(hidden, self.layout.model_group)
         return F.linear(hidden, wte)
+
+    def _vocab_split(self) -> bool:
+        return "char_wte.weight" in self.split
 
     def char_step(self, encoded_patch: torch.Tensor, tok: torch.Tensor,
                   cache: KVCache):
@@ -296,7 +332,9 @@ class TunesFormer(nn.Module):
         cond, target = cond.reshape(-1, C), target.reshape(-1, S)
         logits = self.char_logits(cond, target, drops[1])
         labels = torch.where(target == 0, -1, target)
-        return cross_entropy_ignore_index(logits[:, :-1, :], labels[:, 1:])
+        return cross_entropy_ignore_index(
+            logits[:, :-1, :], labels[:, 1:], layout=self.layout,
+            vocab_split=self._vocab_split())
 
 
 def load_tunesformer(out_dir: str, dtype: torch.dtype = torch.bfloat16,

@@ -237,7 +237,7 @@ class GenerationServer(EngineHostBase):
         if mesh is not None:
             raise NotImplementedError(
                 "sharded serving (mesh) is not ported yet (ROADMAP queue 1 "
-                "item 6, MoE, parallelism and sharded serving)")
+                "item 6b, sharded serving and the sharded synth)")
         cfg = model.config
         self.model = model
         self.device = model.transformer.wte.weight.device

@@ -146,7 +146,7 @@ class TunesServer(EngineHostBase):
         if mesh is not None:
             raise NotImplementedError(
                 "sharded serving (mesh) is not ported yet (ROADMAP queue 1 "
-                "item 6, MoE, parallelism and sharded serving)")
+                "item 6b, sharded serving and the sharded synth)")
         self.model = model
         self.cfg = model.config
         self.device = model.device

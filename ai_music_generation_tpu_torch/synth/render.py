@@ -286,7 +286,7 @@ def synthesize_midi_batch(
     if mesh is not None:
         raise NotImplementedError(
             "a render sharded over a mesh is not ported yet (ROADMAP queue "
-            "1 item 6, MoE, parallelism and sharded serving)")
+            "1 item 6b, sharded serving and the sharded synth)")
     all_events = [midi_to_events(m, sample_rate) for m in midis]
     total = int(min(CANONICAL_SECONDS, max_seconds) * sample_rate)
     needs = [

@@ -24,9 +24,11 @@ step can be skipped on the device (the NaN guard).
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 
 def cosine_warmup_schedule(learning_rate: float, warmup_iters: int,
@@ -73,18 +75,42 @@ def make_optimizer(model: torch.nn.Module, learning_rate: float = 6e-4,
         lr=learning_rate, betas=(beta1, beta2), eps=1e-8, fused=fused)
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+def global_norm(tensors: Iterable[torch.Tensor],
+                groups: Optional[list] = None) -> torch.Tensor:
     """``sqrt(sum of squares)`` over every element (``optax.global_norm``),
-    an fp32 0-dim tensor on their device."""
-    norms = torch._foreach_norm(list(tensors))
-    return torch.linalg.vector_norm(torch.stack(norms).float())
+    an fp32 0-dim tensor on their device.
+
+    On a mesh the tensors are this rank's parts (local tensors, or FSDP
+    DTensors, whose local shards are read) and ``groups[i]`` is the process
+    group that tensor i is split over (None: whole here): each group's sum
+    of squares is summed over it, so the norm is that of the whole
+    parameter set, the same on every rank."""
+    tensors = [t.to_local() if isinstance(t, DTensor) else t
+               for t in tensors]
+    norms = torch._foreach_norm(tensors)
+    if groups is None:
+        return torch.linalg.vector_norm(torch.stack(norms).float())
+    # one sum a group, in the order the groups first appear (the same on
+    # every rank: it follows the parameters' names)
+    sums: dict[int, list] = {}
+    for norm, group in zip(norms, groups):
+        sums.setdefault(id(group), [group, []])[1].append(norm)
+    total = None
+    for group, part in sums.values():
+        sq = torch.linalg.vector_norm(torch.stack(part).float()) ** 2
+        if group is not None:
+            dist.all_reduce(sq, group=group)
+        total = sq if total is None else total + sq
+    return total.sqrt()
 
 
 def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float,
                          norm: torch.Tensor) -> None:
     """Scale ``grads`` in place as ``optax.clip_by_global_norm(max_norm)``:
     unchanged when ``norm < max_norm``, else ``g / norm * max_norm``. No
-    host read: the choice is made on the device."""
+    host read: the choice is made on the device. ``grads`` may be FSDP
+    DTensors: their local shards are scaled."""
+    grads = [g.to_local() if isinstance(g, DTensor) else g for g in grads]
     keep = norm < max_norm
     torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
     torch._foreach_mul_(grads, torch.where(keep, 1.0, max_norm).to(norm))

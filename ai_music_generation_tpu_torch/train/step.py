@@ -7,13 +7,24 @@ Python loop of ``backward()`` calls on the unscaled loss: autograd sums
 each micro-step's gradients into ``.grad`` in the same order, and the sum
 is then scaled by 1/accum, as in JAX. Nothing is read back to the host:
 the metrics are device tensors (and the lr, a Python float).
+
+On a mesh (``plan``, ``parallel/sharding.py::parallelize``) the forward
+goes through the plan's module (DDP or FSDP2 over the data axis), the
+micro-steps before the last do not sync their gradients, and each rank's
+loss is its share of the global mean (``models/gpt.py::
+cross_entropy_ignore_index``), so the data-axis mean of the gradients that
+DDP and FSDP2 take is the single-card mean over the global batch; the grad
+norm is the whole parameter set's and the loss the data-axis mean.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import torch
+
+from torch.distributed.tensor import DTensor
 
 from ai_music_generation_tpu_torch.models.gpt import GPT, dropout_key
 from ai_music_generation_tpu_torch.train.optimizer import (
@@ -24,7 +35,7 @@ from ai_music_generation_tpu_torch.train.optimizer import (
 
 def make_train_step(model: GPT, optimizer: torch.optim.Optimizer,
                     schedule: Optional[Callable[[int], float]] = None,
-                    grad_clip: Optional[float] = 1.0) -> Callable:
+                    grad_clip: Optional[float] = 1.0, plan=None) -> Callable:
     """Build ``train_step(x, y, step, seed=0) -> metrics``.
 
     x, y: [grad_accum, micro_batch, T] integer tensors on the model's
@@ -34,8 +45,11 @@ def make_train_step(model: GPT, optimizer: torch.optim.Optimizer,
     the gradients are means over the micro-steps; the gradients are
     clipped to ``grad_clip`` (None or 0: no clip) after ``grad_norm`` is
     taken. metrics: ``loss`` and ``grad_norm`` (fp32 0-dim tensors) and
-    ``lr``."""
+    ``lr``. On a mesh (``plan``) x and y are this rank's rows of the
+    global batch and the metrics the global ones (module docstring)."""
     params = list(model.parameters())
+    forward = model if plan is None else plan.module
+    groups = None if plan is None else plan.norm_groups(model)
 
     def train_step(x: torch.Tensor, y: torch.Tensor, step: int,
                    seed: int = 0) -> dict:
@@ -43,14 +57,19 @@ def make_train_step(model: GPT, optimizer: torch.optim.Optimizer,
         accum = x.shape[0]
         loss = None
         for i in range(accum):
-            _, micro = model(x[i], y[i], dropout_key=dropout_key(seed, step, i))
-            micro.backward()
+            sync = plan is None or i == accum - 1
+            with contextlib.nullcontext() if sync else plan.no_sync():
+                _, micro = forward(x[i], y[i],
+                                   dropout_key=dropout_key(seed, step, i))
+                micro.backward()
             loss = micro.detach() if loss is None else loss + micro.detach()
         grads = [p.grad for p in params]
         if accum > 1:  # the fast path (accum 1) scales by nothing
-            torch._foreach_mul_(grads, 1.0 / accum)
+            torch._foreach_mul_([_local(g) for g in grads], 1.0 / accum)
             loss = loss * (1.0 / accum)
-        grad_norm = global_norm(grads)
+        if plan is not None:
+            loss = plan.data_mean(loss)
+        grad_norm = global_norm(grads, groups)
         if grad_clip:
             clip_by_global_norm_(grads, grad_clip, grad_norm)
         lr = (schedule(step) if schedule is not None
@@ -64,13 +83,20 @@ def make_train_step(model: GPT, optimizer: torch.optim.Optimizer,
     return train_step
 
 
-def make_eval_step(model: GPT) -> Callable:
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def make_eval_step(model: GPT, plan=None) -> Callable:
     """``eval_step(x, y) -> loss``: the mean loss in ``eval()`` mode (no
-    dropout), without gradients."""
+    dropout), without gradients; on a mesh (``plan``) of this rank's rows,
+    the global mean."""
+    forward = model if plan is None else plan.module
 
     @torch.no_grad()
     def eval_step(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         model.eval()
-        return model(x, y)[1]
+        loss = forward(x, y)[1]
+        return loss if plan is None else plan.data_mean(loss)
 
     return eval_step

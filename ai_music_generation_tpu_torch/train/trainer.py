@@ -1,5 +1,5 @@
-"""Training orchestration on one card: init or resume, the train loop,
-evaluation, checkpoints. The port of ``ai_music_generation_tpu/train/
+"""Training orchestration on one card or a mesh: init or resume, the train
+loop, evaluation, checkpoints. The port of ``ai_music_generation_tpu/train/
 trainer.py`` (and, through it, of nanoGPT's train.py):
 
 - the config defaults and flag names, a config file plus ``--k=v``
@@ -17,14 +17,24 @@ trainer.py`` (and, through it, of nanoGPT's train.py):
   (best val, or always) and ``last_iter_ckpt.pt`` (``train/checkpoint.py``);
 - the MFU EMA after the first 5 iterations of the process.
 
-One card: ``n_data`` is 1, so the micro-batch is ``batch_size`` and
-``grad_accum`` is ``gradient_accumulation_steps``. ``device`` ("cuda" by
-default) replaces the JAX package's mesh; ``dtype`` is the compute type.
-MoE (``n_expert > 0``, ``models/moe.py``) trains as in JAX: the loss the
-step reports includes the aux term, ``model_args`` carries ``MOE_KEYS``
-and a resume restores the MoE architecture from them. The mesh knobs
-``n_model > 1`` and ``fsdp`` raise until ROADMAP queue 1 item 6 ports
-them; ``init_from=gpt2*`` raises until item 7 imports the HF weights.
+Without a process group the trainer runs on one card (``device``, "cuda"
+by default): the micro-batch is ``batch_size`` and ``grad_accum`` is
+``gradient_accumulation_steps``. Under ``torchrun`` (``cli/train.py``
+joins the group, ``parallel/distributed.py``) it trains over a (data,
+model) mesh of every rank, ``n_model`` on the model axis (tensor and
+expert parallelism) and the rest on data (DDP, or FSDP2 with ``fsdp``),
+with the JAX batch arithmetic: the micro-batch is ``batch_size * n_data``
+rows, each rank's ``batch_size`` of them drawn by ``sharded_sample`` from
+the global batch, ``grad_accum`` is ``gradient_accumulation_steps //
+n_data``, and an accumulation that is neither 1 nor divisible by
+``n_data`` raises, as in JAX. Only the main process prints and writes;
+checkpoints hold the whole state whatever the mesh (``train/
+checkpoint.py``), and the MFU counts the mesh's tokens over its cards.
+``dtype`` is the compute type. MoE (``n_expert > 0``, ``models/moe.py``)
+trains as in JAX: the loss the step reports includes the aux term,
+``model_args`` carries ``MOE_KEYS`` and a resume restores the MoE
+architecture from them. ``init_from=gpt2*`` raises until ROADMAP queue 1
+item 7 imports the HF weights.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import time
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from ai_music_generation_tpu_torch.data.memmap import BinDataset, load_meta
 from ai_music_generation_tpu_torch.models.convert import init_weights
@@ -49,6 +60,11 @@ from ai_music_generation_tpu_torch.models.nanogpt_ckpt import (
     model_state,
     read_ckpt,
 )
+from ai_music_generation_tpu_torch.parallel.distributed import (
+    is_main_process,
+)
+from ai_music_generation_tpu_torch.parallel.mesh import Layout, make_mesh
+from ai_music_generation_tpu_torch.parallel.sharding import parallelize
 from ai_music_generation_tpu_torch.train import checkpoint as ckpt_lib
 from ai_music_generation_tpu_torch.train.optimizer import (
     cosine_warmup_schedule,
@@ -95,8 +111,8 @@ DEFAULTS: dict[str, Any] = dict(
     min_lr=6e-5,
     seed=1337,
     data_root="data",  # datasets live at <data_root>/<dataset>/
-    n_model=1,  # tensor parallelism: not ported (queue 1 item 6)
-    fsdp=False,  # not ported (queue 1 item 6)
+    n_model=1,  # model axis of the mesh (tensor / expert parallelism)
+    fsdp=False,  # FSDP2 over the data axis (else DDP)
     n_expert=0,  # Mixture-of-Experts: experts per block MLP (0 = dense)
     n_kv_head=0,  # grouped-query attention: K/V heads (0 = n_head)
     expert_top_k=2,
@@ -118,15 +134,30 @@ class Trainer:
         self.c = dict(DEFAULTS)
         self.c.update(config)
         c = self.c
-        if c["n_model"] > 1 or c["fsdp"]:
-            raise NotImplementedError(
-                "n_model > 1 and fsdp (and with n_expert > 0 the expert "
-                "parallelism over the model axis) are not ported yet "
-                "(ROADMAP queue 1 item 6: parallelism)")
         self.device = resolve_device(c["device"])
+        self.layout = self.plan = None
+        self.n_data, self.data_rank = 1, 0
+        if dist.is_initialized():
+            self.layout = Layout(make_mesh(n_model=c["n_model"],
+                                           device=self.device.type))
+            self.n_data, self.data_rank = (self.layout.n_data,
+                                           self.layout.data_rank)
+        elif c["n_model"] > 1 or c["fsdp"]:
+            raise RuntimeError(
+                "n_model > 1 and fsdp train over a mesh: start under "
+                "torchrun (cli/train.py joins the process group)")
+        self.main = is_main_process()
         os.makedirs(c["out_dir"], exist_ok=True)
-        self.grad_accum = max(1, c["gradient_accumulation_steps"])
-        self.micro_batch = c["batch_size"]
+        # the reference's rule (nanoGPT/train.py:96-99), as JAX applies it:
+        # accum is split over the data axis; 1 widens the batch instead
+        accum = c["gradient_accumulation_steps"]
+        if accum != 1 and accum % self.n_data != 0:
+            raise ValueError(
+                f"gradient_accumulation_steps={accum} must be 1 (widened-"
+                f"batch mode) or divisible by the data-parallel size "
+                f"{self.n_data} (ref nanoGPT/train.py:96-99)")
+        self.grad_accum = max(1, accum // self.n_data)
+        self.micro_batch = c["batch_size"] * self.n_data
         self.tokens_per_iter = (self.grad_accum * self.micro_batch
                                 * c["block_size"])
 
@@ -196,8 +227,9 @@ class Trainer:
         elif c["init_from"].endswith(".pt"):
             ckpt = read_ckpt(c["init_from"])
             self._arch_from(model_args, ckpt["model_args"])
-            print(f"initializing from reference checkpoint {c['init_from']} "
-                  f"(trained to iter {ckpt.get('iter_num', 0)})")
+            self._print(f"initializing from reference checkpoint "
+                        f"{c['init_from']} (trained to iter "
+                        f"{ckpt.get('iter_num', 0)})")
         elif c["init_from"] != "scratch":
             raise ValueError(f"unknown init_from {c['init_from']!r}")
 
@@ -211,6 +243,11 @@ class Trainer:
                 c["seed"]))
         else:
             self.model.load_state_dict(model_state(ckpt))
+        self.n_params = self.model.num_params()
+        self.module = self.model
+        if self.layout is not None:
+            self.module, self.plan = parallelize(self.model, self.layout,
+                                                 c["fsdp"])
 
         self.schedule = (
             cosine_warmup_schedule(c["learning_rate"], c["warmup_iters"],
@@ -220,27 +257,39 @@ class Trainer:
                                         c["weight_decay"], c["beta1"],
                                         c["beta2"])
         if c["init_from"] == "resume":
-            self.optimizer.load_state_dict(ckpt["optimizer"])
+            if self.plan is None:
+                self.optimizer.load_state_dict(ckpt["optimizer"])
+            else:
+                self.plan.load_optimizer_state(self.model, self.optimizer,
+                                               ckpt["optimizer"])
             self.iter_num = ckpt["iter_num"]
             self.best_val_loss = ckpt["best_val_loss"]
         self._train_step = make_train_step(self.model, self.optimizer,
-                                           self.schedule, c["grad_clip"])
-        self._eval_step = make_eval_step(self.model)
-        self.n_params = self.model.num_params()
-        self.peak_flops = peak_flops_for(self.device)
-        print(f"number of parameters: {self.n_params/1e6:.2f}M")
+                                           self.schedule, c["grad_clip"],
+                                           self.plan)
+        self._eval_step = make_eval_step(self.model, self.plan)
+        # the mesh's peak: every card of the process group
+        self.peak_flops = peak_flops_for(self.device) * (
+            1 if self.layout is None else dist.get_world_size())
+        self._print(f"number of parameters: {self.n_params/1e6:.2f}M")
+
+    def _print(self, *args) -> None:
+        if self.main:
+            print(*args)
 
     # -- data --------------------------------------------------------------
     def get_batch(self, split: str, it: int, for_accum: bool = True):
         """(x, y) for one optimizer iteration ([grad_accum, micro_batch,
-        T]) or one eval batch ([micro_batch, T]), int32 on the device."""
+        T]) or one eval batch ([micro_batch, T]), int32 on the device; on a
+        mesh this rank's ``batch_size`` rows of the micro-batch."""
         c = self.c
         ds = self.train_data if split == "train" else self.val_data
         # a seed stream per split
         seed = c["seed"] + (0 if split == "train" else 101)
         shape = ((self.grad_accum, self.micro_batch) if for_accum
                  else (self.micro_batch,))
-        x, y = ds.sample(seed, it, shape, c["block_size"])
+        x, y = ds.sharded_sample(seed, it, shape, c["block_size"],
+                                 (self.data_rank, self.n_data))
         return (torch.from_numpy(x).to(self.device),
                 torch.from_numpy(y).to(self.device))
 
@@ -260,7 +309,8 @@ class Trainer:
     def _save(self, name: str):
         ckpt_lib.save_checkpoint(
             self.c["out_dir"], name, self.model, self.optimizer,
-            self.iter_num, self.best_val_loss, config_snapshot(self.c))
+            self.iter_num, self.best_val_loss, config_snapshot(self.c),
+            self.plan)
 
     # -- main loop ------------------------------------------------------------
     def run(self) -> float:
@@ -270,7 +320,7 @@ class Trainer:
         local_iter = 0  # iterations of this process (early ones warm up)
         t0 = time.time()
 
-        if c["wandb_log"]:
+        if c["wandb_log"] and self.main:
             try:
                 import wandb
 
@@ -283,7 +333,7 @@ class Trainer:
         while True:
             if self.iter_num % c["eval_interval"] == 0:
                 losses = self.estimate_loss()
-                print(
+                self._print(
                     f"step {self.iter_num}: train loss {losses['train']:.4f}, "
                     f"val loss {losses['val']:.4f}"
                 )
@@ -294,9 +344,10 @@ class Trainer:
                     "lr": float(self.schedule(self.iter_num)),
                     "mfu": running_mfu * 100,
                 }
-                with open(losses_path, "a") as f:
-                    f.write(json.dumps(rec) + "\n")
-                if c["wandb_log"]:
+                if self.main:
+                    with open(losses_path, "a") as f:
+                        f.write(json.dumps(rec) + "\n")
+                if c["wandb_log"] and self.main:
                     import wandb
 
                     wandb.log(rec)
@@ -327,7 +378,7 @@ class Trainer:
                         self.peak_flops)
                     running_mfu = (mfu if running_mfu == -1.0
                                    else 0.9 * running_mfu + 0.1 * mfu)
-                print(
+                self._print(
                     f"iter {self.iter_num}: loss {loss:.4f}, time "
                     f"{dt*1000:.2f}ms, mfu {running_mfu*100:.2f}%"
                 )

@@ -272,12 +272,24 @@ printing a result):
     request finishes with its budget, K1 ring launches = n_layer x ticks;
     tok/s, latency p50/p95/p99, peak memory;
 40. MoE sampling: cli/sample.py over the trained ckpt.pt, 64 samples, 1206
-    K1 launches. Every MoE path's K1 shapes must be among phase 36's.
+    K1 launches. Every MoE path's K1 shapes must be among phase 36's;
+41. the sharded trainer (``parallel/``) on the card over NCCL at world
+    size 1 (a process group of one joined in this process on localhost):
+    the music config at full width on phase 20's corpus with ``fsdp=True``
+    (FSDP2 over the data axis) and the tensor-parallel plan over a model
+    axis of 1, MESH_ITERS iterations of the trainer's step whose losses
+    equal the plain ``Trainer``'s at the same seed within MESH_LOSS_FRAC of
+    their value; its checkpoint resumed with ``fsdp=False`` restores the
+    parameters and AdamW moments bit for bit and gives the plain trainer's
+    next loss; then the 4-expert MoE protocol of phase 37 with expert
+    parallelism over the model axis, against the plain MoE trainer. ms/iter
+    of both trainers (CUDA events, the median after 5 warm-up
+    iterations); no kernel of the port runs.
 
 The last two lines are a JSON summary of each kernel and
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` counts its
 launches in its path's main-path run (phases 5, 8, 12, 15, 19, 20, 22,
-26, 27, 28, 30, 37-40;
+26, 27, 28, 30, 37-41;
 every count is set to 0 just before each of them and read just after); a
 kernel with no caller on any path (K3, K5, K6) shows its count summed over
 those runs up to phase 30 (phases 37-40 are asserted to launch K1 alone),
@@ -5105,6 +5117,151 @@ def phase_moe_sample_cli(train, device) -> dict:
     return dict(samples_s=MOE_SAMPLES / wall, launches=launches)
 
 
+# phase 41: the trainer's iterations (_iterations: CUDA events from the
+# batch to the update) compared, the bf16 loss of each within
+# MESH_LOSS_FRAC of the plain trainer's (one bf16 rounding of the value: at
+# world size 1 the sharded step computes the same products, in a few other
+# orders of fp32 sums)
+MESH_ITERS, MESH_MOE_ITERS, MESH_WARMUP = 20, 10, 5
+MESH_LOSS_FRAC = 2.0 ** -8
+
+
+def _iterations(trainer, n: int) -> tuple[list, list]:
+    """(losses, ms) of ``n`` iterations of the trainer's step from its
+    ``iter_num`` on, each timed from its batch to its update: CUDA events
+    on the card (one sync at the end), the host clock on the CPU."""
+    cuda = trainer.device.type == "cuda"
+    losses, marks = [], []
+    for _ in range(n):
+        x, y = trainer.get_batch("train", trainer.iter_num)
+        start = (torch.cuda.Event(enable_timing=True) if cuda
+                 else time.perf_counter())
+        if cuda:
+            start.record()
+        metrics = trainer._train_step(x, y, trainer.iter_num,
+                                      trainer.c["seed"])
+        if cuda:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+        else:
+            float(metrics["loss"])
+            end = time.perf_counter()
+        losses.append(metrics["loss"])
+        marks.append((start, end))
+        trainer.iter_num += 1
+    if cuda:
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in marks]
+    else:
+        ms = [(b - a) * 1e3 for a, b in marks]
+    return [float(v) for v in losses], ms
+
+
+def _close_losses(got, want, what) -> float:
+    worst = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    if not worst <= MESH_LOSS_FRAC:
+        raise AssertionError(f"{what}: losses {got} vs the plain trainer's "
+                             f"{want} (worst {worst:.3g} of the value)")
+    return worst
+
+
+def phase_mesh_train(device="cuda", iters=MESH_ITERS) -> dict:
+    """Phase 41 (module docstring): the plain trainers first (no process
+    group), then a group of one over NCCL and the sharded trainers; the
+    group is left before returning. Returns the numbers."""
+    import os
+    import statistics
+
+    import torch.distributed as dist
+
+    from ai_music_generation_tpu_torch.experiments import moe_probe
+    from ai_music_generation_tpu_torch.parallel import distributed
+    from ai_music_generation_tpu_torch.parallel.worker_smoke import free_port
+    from ai_music_generation_tpu_torch.train import checkpoint as ckpt_lib
+    from ai_music_generation_tpu_torch.train.trainer import Trainer
+
+    if dist.is_initialized():
+        raise AssertionError("a process group is up before phase 41")
+    with tempfile.TemporaryDirectory() as root:
+        data_root = _cli_workspace(root)[0]
+        music, _ = _music_arch(data_root)
+        dense = dict(music, data_root=data_root, eval_interval=10 ** 9,
+                     device=device, max_iters=iters)
+        moe_data = os.path.join(root, "moe")
+        moe_probe.write_corpus(moe_data)
+
+        def moe(out, **kw):
+            return moe_probe.trainer_config(
+                moe_data, os.path.join(root, out), MESH_MOE_ITERS, True,
+                device, eval_interval=10 ** 9, **kw)
+
+        # one more plain iteration: the resumed trainers' first
+        plain = _iterations(Trainer(dict(
+            dense, out_dir=os.path.join(root, "plain"))), iters + 1)
+        plain_moe = _iterations(Trainer(moe("plain-moe")), MESH_MOE_ITERS)
+        torch.cuda.empty_cache()
+        info = distributed.initialize_distributed(
+            device, rank=0, world_size=1, master_addr="localhost",
+            master_port=free_port())
+        try:
+            backend = dist.get_backend()
+            out = os.path.join(root, "fsdp")
+            trainer = Trainer(dict(dense, out_dir=out, fsdp=True))
+            if trainer.plan is None or not trainer.plan.fsdp:
+                raise AssertionError("the sharded trainer has no FSDP plan")
+            fsdp = _iterations(trainer, iters)
+            trainer._save(ckpt_lib.LAST)
+            del trainer
+            torch.cuda.empty_cache()
+            resumed = Trainer(dict(dense, out_dir=out, init_from="resume",
+                                   max_iters=iters + 1))
+            state, opt = resumed.plan.gather_state(resumed.model,
+                                                   resumed.optimizer)
+            saved = ckpt_lib.load_checkpoint(out, ckpt_lib.LAST)
+            if resumed.iter_num != iters or any(
+                    not torch.equal(saved["model"][k], state[k])
+                    for k in saved["model"]) or any(
+                    not torch.equal(v, opt["state"][i][k])
+                    for i, e in saved["optimizer"]["state"].items()
+                    for k, v in e.items()):
+                raise AssertionError("the resume with fsdp off did not "
+                                     "restore the checkpoint bit for bit")
+            after = _iterations(resumed, 1)
+            del resumed
+            torch.cuda.empty_cache()
+            sharded_moe = Trainer(moe("mesh-moe"))
+            if not sharded_moe.model.transformer.h[0].moe.layout:
+                raise AssertionError("the MoE layers have no mesh layout")
+            mesh_moe = _iterations(sharded_moe, MESH_MOE_ITERS)
+            del sharded_moe
+        finally:
+            distributed.shutdown()
+        torch.cuda.empty_cache()
+    errs = {
+        "dense": _close_losses(fsdp[0], plain[0][:iters], "FSDP + TP plan"),
+        "resume": _close_losses(after[0], plain[0][iters:],
+                                "resumed with fsdp off"),
+        "moe": _close_losses(mesh_moe[0], plain_moe[0], "MoE, EP plan"),
+    }
+
+    def median(ms):
+        return statistics.median(ms[MESH_WARMUP:])
+
+    res = dict(backend=backend, world=info["process_count"], errs=errs,
+               plain_ms=median(plain[1][:iters]), mesh_ms=median(fsdp[1]),
+               plain_moe_ms=median(plain_moe[1]),
+               mesh_moe_ms=median(mesh_moe[1]), losses=fsdp[0])
+    print(f"mesh training ({backend}, world size {res['world']}): music "
+          f"config, {iters} iterations, FSDP2 + the TP plan over a model "
+          f"axis of 1 vs the plain trainer: losses within {errs['dense']:.3g}"
+          f" of their value; resumed with fsdp off: bit-equal state, next "
+          f"loss within {errs['resume']:.3g}; MoE (4 experts, EP plan) "
+          f"{MESH_MOE_ITERS} iterations within {errs['moe']:.3g}; ms/iter "
+          f"plain {res['plain_ms']:.3f} vs sharded {res['mesh_ms']:.3f} "
+          f"(MoE {res['plain_moe_ms']:.3f} vs {res['mesh_moe_ms']:.3f})")
+    return res
+
+
 def _counted_ops() -> dict:
     """Every kernel wrapper of the port by name; each counts its launches."""
     from ai_music_generation_tpu_torch.ops import decode_attention_int8 as i8
@@ -5559,6 +5716,16 @@ def main(argv=None) -> int:
           f"launches {moe_k1_launches}; K1 at the decode step "
           f"{moe_k1['ms']:.4f} ms (bound {moe_k1['bound_ms']:.4f}, SDPA "
           f"{moe_k1['library_ms']:.4f})")
+    # the sharded trainer (phase 41): no kernel of the port
+    mesh, mesh_launches = _main_path(phase_mesh_train, "cuda")
+    if any(mesh_launches.values()):
+        raise AssertionError(f"the sharded trainer launched kernels of the "
+                             f"port: {mesh_launches}")
+    print(f"[{card}] mesh training: launches of K1-K7 {mesh_launches}; "
+          f"{mesh['backend']} at world size {mesh['world']}; ms/iter plain "
+          f"{mesh['plain_ms']:.3f} vs sharded {mesh['mesh_ms']:.3f} (MoE "
+          f"{mesh['plain_moe_ms']:.3f} vs {mesh['mesh_moe_ms']:.3f}); loss "
+          f"errors {mesh['errs']}")
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

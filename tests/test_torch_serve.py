@@ -432,7 +432,7 @@ def test_cache_len_validation_and_mesh(tiny):
                          refresh=16)
     with pytest.raises(ValueError):  # ticks_per_call > default refresh
         GenerationServer(model, n_slots=2, ticks_per_call=16, cache_len=16)
-    with pytest.raises(NotImplementedError, match="item 6, MoE"):
+    with pytest.raises(NotImplementedError, match="item 6b"):
         GenerationServer(model, n_slots=2, mesh=object())
     srv = GenerationServer(model, n_slots=2, ticks_per_call=4)
     assert srv.cache_len == 64 and srv.cache.k[0].shape[1] == 64

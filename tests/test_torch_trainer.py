@@ -195,10 +195,11 @@ def test_vocab_falls_back_to_50304_without_meta(corpus, tmp_path):
 @pytest.mark.parametrize("kw,error,match", [
     (dict(init_from="gpt2"), NotImplementedError, "item 7"),
     (dict(init_from="gpt2-xl"), NotImplementedError, "item 7"),
-    (dict(fsdp=True), NotImplementedError, "item 6"),
-    (dict(n_expert=2, n_model=2), NotImplementedError,
-     "expert parallelism"),
-    (dict(n_model=2), NotImplementedError, "item 6"),
+    # the mesh knobs need a process group (torchrun); under one they train
+    # (tests/test_torch_parallel_steps.py)
+    (dict(fsdp=True), RuntimeError, "torchrun"),
+    (dict(n_expert=2, n_model=2), RuntimeError, "torchrun"),
+    (dict(n_model=2), RuntimeError, "torchrun"),
     (dict(init_from="nothing"), ValueError, "unknown init_from"),
 ], ids=["gpt2", "gpt2-xl", "fsdp", "n_expert", "n_model", "unknown"])
 def test_refused_options_raise(corpus, tmp_path, kw, error, match):

@@ -371,7 +371,10 @@ def test_nan_losses_are_left_out_of_the_epoch_means(corpus, tmp_path,
 
 
 def test_n_model_above_one_raises(corpus, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 6"):
+    """Without a process group ``--n_model 2`` raises naming torchrun, as
+    the GPT ``Trainer`` does (the mesh runs:
+    tests/test_torch_parallel_tunes.py)."""
+    with pytest.raises(RuntimeError, match="torchrun"):
         _train(corpus, tmp_path, n_model=2)
 
 

@@ -318,9 +318,9 @@ class _Sites:
         self.calls = []
         real = tf_module.dropout
 
-        def record(x, p, key, layer, site):
+        def record(x, p, key, layer, site, *mesh):
             self.calls.append((tuple(x.shape), p, key, layer, site))
-            return real(x, p, key, layer, site)
+            return real(x, p, key, layer, site, *mesh)
 
         monkeypatch.setattr(tf_module, "dropout", record)
         monkeypatch.setattr(gpt, "dropout", record)
