@@ -25,6 +25,17 @@ layout, JSONL schemas, and aggregation match the reference:
 Per-file failures are tolerated (ref crash-proof workers,
 midi_and_wav_to_aesthetics.py:130-149). The ABC->MIDI stage uses the
 in-repo compiler (abc2midi replacement) and the WAV stage the synth.
+
+``shard_synth`` (JAX :87-90, 251-285): under ``torchrun`` the render is
+sharded over ``make_mesh()`` of every process (``synth/render.py::
+synthesize_midi_batch(mesh=)``). Every rank builds the pipeline and calls
+:meth:`EvalPipeline.run`; rank 0 alone compiles and parses the tunes,
+writes the MIDI and WAV files, runs the metrics and the scorer. Before each
+render batch it sends the parsed MIDI files (with the voice) to the other
+ranks over a gloo group, and each rank renders its share; their ``run``
+returns None once rank 0 has sent the end of the render stage. In a plain
+process the mesh is the one device: the render runs unsharded on the card,
+as JAX's ``make_mesh()`` over one device shards nothing.
 """
 
 from __future__ import annotations
@@ -98,8 +109,9 @@ class PipelineConfig:
     render_wav: bool = True
     aesthetics_batch_size: int = 10
     synth_batch: int = 8  # tunes rendered per device call (batched synth)
-    # shard the render batch over a mesh of all devices: not ported yet
-    # (ROADMAP queue 1 item 6b); True raises
+    # shard the render batch over a data-axis mesh of every process under
+    # torchrun (module docstring); False = one device (identical waveforms
+    # either way)
     shard_synth: bool = False
     metrics_processes: Optional[int] = None  # Pool size for the metrics stage
     # where the synth renders and the Audiobox predictor scores ("cpu" for
@@ -166,11 +178,6 @@ def structural_metrics(
 
 class EvalPipeline:
     def __init__(self, config: PipelineConfig):
-        if config.shard_synth:
-            raise NotImplementedError(
-                "a render sharded over a mesh (shard_synth) is not ported "
-                "yet (ROADMAP queue 1 item 6b, sharded serving and the "
-                "sharded synth)")
         if config.render_wav:
             # a CUDA device without a card raises here, before any stage:
             # the render never carries on on the CPU
@@ -193,6 +200,22 @@ class EvalPipeline:
             c.base_output_dir, "audiobox_aesthetics", c.abc_to_midi_converter,
             c.midi_to_wav_converter, font_tag,
         )
+        # the render's mesh: every process of the group (None: one device)
+        self.mesh = self._control = None
+        if c.shard_synth and c.render_wav:
+            import torch
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                from ai_music_generation_tpu_torch.parallel.mesh import (
+                    make_mesh,
+                )
+
+                self.mesh = make_mesh(
+                    device=torch.device(c.device).type)
+                self._control = dist.new_group(backend="gloo")
+        if self._follower():
+            return
         for d in (self.midi_dir, self.wav_dir, self.structure_dir, self.audiobox_dir):
             os.makedirs(d, exist_ok=True)
 
@@ -233,9 +256,46 @@ class EvalPipeline:
                 return p
         return None
 
+    # -- the sharded render -------------------------------------------------
+
+    def _follower(self) -> bool:
+        import torch.distributed as dist
+
+        return self.mesh is not None and dist.get_rank() != 0
+
+    def _send(self, item) -> None:
+        """Rank 0: one render batch (or None, the end) to the other ranks."""
+        import torch.distributed as dist
+
+        if self.mesh is not None:
+            dist.broadcast_object_list([item], src=0, group=self._control)
+
+    def _follow(self) -> None:
+        """A rank other than 0: render its share of each batch rank 0
+        sends, until the end of the render stage."""
+        import torch.distributed as dist
+
+        from ai_music_generation_tpu_torch.synth.render import (
+            synthesize_midi_batch,
+        )
+
+        while True:
+            box = [None]
+            dist.broadcast_object_list(box, src=0, group=self._control)
+            if box[0] is None:
+                return
+            midis, voice = box[0]
+            synthesize_midi_batch(midis, self.c.sample_rate, voice=voice,
+                                  mesh=self.mesh, device=self.c.device)
+
     # -- full run ---------------------------------------------------------
 
-    def run(self, files: Optional[list[str]] = None) -> dict:
+    def run(self, files: Optional[list[str]] = None) -> Optional[dict]:
+        """Every stage; returns the summary (None on a rank other than 0 of
+        a sharded render, module docstring)."""
+        if self._follower():
+            self._follow()
+            return None
         c = self.c
         if c.abc_input_folder:
             files = files or sorted(
@@ -302,9 +362,11 @@ class EvalPipeline:
                 else:
                     voice = "sample_bank"
                 clock = time.perf_counter()
+                self._send((midis, voice))
                 try:
                     waves = synthesize_midi_batch(midis, c.sample_rate,
-                                                  voice=voice, device=c.device)
+                                                  voice=voice, mesh=self.mesh,
+                                                  device=c.device)
                 except Exception as e:
                     print(f"Error rendering batch at {lo}: {e}")
                     n_failed += len(chunk)
@@ -321,6 +383,7 @@ class EvalPipeline:
                         print(f"Error writing wav for {idx}: {e}")
                         n_failed += 1
                 seconds["write"] += time.perf_counter() - clock
+        self._send(None)  # the end of the render stage
 
         # stage 3: structural metrics, fanned out over a process pool
         # (reference's multiprocessing.Pool, ref :226-227)

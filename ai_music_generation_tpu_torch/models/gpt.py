@@ -43,7 +43,7 @@ is ``models.moe.MoEMLP``, the forward sums its load-balance aux over the
 layers and a loss with targets gains ``moe_aux_coef * aux / n_layer``.
 Routing couples the tokens of a call (the experts' capacity is shared), so
 every cache mode runs the MoE sublayer on all the call's tokens, as JAX
-does. Not ported yet: sequence parallelism (ROADMAP queue 1 item 6c).
+does.
 
 On a (data, model) mesh (``parallel/sharding.py`` sets each split
 module's ``layout``), the training forward (targets, no cache) runs this
@@ -54,12 +54,24 @@ heads from it), its MLP columns and its vocab slice of the tied
 embedding, whose logits go to a cross-entropy over the vocab shards. The
 masks index the single-card site by global coordinates, so a sharded step
 drops what the single-card step drops, and the loss is each rank's share
-of the global mean (its data-axis mean is the single-card loss).
+of the global mean (its data-axis mean is the single-card loss). A cached
+forward on a mesh (the sharded servers, ``serve/``) runs the same heads
+over a cache that holds the rank's K/V heads (:meth:`CausalSelfAttention.
+cache_heads`), and a vocab-split head gathers its logits, since sampling
+reads every vocabulary entry.
+
+Sequence parallelism (``seq_axis``, JAX gpt.py:742-756, 924-932,
+1023-1049; ``parallel/sequence.py`` builds the layout): the rank holds a
+contiguous chunk of every sequence, its positions offset by ``seq_rank *
+T``, attention is ``ops/ring_attention.py`` over the seq group, and the
+loss sums its total and its count over the seq and data groups. It is the
+training path only, without dropout, as in JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import ClassVar, Optional
 
@@ -72,6 +84,7 @@ from ai_music_generation_tpu_torch.ops.decode_attention import (
     decode_attention,
 )
 from ai_music_generation_tpu_torch.ops.gqa_decode import gqa_decode_update
+from ai_music_generation_tpu_torch.ops.ring_attention import ring_attention
 from ai_music_generation_tpu_torch.ops.spec_attention import (
     spec_attention_update,
 )
@@ -105,7 +118,9 @@ class GPTConfig:
     ``n_expert > 0`` replaces every block's MLP with ``n_expert`` routed
     experts (``models/moe.py``: ``expert_top_k`` a token, buffers of
     ``capacity_factor`` x the balanced share, the aux loss weighted by
-    ``moe_aux_coef``). ``seq_axis`` is refused by :class:`GPT`."""
+    ``moe_aux_coef``). ``seq_axis`` names the mesh axis the sequence is
+    split over (``parallel/sequence.py``; the model's ``layout`` holds its
+    group)."""
 
     block_size: int = 1024
     vocab_size: int = 50304
@@ -203,14 +218,17 @@ class KVCache:
     @classmethod
     def create(cls, config: GPTConfig, batch: int,
                max_len: Optional[int] = None, device=None,
-               spec: bool = False, per_row: bool = False) -> "KVCache":
+               spec: bool = False, per_row: bool = False,
+               kv_heads: Optional[int] = None) -> "KVCache":
         """A zeroed cache of ``max_len`` (default block_size) positions:
         int8 with scales when ``config.kv_quantized``, else in
         ``config.dtype``; ``spec`` selects speculative mode (class
         docstring), which needs full multi-head K/V and ``max_len % 8 ==
-        0``; ``per_row`` selects ring mode. ``device`` None allocates on the
-        card, as the JAX cache lands on the accelerator, and raises when
-        there is none; pass ``device="cpu"`` for a CPU cache."""
+        0``; ``per_row`` selects ring mode. ``kv_heads`` (default the
+        config's) is the number of K/V heads held: a rank's on a model axis
+        (:meth:`CausalSelfAttention.cache_heads`). ``device`` None allocates
+        on the card, as the JAX cache lands on the accelerator, and raises
+        when there is none; pass ``device="cpu"`` for a CPU cache."""
         max_len = max_len or config.block_size
         if spec and per_row:
             raise ValueError("spec and per_row are two different modes")
@@ -230,8 +248,9 @@ class KVCache:
             device = torch.device("cuda")
         quantized = config.kv_quantized
         dtype = torch.int8 if quantized else config.dtype
-        shape = (batch, max_len, config.kv_heads * config.head_dim)
-        scale_shape = (batch, config.kv_heads, max_len)
+        kv_heads = kv_heads or config.kv_heads
+        shape = (batch, max_len, kv_heads * config.head_dim)
+        scale_shape = (batch, kv_heads, max_len)
 
         def bufs(shape, dtype):
             return [torch.zeros(shape, dtype=dtype, device=device)
@@ -452,11 +471,22 @@ class CausalSelfAttention(nn.Module):
         H, KH, D = cfg.n_head, cfg.kv_heads, cfg.head_dim
         KHD = KH * D
         if self.layout is not None:
-            if layer_cache is not None or spec_col_pos is not None:
-                raise ValueError("an attention split over a mesh runs the "
-                                 "no-cache (training) forward only")
-            return self._sharded_forward(x, drop)
-        q, k, v = _linear(x, self.c_attn).split([C, KHD, KHD], dim=-1)
+            if spec_col_pos is not None:
+                raise ValueError("speculative decoding does not run on a "
+                                 "mesh")
+            if layer_cache is None:
+                return self._sharded_forward(x, drop)
+            # this rank's heads and its K/V heads for them (cache_heads)
+            qkv, h0, H, heads_split = self._mesh_qkv(x)
+            kv0, KH = self._cache_kv(h0, H, heads_split)
+            q = qkv[..., h0 * D:(h0 + H) * D]
+            k = qkv[..., C + kv0 * D:C + (kv0 + KH) * D]
+            v = qkv[..., C + KHD + kv0 * D:C + KHD + (kv0 + KH) * D]
+            KHD = KH * D
+            out = functools.partial(self._mesh_out, heads_split=heads_split)
+        else:
+            q, k, v = _linear(x, self.c_attn).split([C, KHD, KHD], dim=-1)
+            out = functools.partial(_linear, layer=self.c_proj)
         if spec_col_pos is not None:
             return self._spec_forward(q, k, v, layer_cache, cache_len,
                                       cursor, spec_col_pos)
@@ -467,6 +497,7 @@ class CausalSelfAttention(nn.Module):
             if drop is not None:
                 y = dropout(y, *drop, SITE_ATTN_OUT)
             return y
+        HD = H * D
         ck, cv, ck_scale, cv_scale = layer_cache
         S = ck.shape[1]
         # K4 (JAX gpt.py:719-734, reached only off the flat branch)
@@ -484,7 +515,7 @@ class CausalSelfAttention(nn.Module):
                 q.reshape(B, H, D).contiguous(), ck, cv, k_slab.contiguous(),
                 v_slab.contiguous(), ck_scale, cv_scale, mask_rel,
                 cache_len if mask_rel is None else cursor)
-            return _linear(y.reshape(B, 1, C), self.c_proj)
+            return out(y.reshape(B, 1, HD))
         # prefill (and the K4 step): slab write at cache_len (a device
         # index, no host sync), as JAX's dynamic_update_slice
         cols = (cache_len + torch.arange(T, device=x.device)).long()
@@ -500,14 +531,82 @@ class CausalSelfAttention(nn.Module):
             cv[:, cols] = v.to(cv.dtype)
         if prefix_step:
             # the step's query attends over the cache_len + 1 valid columns
-            y = decode_attention(q.reshape(B, C).contiguous(), ck, cv,
+            y = decode_attention(q.reshape(B, HD).contiguous(), ck, cv,
                                  cache_len + 1, n_head=H)
-            return _linear(y.reshape(B, 1, C), self.c_proj)
+            return out(y.reshape(B, 1, HD))
         # the shared attention chain over the [B, S, KH, D] views
         mask = torch.arange(S, device=x.device)[None, :] <= cols[:, None]
         y = attend(q.reshape(B, T, H, D), ck.view(B, S, KH, D),
                    cv.view(B, S, KH, D), ck_scale, cv_scale, mask[None, None])
-        return _linear(y, self.c_proj)
+        return out(y)
+
+    def cache_heads(self) -> int:
+        """The K/V heads a cache of this rank holds: its share when its
+        query heads split over the model axis, else all. Raises when the
+        K/V heads cannot split as the query heads do."""
+        H, n = self.config.n_head, self.layout.n_model
+        if not self._heads_split():
+            return self.config.kv_heads
+        return self._cache_kv(self.layout.model_rank * (H // n), H // n,
+                              True)[1]
+
+    def _heads_split(self) -> bool:
+        return ("c_proj.weight" in self.split
+                and self.config.n_head % self.layout.n_model == 0)
+
+    def _cache_kv(self, h0: int, Hl: int, heads_split: bool):
+        """(first K/V head, count) that query heads ``h0 .. h0+Hl-1`` read."""
+        cfg = self.config
+        KH, n = cfg.kv_heads, self.layout.n_model
+        if not heads_split:
+            return 0, KH
+        if KH % n:
+            G = cfg.n_head // KH
+            raise ValueError(
+                f"n_kv_head={KH} does not split over a model axis of {n}: "
+                f"rank {self.layout.model_rank}'s query heads {h0}.."
+                f"{h0 + Hl - 1} read K/V heads {h0 // G}..{(h0 + Hl - 1) // G}"
+                f", which other ranks read too; serve on a model axis that "
+                f"divides n_kv_head")
+        return self.layout.model_rank * (KH // n), KH // n
+
+    def _mesh_qkv(self, x):
+        """The fused ``c_attn`` output of every head on this rank (gathered
+        when its columns are split: JAX's placement slices the [C + 2*KH*D]
+        columns contiguously, mixing q, k and v), and (h0, Hl, heads_split):
+        the rank's query heads ``h0 .. h0+Hl-1``, all of them when the axis
+        does not divide them."""
+        lay = self.layout
+        group, n, r = lay.model_group, lay.n_model, lay.model_rank
+        attn_split = "c_attn.weight" in self.split
+        proj_split = "c_proj.weight" in self.split
+        if attn_split:  # its columns: each rank's dx is partial
+            x = copy_to(x, group)
+        qkv = _linear(x, self.c_attn)
+        if attn_split:
+            qkv = gather_last(qkv, group, sum_grad=proj_split)
+        elif proj_split:  # the ranks use the replicated slab differently
+            qkv = copy_to(qkv, group)
+        heads_split = self._heads_split()
+        H = self.config.n_head
+        h0, Hl = (r * (H // n), H // n) if heads_split else (0, H)
+        return qkv, h0, Hl, heads_split
+
+    def _mesh_out(self, y, heads_split: bool):
+        """``c_proj`` of the rank's attention output ``y``: whole, or its
+        rows of the row-parallel projection (its heads' columns of y), the
+        partial outputs summed over the model axis."""
+        lay = self.layout
+        if "c_proj.weight" not in self.split:
+            return _linear(y, self.c_proj)
+        if not heads_split:  # its rows of c_proj's input
+            Cl = self.config.n_embd // lay.n_model
+            y = y[..., lay.model_rank * Cl:(lay.model_rank + 1) * Cl]
+        y = reduce_from(F.linear(y, self.c_proj.weight.to(y.dtype)),
+                        lay.model_group)
+        if self.c_proj.bias is not None:
+            y = y + self.c_proj.bias.to(y.dtype)
+        return y
 
     def _sharded_forward(self, x, drop):
         """The no-cache forward of this rank's part on a mesh. The fused
@@ -520,33 +619,12 @@ class CausalSelfAttention(nn.Module):
         cfg, lay = self.config, self.layout
         B, T, C = x.shape
         H, KH, D = cfg.n_head, cfg.kv_heads, cfg.head_dim
-        group, n, r = lay.model_group, lay.n_model, lay.model_rank
-        attn_split = "c_attn.weight" in self.split
-        proj_split = "c_proj.weight" in self.split
-        if attn_split:  # its columns: each rank's dx is partial
-            x = copy_to(x, group)
-        qkv = _linear(x, self.c_attn)
-        if attn_split:
-            qkv = gather_last(qkv, group, sum_grad=proj_split)
-        elif proj_split:  # the ranks use the replicated slab differently
-            qkv = copy_to(qkv, group)
-        heads_split = proj_split and H % n == 0
-        h0, Hl = (r * (H // n), H // n) if heads_split else (0, H)
+        qkv, h0, Hl, heads_split = self._mesh_qkv(x)
         kv = torch.arange(h0, h0 + Hl, device=x.device) // (H // KH)
         q = qkv[..., h0 * D:(h0 + Hl) * D].reshape(B, T, Hl, D)
         k = qkv[..., C:C + KH * D].reshape(B, T, KH, D).index_select(2, kv)
         v = qkv[..., C + KH * D:].reshape(B, T, KH, D).index_select(2, kv)
-        y = self._causal(q, k, v, drop, h0)
-        if not proj_split:
-            y = _linear(y, self.c_proj)
-        else:
-            if not heads_split:  # its rows of c_proj's input
-                Cl = C // n
-                y = y[..., r * Cl:(r + 1) * Cl]
-            y = reduce_from(F.linear(y, self.c_proj.weight.to(y.dtype)),
-                            group)
-            if self.c_proj.bias is not None:
-                y = y + self.c_proj.bias.to(y.dtype)
+        y = self._mesh_out(self._causal(q, k, v, drop, h0), heads_split)
         if drop is not None:
             y = dropout(y, *drop, SITE_ATTN_OUT, lay)
         return y
@@ -557,12 +635,17 @@ class CausalSelfAttention(nn.Module):
         ``attn_impl="flash"`` without active dropout (the counterpart of
         JAX's stock flash kernel), else the einsum chain with fp32 softmax
         and dropout on the probabilities. [B, T, H, D] -> [B, T, H*D]; on a
-        mesh the heads are ``head0 ..`` of ``n_head``."""
+        mesh the heads are ``head0 ..`` of ``n_head``. With ``seq_axis`` the
+        chunk's attention is the ring over the seq group (JAX
+        gpt.py:742-756)."""
         cfg = self.config
         B, T, H, D = q.shape
         G = H // k.shape[2]
         if G > 1:
             k, v = k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)
+        if cfg.seq_axis is not None:
+            return ring_attention(q, k, v, self.layout.seq_group).reshape(
+                B, T, H * D)
         if cfg.attn_impl == "flash" and drop is None:
             y = F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -707,10 +790,6 @@ class GPT(nn.Module):
 
     def __init__(self, config: GPTConfig, device=None):
         super().__init__()
-        if config.seq_axis is not None:
-            raise NotImplementedError(
-                "sequence parallelism is not ported yet (ROADMAP queue 1 "
-                "item 6c)")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -744,9 +823,19 @@ class GPT(nn.Module):
         if targets is not None and cache is not None:
             raise ValueError("targets take the no-cache forward")
         lay = self.layout
-        if lay is not None and targets is None:
-            raise ValueError("a model split over a mesh runs the training "
-                             "forward only (targets, no cache)")
+        if cfg.seq_axis is not None:
+            if cache is not None:
+                raise NotImplementedError(
+                    "seq_axis is a training-path knob; decode stays on the "
+                    "data/model axes (parallel/sequence.py docstring)")
+            if self.training and cfg.dropout > 0:
+                raise NotImplementedError(
+                    "attention-prob dropout is not expressible under ring "
+                    "attention; train sequence-parallel with dropout=0")
+            if lay is None or lay.seq_group is None:
+                raise ValueError(
+                    f"seq_axis={cfg.seq_axis!r} needs a layout with a seq "
+                    "axis (parallel/sequence.py)")
         drop = None
         if self.training and cfg.dropout > 0 and cache is None:
             if dropout_key is None:
@@ -772,6 +861,10 @@ class GPT(nn.Module):
             pos, mask_rel = ring_positions(cache, T, cfg.block_size)
         elif cache is not None:
             pos = pos + cache.length
+        elif cfg.seq_axis is not None:
+            # local row t is global position seq_rank * T + t (the caller,
+            # parallel/sequence.py, holds the global T to block_size)
+            pos = pos + lay.seq_rank * T
         vocab_split = "transformer.wte.weight" in self.split
         tok = (vocab_embedding(idx, wte, lay) if vocab_split
                else F.embedding(idx, wte))
@@ -830,7 +923,10 @@ class GPT(nn.Module):
             advance(cache, T)
         if not return_all_logits:
             x = x[:, -1:]  # inference fast path: last position only
-        return F.linear(x, wte), cache
+        logits = F.linear(x, wte)
+        if vocab_split:  # sampling reads every vocabulary entry
+            logits = gather_last(logits, lay.model_group, sum_grad=False)
+        return logits, cache
 
     def num_params(self, non_embedding: bool = True) -> int:
         """Parameter count (the tied head counted once); optionally
@@ -865,7 +961,10 @@ def cross_entropy_ignore_index(logits: torch.Tensor, targets: torch.Tensor,
     rows are this rank's of the data axis, and the result is its share of
     the global mean (its sum over the global count, times the data-axis
     size), so the data-axis mean of the ranks' values, and of their
-    gradients, is the global mean's."""
+    gradients, is the global mean's. On a layout with a seq axis (JAX's
+    ``axis_name=(seq, data)``) the count is summed over the seq and data
+    groups and the result is the rank's sum over it: the sum of the ranks'
+    values, and of their gradients, over the mesh is the global mean's."""
     logits = logits.float()
     mask = targets != ignore_index
     safe = torch.where(mask, targets, 0).long()
@@ -884,6 +983,11 @@ def cross_entropy_ignore_index(logits: torch.Tensor, targets: torch.Tensor,
         tgt = logits.gather(-1, safe[..., None])[..., 0]
         nll = torch.logsumexp(logits, dim=-1) - tgt
     count = mask.sum()
+    if layout is not None and layout.seq_group is not None:
+        all_reduce_(count, layout.seq_group)
+        if layout.data_group is not None:
+            all_reduce_(count, layout.data_group)
+        return (nll * mask).sum() / count.clamp_min(1)
     if layout is None or layout.n_data == 1:
         return (nll * mask).sum() / count.clamp_min(1)
     count = all_reduce_(count, layout.data_group)

@@ -43,7 +43,11 @@ parallel/mesh.py:67-75): the tokens are replicated over that axis, each
 rank runs its experts on their pairs and the combine is summed over the
 axis. Routing, the gates and the aux loss are computed on every rank alike;
 the aux term is this rank's share, as the loss (``models/gpt.py::
-cross_entropy_ignore_index``), with the global f.
+cross_entropy_ignore_index``), with the global f. Inside
+:func:`local_routing` a layer on a mesh routes the tokens of its own call
+alone: the sharded servers' prefill (every data rank runs the whole wave)
+and the ticks that JAX runs under ``shard_map`` over the data axis
+(``serve/engine.py``).
 
 Parameters keep the JAX layouts (``w_fc`` [E, C, 4C], ``w_proj``
 [E, 4C, C], ``b_fc`` [E, 4C], ``b_proj`` [E, C]); the router is a
@@ -52,6 +56,8 @@ Parameters keep the JAX layouts (``w_fc`` [E, C, 4C], ``w_proj``
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -65,6 +71,22 @@ from ai_music_generation_tpu_torch.parallel.collectives import (
     reduce_from,
 )
 from ai_music_generation_tpu_torch.utils.device import ieee_fp32
+
+
+_ROUTE_OVER_DATA = contextvars.ContextVar("route_over_data", default=True)
+
+
+@contextlib.contextmanager
+def local_routing(enabled: bool = True):
+    """With ``enabled``, MoE layers on a mesh route their call's tokens as
+    a batch of their own (the capacity and the buffer rows count this
+    rank's tokens only) inside the block; without, the default, they route
+    the global batch of the data axis."""
+    token = _ROUTE_OVER_DATA.set(not enabled)
+    try:
+        yield
+    finally:
+        _ROUTE_OVER_DATA.reset(token)
 
 
 class _IEEELinear(torch.autograd.Function):
@@ -165,7 +187,8 @@ class MoEMLP(nn.Module):
         B, T, C = x.shape
         E, K = cfg.n_expert, min(cfg.expert_top_k, cfg.n_expert)
         N, dt = B * T, x.dtype
-        n_data = 1 if lay is None else lay.n_data
+        n_data = 1 if lay is None or not _ROUTE_OVER_DATA.get() \
+            else lay.n_data
         probs = self.probs(x)
         capacity = capacity_of(N * n_data, E, K, cfg.capacity_factor)
         gate, expert_idx, keep, slot = route(probs, K, capacity)

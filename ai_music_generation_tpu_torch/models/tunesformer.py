@@ -35,7 +35,9 @@ part, as ``models/gpt.py`` does: the patch embedding's table is split on
 n_embd (JAX's column-parallel rule) and its slabs are gathered over the
 model axis, both cores run tensor parallel, ``char_wte`` is split on the
 vocab with the tied head's cross-entropy over the vocab shards, and the
-masks index each site by global coordinates.
+masks index each site by global coordinates. The cached steps run the
+same parts for the sharded server (``serve/tunes_engine.py``), the char
+step gathering its logits over the vocab shards.
 """
 
 from __future__ import annotations
@@ -298,11 +300,18 @@ class TunesFormer(nn.Module):
         (selected on the device: no host sync), else the embedding of
         ``tok`` [N]. Returns (logits [N, 128], the cache)."""
         wte = self._wte()
+        if self._vocab_split():
+            tok_emb = vocab_embedding(tok[:, None], wte, self.layout)
+        else:
+            tok_emb = F.embedding(tok.long(), wte)[:, None, :]
         embeds = torch.where(cache.length == 0,
-                             encoded_patch[:, None, :].to(wte.dtype),
-                             F.embedding(tok.long(), wte)[:, None, :])
+                             encoded_patch[:, None, :].to(wte.dtype), tok_emb)
         hidden, cache = self.char_core(embeds, cache)
-        return F.linear(hidden[:, 0, :], wte), cache
+        logits = F.linear(hidden[:, 0, :], wte)
+        if self._vocab_split():  # sampling reads every char
+            logits = gather_last(logits, self.layout.model_group,
+                                 sum_grad=False)
+        return logits, cache
 
     def forward(self, patches: torch.Tensor,
                 patch_indices: Optional[torch.Tensor] = None,

@@ -4,7 +4,12 @@ needs them written. Activations between blocks are replicated over the
 model axis; a rank-divergent region (its heads, its MLP columns, its
 experts, its vocab slice) starts with :func:`copy_to` and ends with
 :func:`reduce_from`, so every replicated tensor gets the same, whole
-gradient on every rank of the axis."""
+gradient on every rank of the axis.
+
+:func:`ring_shift` is the differentiable ``jax.lax.ppermute`` around a
+ring that the sequence-parallel attention (``ops/ring_attention.py``) and
+the pipeline schedule (``parallel/pipeline.py``) rotate their blocks with.
+"""
 
 from __future__ import annotations
 
@@ -62,6 +67,48 @@ class _GatherLast(torch.autograd.Function):
             dist.all_reduce(grad, group=ctx.group)
         n, r = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
         return grad.chunk(n, dim=-1)[r].contiguous(), None, None
+
+
+def _shift(x: torch.Tensor, group, shift: int) -> torch.Tensor:
+    """``x`` sent to group rank ``(i + shift) % n``, the tensor of rank
+    ``(i - shift) % n`` received, in one ``batch_isend_irecv`` (every send
+    and receive posted before any waits, so no pair of ranks deadlocks).
+    The identity on a group of one (NCCL cannot send to itself)."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    i = dist.get_rank(group)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    ops = [dist.P2POp(dist.isend, x,
+                      dist.get_global_rank(group, (i + shift) % n), group),
+           dist.P2POp(dist.irecv, out,
+                      dist.get_global_rank(group, (i - shift) % n), group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+class _RingShift(torch.autograd.Function):
+    """:func:`_shift` forward; backward the gradient shifted the other way
+    (the transpose of a permutation is its inverse, as JAX transposes
+    ``ppermute``)."""
+
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return _shift(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _shift(grad, ctx.group, -ctx.shift), None, None
+
+
+def ring_shift(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """Rank i of ``group`` gets rank ``(i - shift) % n``'s ``x``
+    (differentiable; ranks are the group's, mapped to global ranks for the
+    sends)."""
+    return _RingShift.apply(x, group, shift)
 
 
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:

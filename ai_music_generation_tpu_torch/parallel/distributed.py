@@ -16,6 +16,7 @@ no-op at world size 1, as JAX's is on one host.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 from typing import Optional
@@ -91,6 +92,28 @@ def is_main_process() -> bool:
 
 
 def shutdown() -> None:
-    """Leave the process group, if there is one."""
+    """Leave the process group, if there is one: every rank together (a
+    barrier first), so that no rank tears down its connections while a
+    peer still completes a transfer with it (gloo's sends return before the
+    peer has received)."""
     if dist.is_initialized():
+        dist.barrier()
         dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def group_of_one(device: str = "cuda"):
+    """A process group of this process alone (world size 1, NCCL on the
+    card, gloo on the CPU) on a free localhost port, left on exit: a mesh
+    of one device for a run without ``torchrun``."""
+    from ai_music_generation_tpu_torch.parallel.worker_smoke import free_port
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already up")
+    info = initialize_distributed(device, rank=0, world_size=1,
+                                  master_addr="localhost",
+                                  master_port=free_port())
+    try:
+        yield info
+    finally:
+        shutdown()

@@ -31,6 +31,7 @@ parameter's placements.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import re
 from typing import Mapping, Optional, Sequence
 
@@ -42,6 +43,10 @@ from torch.distributed.tensor import Placement, Replicate, Shard
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 AXES = (DATA_AXIS, MODEL_AXIS)
+# the minor axes of the sequence-parallel and pipeline meshes
+# (parallel/sequence.py, parallel/pipeline.py)
+SEQ_AXIS = "seq"
+PIPE_AXIS = "pipe"
 
 
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
@@ -158,34 +163,62 @@ def placements_for_tree(shapes: Mapping[str, Sequence[int]], n_data: int,
 
 @dataclasses.dataclass(frozen=True)
 class Layout:
-    """Where this process sits on a (data, model) ``DeviceMesh``. The
-    modules that a mesh splits (``models/gpt.py``, ``models/moe.py``,
-    ``models/tunesformer.py``) hold one as ``layout`` (None: one card) and
-    read the axis sizes, this rank's coordinates and the axis groups from
-    it."""
+    """Where this process sits on a ``DeviceMesh`` whose dims are named
+    from ``data``, ``model`` and ``seq``. The modules that a mesh splits
+    (``models/gpt.py``, ``models/moe.py``, ``models/tunesformer.py``) hold
+    one as ``layout`` (None: one card) and read the axis sizes, this rank's
+    coordinates and the axis groups from it; an axis the mesh lacks has
+    size 1, coordinate 0 and no group. Each value is looked up once (a
+    mesh does not change, and every cached decode step reads them)."""
 
     mesh: DeviceMesh
 
-    @property
+    def _size(self, axis: str) -> int:
+        names = self.mesh.mesh_dim_names
+        return self.mesh.size(names.index(axis)) if axis in names else 1
+
+    def _rank(self, axis: str) -> int:
+        if axis not in self.mesh.mesh_dim_names:
+            return 0
+        return self.mesh.get_local_rank(axis)
+
+    def _group(self, axis: str):
+        if axis not in self.mesh.mesh_dim_names:
+            return None
+        return self.mesh.get_group(axis)
+
+    @functools.cached_property
     def n_data(self) -> int:
-        return self.mesh.size(0)
+        return self._size(DATA_AXIS)
 
-    @property
+    @functools.cached_property
     def n_model(self) -> int:
-        return self.mesh.size(1)
+        return self._size(MODEL_AXIS)
 
-    @property
+    @functools.cached_property
+    def n_seq(self) -> int:
+        return self._size(SEQ_AXIS)
+
+    @functools.cached_property
     def data_rank(self) -> int:
-        return self.mesh.get_local_rank(DATA_AXIS)
+        return self._rank(DATA_AXIS)
 
-    @property
+    @functools.cached_property
     def model_rank(self) -> int:
-        return self.mesh.get_local_rank(MODEL_AXIS)
+        return self._rank(MODEL_AXIS)
 
-    @property
+    @functools.cached_property
+    def seq_rank(self) -> int:
+        return self._rank(SEQ_AXIS)
+
+    @functools.cached_property
     def data_group(self):
-        return self.mesh.get_group(DATA_AXIS)
+        return self._group(DATA_AXIS)
 
-    @property
+    @functools.cached_property
     def model_group(self):
-        return self.mesh.get_group(MODEL_AXIS)
+        return self._group(MODEL_AXIS)
+
+    @functools.cached_property
+    def seq_group(self):
+        return self._group(SEQ_AXIS)

@@ -61,12 +61,14 @@ def _aliases(model: nn.Module) -> dict[str, str]:
             if canonical[id(p)] != name}
 
 
-def parallelize(model: nn.Module, layout: Layout, fsdp: bool = False
-                ) -> tuple[nn.Module, "MeshPlan"]:
+def parallelize(model: nn.Module, layout: Layout, fsdp: bool = False,
+                data_parallel: bool = True) -> tuple[nn.Module, "MeshPlan"]:
     """Split ``model`` (whole, the same on every rank) over ``layout``'s
     mesh in place: its model-axis parts, then the data axis (FSDP2 with
-    ``fsdp``, else DDP when the axis has more than one rank). Returns (the
-    module to call forward on: the model, or its DDP wrapper; the plan)."""
+    ``fsdp``, else DDP when the axis has more than one rank; neither
+    without ``data_parallel``, as the servers run, which keep no
+    gradients). Returns (the module to call forward on: the model, or its
+    DDP wrapper; the plan)."""
     shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
     placements = {n: placements_for(n, s, layout.n_data, layout.n_model,
                                     fsdp) for n, s in shapes.items()}
@@ -108,7 +110,7 @@ def parallelize(model: nn.Module, layout: Layout, fsdp: bool = False
                 fully_shard(m, mesh=data_mesh,
                             shard_placement_fn=shard_placement)
         fully_shard(model, mesh=data_mesh, shard_placement_fn=shard_placement)
-    elif layout.n_data > 1:
+    elif layout.n_data > 1 and data_parallel:
         device = next(model.parameters()).device
         module = nn.parallel.DistributedDataParallel(
             model, process_group=layout.data_group,

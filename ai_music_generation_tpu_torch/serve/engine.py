@@ -55,6 +55,26 @@ JAX engine routes.
 
 Slots whose request finished keep ticking masked (``active`` False pins
 their cache length and logits) until new work is admitted.
+
+Sharded serving (``mesh=``, JAX :229-368): the engine runs in every
+process of a (data, model) ``DeviceMesh`` (``parallel/mesh.py::
+make_mesh``) under ``serve/mesh.py``'s control plane. The model is split
+over the model axis (``parallel/sharding.py::parallelize``, no FSDP: no
+optimizer state) and every rank holds ``n_slots / n_data`` slot rows, its
+data shard, with a cache of its K/V heads. Rank 0 accepts ``submit`` and
+``cancel``, keeps the queue, the slot table and the ``_lengths`` mirror,
+and each step broadcasts the admission upload; every rank prefills the
+whole wave (the unsharded engine's batch shape) and scatters the rows of
+its slots, runs the ticks on its rows and sends its ``[K, B_local]``
+tokens to rank 0, which demultiplexes. The other ranks call
+:meth:`GenerationServer.follow`, which returns at :meth:`GenerationServer.
+shutdown`'s stop packet. Every rank does the same cursor arithmetic, so
+the ring cursor is equal everywhere. MoE routing follows JAX's two
+programs: on the einsum path (``flat_kv`` False, GSPMD) a tick routes all
+``n_slots`` rows together (the gathered capacity counts of
+``models/moe.py``); on the flat path (JAX's ``shard_map`` over the data
+axis) each data shard routes its own rows; the admission prefill routes
+its wave, as the unsharded engine does.
 """
 
 from __future__ import annotations
@@ -69,6 +89,8 @@ import numpy as np
 import torch
 
 from ai_music_generation_tpu_torch.models.gpt import GPT, KVCache
+from ai_music_generation_tpu_torch.models.moe import local_routing
+from ai_music_generation_tpu_torch.serve.mesh import STOP, STEP, MeshLink
 from ai_music_generation_tpu_torch.utils.hash32 import GOLDEN
 from ai_music_generation_tpu_torch.utils.hash32 import M32 as _M32
 from ai_music_generation_tpu_torch.utils.hash32 import mix32 as _mix32
@@ -222,6 +244,11 @@ class GenerationServer(EngineHostBase):
 
     or drive incrementally with :meth:`step` (admits queued work, runs
     ``ticks_per_call`` decode ticks, returns the requests finished so far).
+
+    ``mesh``: a (data, model) ``DeviceMesh`` over every process (module
+    docstring); every rank builds the server over the same whole model,
+    which it splits in place; rank 0 serves and the others call
+    :meth:`follow`. ``n_slots`` must divide evenly over the data axis.
     """
 
     def __init__(
@@ -234,10 +261,6 @@ class GenerationServer(EngineHostBase):
         cache_len: Optional[int] = None,
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded serving (mesh) is not ported yet (ROADMAP queue 1 "
-                "item 6b, sharded serving and the sharded synth)")
         cfg = model.config
         self.model = model
         self.device = model.transformer.wte.weight.device
@@ -288,13 +311,27 @@ class GenerationServer(EngineHostBase):
         self._latencies: deque = deque(maxlen=10_000)
 
         V, dev = cfg.vocab_size, self.device
+        # on a mesh: this rank's slot rows, and the ticks' MoE routing (the
+        # flat path routes each data shard alone, as JAX's shard_map)
+        self.link, rows, kv_heads = None, n_slots, None
+        if mesh is not None:
+            from ai_music_generation_tpu_torch.parallel.sharding import (
+                parallelize,
+            )
 
-        def full(value, dtype, shape=(n_slots,)):
+            self.link = MeshLink(mesh, n_slots)
+            rows = self.link.rows
+            parallelize(model, self.link.layout, data_parallel=False)
+            kv_heads = model.transformer.h[0].attn.cache_heads()
+        self._local_ticks = cfg.flat_kv
+
+        def full(value, dtype, shape=(rows,)):
             return torch.full(shape, value, dtype=dtype, device=dev)
 
-        self.cache = KVCache.create(cfg, n_slots, max_len=self.cache_len,
-                                    device=dev, per_row=True)
-        self.last_logits = full(0.0, torch.float32, (n_slots, V))
+        self.cache = KVCache.create(cfg, rows, max_len=self.cache_len,
+                                    device=dev, per_row=True,
+                                    kv_heads=kv_heads)
+        self.last_logits = full(0.0, torch.float32, (rows, V))
         self.gen = full(0, torch.int32)
         self.max_new = full(0, torch.int32)
         self.temperature = full(1.0, torch.float32)
@@ -312,6 +349,18 @@ class GenerationServer(EngineHostBase):
         device when the vocabulary fits 14 bits, else (toks, emitted, done)
         [K, B]."""
         toks, emitted, dones = [], [], []
+        with local_routing(self._local_ticks):
+            self._ticks(toks, emitted, dones)
+        toks, emitted, dones = (torch.stack(x) for x in (toks, emitted, dones))
+        if self.model.config.vocab_size <= 16384:
+            # ONE download: tok | emitted << 14 | done << 15 as uint16 bits
+            packed = (toks | (emitted.to(torch.int32) << 14)
+                      | (dones.to(torch.int32) << 15))
+            packed = torch.where(packed >= 1 << 15, packed - (1 << 16), packed)
+            return packed.to(torch.int16), None, None
+        return toks, emitted, dones
+
+    def _ticks(self, toks, emitted, dones) -> None:
         for _ in range(self.ticks_per_call):
             active = self.active
             tok = _per_slot_sample(self.last_logits, self.seed, self.gen,
@@ -330,52 +379,52 @@ class GenerationServer(EngineHostBase):
             toks.append(tok)
             emitted.append(active)
             dones.append(done)
-        toks, emitted, dones = (torch.stack(x) for x in (toks, emitted, dones))
-        if self.model.config.vocab_size <= 16384:
-            # ONE download: tok | emitted << 14 | done << 15 as uint16 bits
-            packed = (toks | (emitted.to(torch.int32) << 14)
-                      | (dones.to(torch.int32) << 15))
-            packed = torch.where(packed >= 1 << 15, packed - (1 << 16), packed)
-            return packed.to(torch.int16), None, None
-        return toks, emitted, dones
 
-    def _insert_many(self, packed: torch.Tensor, n_valid: int) -> None:
+    def _insert_many(self, packed: torch.Tensor, n_valid: int,
+                     keep=None) -> None:
         """Admit one wave: ``packed`` [G, Pc + 10] int32 on the device, each
         row the padded context followed by (slot, plen, max_new, top_k,
         stop_token, g0, valid, seed: u32 bits, top_p: f32 bits,
         temperature: f32 bits); the first ``n_valid`` rows are requests, the
         rest padding. Batch-G prefill of the contexts on a lockstep cache,
         each valid row rolled so its context ends at the ring cursor, then
-        scattered to its slot."""
+        scattered to its slot. On a mesh ``keep`` (a slice or a device
+        index, ``MeshLink.mine``) picks the valid rows whose slots are this
+        rank's; the whole wave is prefilled."""
         cfg = self.model.config
         G = packed.shape[0]
         ctx = packed[:, :-10]
-        slots = packed[:n_valid, -10].long()
+        mine = slice(0, n_valid) if keep is None else keep
+        rows = packed[mine]
+        slots = rows[:, -10].long()
+        if self.link is not None:
+            slots = slots - self.link.base
         plens = packed[:, -9]
         pre = KVCache.create(cfg, G, max_len=self.cache_len,
-                             device=self.device)
-        logits, _ = self.model(ctx, cache=pre, return_all_logits=True)
-        last = logits[torch.arange(n_valid, device=self.device),
-                      plens[:n_valid].long() - 1].float()
+                             device=self.device,
+                             kv_heads=self.cache.k[0].shape[2] // cfg.head_dim)
+        with local_routing():
+            logits, _ = self.model(ctx, cache=pre, return_all_logits=True)
+        picked = torch.arange(G, device=self.device)[mine]
+        last = logits[picked, plens[mine].long() - 1].float()
         # the prefill wrote context token p at column p; the ring expects it
         # at (cursor - plen + p) mod S
         S = self.cache_len
-        shifts = (self.cache.cursor - plens[:n_valid]) % S
+        shifts = (self.cache.cursor - plens[mine]) % S
         src = (torch.arange(S, device=self.device)[None, :]
                - shifts[:, None]) % S  # [n, S]: rolled[j] = pre[src[j]]
         cache = self.cache
         for bufs, new in ((cache.k, pre.k), (cache.v, pre.v)):
             for buf, p in zip(bufs, new):
                 idx = src[:, :, None].expand(-1, -1, p.shape[2])
-                buf[slots] = torch.gather(p[:n_valid], 1, idx)
+                buf[slots] = torch.gather(p[mine], 1, idx)
         if cache.k_scale is not None:
             for bufs, new in ((cache.k_scale, pre.k_scale),
                               (cache.v_scale, pre.v_scale)):
                 for buf, p in zip(bufs, new):
                     idx = src[:, None, :].expand(-1, p.shape[1], -1)
-                    buf[slots] = torch.gather(p[:n_valid], 2, idx)
-        rows = packed[:n_valid]
-        cache.length[slots] = plens[:n_valid]
+                    buf[slots] = torch.gather(p[mine], 2, idx)
+        cache.length[slots] = plens[mine]
         self.last_logits[slots] = last
         self.max_new[slots] = rows[:, -8]
         self.top_k[slots] = rows[:, -7]
@@ -463,6 +512,13 @@ class GenerationServer(EngineHostBase):
         """Admit (slot, req, context, g0) entries in waves of G rows (8 when
         at most 8 wait, else ``admit_group``) at one prompt bucket, from ONE
         host-to-device upload."""
+        packed, G = self._pack_admits(admits)
+        self._insert_waves(packed, G, len(admits))
+
+    def _pack_admits(self, admits) -> tuple[np.ndarray, int]:
+        """The host side of :meth:`_admit_wave`: the slot table and the
+        length mirror take the admissions; returns (the packed waves
+        [n_waves * G, Pc + 10] int32, G)."""
         group = self.admit_group
         all_ctxs = [c[2][-self.window:] for c in admits]
         pc = self._bucket(max(len(c) for c in all_ctxs))
@@ -488,12 +544,23 @@ class GenerationServer(EngineHostBase):
             packed[i, -1] = np.float32(req.temperature).view(np.int32)
             self._slots[slot] = req
             self._lengths[slot] = len(ctx)
+        return packed, G
+
+    def _insert_waves(self, packed: np.ndarray, G: int, n: int) -> None:
+        """The device side: ONE upload, then each wave's insert-prefill (on
+        a mesh, the waves that hold rows of this rank's slots)."""
+        n_waves = packed.shape[0] // G
         packed_dev = torch.from_numpy(
-            packed.reshape(n_waves, G, pc + 10)).to(self.device)
+            packed.reshape(n_waves, G, -1)).to(self.device)
         for w in range(n_waves):
+            n_valid, keep = min(G, n - w * G), None
+            if self.link is not None:
+                keep = self.link.mine(packed[w * G:w * G + n_valid, -10],
+                                      self.device)
+                if keep is None:
+                    continue
             self.stats["admit_waves"] += 1
-            self._insert_many(packed_dev[w],
-                              min(G, len(admits) - w * G))
+            self._insert_many(packed_dev[w], n_valid, keep)
 
     @torch.no_grad()
     def step(self) -> list[Request]:
@@ -529,7 +596,7 @@ class GenerationServer(EngineHostBase):
             if slot not in reserved and self._slots[slot] is None and self._queue:
                 req = self._queue.popleft()
                 admits.append((slot, req, req.prompt, 0))
-                self._slots[slot] = req  # reserve; _admit_wave re-sets it
+                self._slots[slot] = req  # reserve; _pack_admits re-sets it
 
         if not admits and not any(r is not None for r in self._slots):
             return self._drain_finished()
@@ -542,14 +609,18 @@ class GenerationServer(EngineHostBase):
                 self._lengths[slot] + self.ticks_per_call > self.cache_len
             ):
                 admits.append((slot, req, req.tokens, len(req.generated)))
+        t0 = _time.perf_counter()
+        packed, G = (self._pack_admits(admits) if admits
+                     else (np.zeros((0, 1), np.int32), 0))
+        if self.link is not None:  # the step's packet to every rank
+            self.link.send(STEP, [packed], [G, len(admits)])
         if admits:
-            t0 = _time.perf_counter()
-            self._admit_wave(admits)
+            self._insert_waves(packed, G, len(admits))
             self.stats["admit_s"] += _time.perf_counter() - t0
 
         # 3. decode: the ticks are enqueued, then one download waits for them
         t0 = _time.perf_counter()
-        toks, emitted, done = self._scan()
+        toks, emitted, done = self._gather(self._scan())
         self.stats["scan_s"] += _time.perf_counter() - t0
         t0 = _time.perf_counter()
         if emitted is None:  # the packed uint16 fast path (one download)
@@ -589,3 +660,36 @@ class GenerationServer(EngineHostBase):
                 self._slots[slot] = None
         self.stats["demux_s"] += _time.perf_counter() - t0
         return self._drain_finished()
+
+    # -- sharded serving ------------------------------------------------------
+
+    def _gather(self, outs):
+        """On a mesh, the step's outputs over every slot (each data rank's
+        rows); else as they are."""
+        if self.link is None:
+            return outs
+        return tuple(None if t is None else self.link.gather(t, dim=1)
+                     for t in outs)
+
+    @torch.no_grad()
+    def follow(self) -> None:
+        """The loop of a rank other than 0 on a mesh: apply each step's
+        packet to this rank's rows, run the ticks, send the tokens; returns
+        at the stop packet (:meth:`shutdown`)."""
+        if self.link is None or self.link.controller:
+            raise RuntimeError("follow() is the loop of a rank other than 0 "
+                               "of a mesh")
+        while True:
+            op, arrays, extra = self.link.recv()
+            if op == STOP:
+                return
+            G, n = extra[0], extra[1]
+            if n:
+                self._insert_waves(arrays[0], G, n)
+            self._gather(self._scan())
+
+    def shutdown(self) -> None:
+        """On a mesh, rank 0 sends the stop packet: every :meth:`follow`
+        returns. Without a mesh, nothing."""
+        if self.link is not None and self.link.controller:
+            self.link.send(STOP)

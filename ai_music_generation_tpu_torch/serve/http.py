@@ -168,9 +168,13 @@ class EngineRunner:
         return out
 
     def shutdown(self):
+        """Stop the engine thread; a sharded engine's followers get the
+        stop packet."""
         self._stop = True
         self._wake.set()
         self._thread.join(timeout=30)
+        if not self._thread.is_alive():
+            self.engine.shutdown()
 
     def _loop(self):
         while not self._stop:

@@ -40,6 +40,18 @@ the same bits on the CPU and the card. A request's tune therefore depends
 only on its own fields, never on its slot or on other traffic (up to the
 floating-point differences of another number of requests admitted in the
 same step: the prefill's batch is the wave).
+
+Sharded serving (``mesh=``, JAX :133-183): every process of a (data,
+model) ``DeviceMesh`` builds the server (``serve/mesh.py``'s control
+plane, rank 0 serving, the others in :meth:`TunesServer.follow`). The
+parameters take the tensor-parallel layout of ``models/tunesformer.py``
+(``parallel/sharding.py::parallelize``, no FSDP), its patch and char steps
+running the rank's heads over caches of its K/V heads. The patch cache
+rides the data axis when ``n_slots % n_data == 0``: each data rank runs
+the bar of its rows; otherwise every data rank runs all the rows, as JAX
+replicates them. Each step's packet is the admission upload and the bar's
+upload; every rank prefills the whole admission wave and scatters the
+rows of its slots.
 """
 
 from __future__ import annotations
@@ -64,6 +76,7 @@ from ai_music_generation_tpu_torch.decode.tunes_generate import (
 from ai_music_generation_tpu_torch.models.gpt import KVCache
 from ai_music_generation_tpu_torch.models.tunesformer import TunesFormer
 from ai_music_generation_tpu_torch.serve.engine import EngineHostBase
+from ai_music_generation_tpu_torch.serve.mesh import STOP, STEP, MeshLink
 from ai_music_generation_tpu_torch.tokenizers.patchilizer import Patchilizer
 from ai_music_generation_tpu_torch.utils.hash32 import GOLDEN, M32, mix32, mul32
 
@@ -139,14 +152,15 @@ class TunesServer(EngineHostBase):
         rid = srv.submit("S:2\\nB:9\\n...", max_patch=64, seed=7)
         for req in srv.run_until_idle():
             print(req.id, req.text)
+
+    ``mesh``: a (data, model) ``DeviceMesh`` over every process (module
+    docstring); every rank builds the server over the same whole model,
+    which it splits in place; rank 0 serves and the others call
+    :meth:`follow`.
     """
 
     def __init__(self, model: TunesFormer, n_slots: int = 16, mesh=None,
                  admit_group: int = 256):
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded serving (mesh) is not ported yet (ROADMAP queue 1 "
-                "item 6b, sharded serving and the sharded synth)")
         self.model = model
         self.cfg = model.config
         self.device = model.device
@@ -164,36 +178,67 @@ class TunesServer(EngineHostBase):
         # cancellation registry: producer threads only touch these
         self._live: dict[int, TuneRequest] = {}
         self._cancelled: set[int] = set()
-        # host wall time per step phase: admit_s the insert-prefill's
-        # enqueue, bar_s the bar's enqueue, fetch_s the wait for its chars
+        # host wall time per step phase: admit_s the admission's packing,
+        # bar_s the insert-prefill's and the bar's enqueue, fetch_s the wait
+        # for its chars
         self.stats = {"steps": 0, "admit_waves": 0, "admit_s": 0.0,
                       "bar_s": 0.0, "fetch_s": 0.0, "demux_s": 0.0}
+        self.link, rows, heads = None, n_slots, (None, None)
+        if mesh is not None:
+            from ai_music_generation_tpu_torch.parallel.sharding import (
+                parallelize,
+            )
+
+            self.link = MeshLink(mesh, n_slots, even=False)
+            rows = self.link.rows
+            parallelize(model, self.link.layout, data_parallel=False)
+            heads = tuple(core.h[0].attn.cache_heads()
+                          for core in (model.patch_core, model.char_core))
+        self._patch_heads = heads[0]
         self._patch_cache = KVCache.create(
-            self.cfg.patch_core_config(), n_slots,
-            max_len=self.cfg.patch_length, device=self.device, per_row=True)
+            self.cfg.patch_core_config(), rows,
+            max_len=self.cfg.patch_length, device=self.device, per_row=True,
+            kv_heads=heads[0])
         self._char_cache = KVCache.create(
-            self.cfg.char_core_config(), n_slots,
-            max_len=self.cfg.patch_size, device=self.device)
+            self.cfg.char_core_config(), rows,
+            max_len=self.cfg.patch_size, device=self.device,
+            kv_heads=heads[1])
 
     # -- device work --------------------------------------------------------
 
-    def _admit(self, admitted: list[tuple[int, _SlotState]]) -> None:
-        """Insert-prefill one wave: the n admitted patch stacks as n rows
-        on a lockstep cache, each rolled so its first ``plen = n_patches -
-        1`` patches end at the ring cursor, scattered into its slot; its
-        length becomes plen."""
+    def _pack_admitted(self, admitted: list[tuple[int, _SlotState]]
+                       ) -> np.ndarray:
+        """The wave's upload [n, L*S + 2] int32: each admitted patch stack,
+        its slot and its ``plen``."""
         L, S = self.cfg.patch_length, self.cfg.patch_size
-        n = len(admitted)
-        packed = np.zeros((n, L * S + 2), np.int32)
+        packed = np.zeros((len(admitted), L * S + 2), np.int32)
         for i, (slot, st) in enumerate(admitted):
             packed[i, :L * S] = st.patches.reshape(-1)
             packed[i, -2] = slot
             packed[i, -1] = max(st.n_patches, 1) - 1
+        return packed
+
+    def _admit(self, packed: np.ndarray) -> None:
+        """Insert-prefill one wave (:meth:`_pack_admitted`): the n admitted
+        patch stacks as n rows on a lockstep cache, each rolled so its first
+        ``plen = n_patches - 1`` patches end at the ring cursor, and
+        scattered into its slot; its length becomes plen. On a mesh the
+        whole wave is prefilled and the rows of this rank's slots
+        scattered."""
+        L, S = self.cfg.patch_length, self.cfg.patch_size
+        n = packed.shape[0]
         dev = torch.from_numpy(packed).to(self.device)
         rows = dev[:, :L * S].reshape(n, L, S)
-        slots, plens = dev[:, -2].long(), dev[:, -1]
+        mine = slice(None)
+        if self.link is not None:
+            mine = self.link.mine(packed[:, -2], self.device)
+            if mine is None:
+                return
+        slots, plens = dev[mine, -2].long(), dev[mine, -1]
+        if self.link is not None:
+            slots = slots - self.link.base
         pre = KVCache.create(self.cfg.patch_core_config(), n, max_len=L,
-                             device=self.device)
+                             device=self.device, kv_heads=self._patch_heads)
         self.model.encode_patches_cached(rows, pre)
         cache = self._patch_cache
         # the prefill wrote prompt patch p at column p; the ring expects it
@@ -204,7 +249,7 @@ class TunesServer(EngineHostBase):
         for bufs, new in ((cache.k, pre.k), (cache.v, pre.v)):
             for buf, p in zip(bufs, new):
                 idx = src[:, :, None].expand(-1, -1, p.shape[2])
-                buf[slots] = torch.gather(p, 1, idx)
+                buf[slots] = torch.gather(p[mine], 1, idx)
         cache.length[slots] = plens
 
     def _bar(self, packed: np.ndarray):
@@ -302,9 +347,9 @@ class TunesServer(EngineHostBase):
         if not any(s is not None for s in self._slots):
             return self._drain_finished()
         t0 = _time.perf_counter()
+        adm = self._pack_admitted(admitted)
         if admitted:
             self.stats["admit_waves"] += 1
-            self._admit(admitted)
         t1 = _time.perf_counter()
 
         # one [B, 2S+7] int32 upload: [0:S] init tokens (bos + carried),
@@ -334,9 +379,11 @@ class TunesServer(EngineHostBase):
             packed[b, 2 * S + 5] = np.float32(st.req.top_p).view(np.int32)
             packed[b, 2 * S + 6] = np.float32(
                 st.req.temperature).view(np.int32)
-        tokens, lens = self._bar(packed)
+        if self.link is not None:  # the step's packet to every rank
+            self.link.send(STEP, [adm, packed])
+        out = self._device_step(adm, packed)
         t2 = _time.perf_counter()
-        out = torch.cat([tokens, lens[:, None]], dim=1).cpu().numpy()
+        out = out.cpu().numpy()
         t3 = _time.perf_counter()
         tokens, lens = out[:, :S], out[:, S]
         init_lens = packed[:, 2 * S + 1]
@@ -379,3 +426,36 @@ class TunesServer(EngineHostBase):
         self.stats["fetch_s"] += t3 - t2
         self.stats["demux_s"] += _time.perf_counter() - t3
         return self._drain_finished()
+
+    def _device_step(self, adm: np.ndarray, packed: np.ndarray):
+        """Admit the wave ``adm``, run the bar of ``packed`` (every slot's
+        row; on a mesh this rank's rows of it); returns [n_slots, S + 1]
+        (the bar's tokens, then its length) on the device (on a mesh,
+        gathered over the data axis)."""
+        if adm.shape[0]:
+            self._admit(adm)
+        if self.link is not None:
+            packed = packed[self.link.base:self.link.base + self.link.rows]
+        tokens, lens = self._bar(packed)
+        out = torch.cat([tokens, lens[:, None]], dim=1)
+        return out if self.link is None else self.link.gather(out, dim=0)
+
+    @torch.inference_mode()
+    def follow(self) -> None:
+        """The loop of a rank other than 0 on a mesh: apply each step's
+        packet (admission, then the bar of this rank's rows), send the
+        chars; returns at the stop packet (:meth:`shutdown`)."""
+        if self.link is None or self.link.controller:
+            raise RuntimeError("follow() is the loop of a rank other than 0 "
+                               "of a mesh")
+        while True:
+            op, arrays, _ = self.link.recv()
+            if op == STOP:
+                return
+            self._device_step(*arrays)
+
+    def shutdown(self) -> None:
+        """On a mesh, rank 0 sends the stop packet: every :meth:`follow`
+        returns. Without a mesh, nothing."""
+        if self.link is not None and self.link.controller:
+            self.link.send(STOP)

@@ -34,6 +34,7 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ai_music_generation_tpu_torch.codec import midi_io
 from ai_music_generation_tpu_torch.utils.device import resolve_device
@@ -282,11 +283,16 @@ def synthesize_midi_batch(
     Returns a list of trimmed float32 waveforms (numpy), order-matched to
     ``midis``. The trim index is found on the device, and one copy brings
     the batch's samples up to its longest trimmed wave to the host.
+
+    ``mesh``: a (data, model) ``DeviceMesh`` (``parallel/mesh.py::
+    make_mesh``; JAX :242-285). A collective call: every rank passes the
+    same ``midis``. The rows are padded to a multiple of the data-axis
+    size, each data rank renders its share, and the waves, all ``total``
+    samples long, come back to every rank in one gather; every rank
+    returns the whole list. Each note's window is added in event order
+    whatever the batch, so the waves are bit-equal to the unsharded
+    render's.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "a render sharded over a mesh is not ported yet (ROADMAP queue "
-            "1 item 6b, sharded serving and the sharded synth)")
     all_events = [midi_to_events(m, sample_rate) for m in midis]
     total = int(min(CANONICAL_SECONDS, max_seconds) * sample_rate)
     needs = [
@@ -297,10 +303,24 @@ def synthesize_midi_batch(
     n_events = max((len(ev) for ev in all_events), default=0)
     if n_events == 0:
         return [np.zeros(0, np.float32) for _ in midis]
-    batch = np.zeros((len(midis), n_events, 4), np.float32)
+    n_rows = len(midis)
+    if mesh is not None:
+        from ai_music_generation_tpu_torch.parallel.mesh import Layout
+
+        lay = Layout(mesh)
+        n_rows = -(-n_rows // lay.n_data) * lay.n_data
+    batch = np.zeros((n_rows, n_events, 4), np.float32)
     for i, ev in enumerate(all_events):
         batch[i, : len(ev)] = ev
-    waves = render_events_batch(batch, total, sample_rate, voice, device)
+    if mesh is None:
+        waves = render_events_batch(batch, total, sample_rate, voice, device)
+    else:
+        mine = batch.reshape(lay.n_data, -1, n_events, 4)[lay.data_rank]
+        local = render_events_batch(mine, total, sample_rate, voice, device)
+        waves = local.new_empty((n_rows, total))
+        dist.all_gather_into_tensor(waves, local.contiguous(),
+                                    group=lay.data_group)
+        waves = waves[:len(midis)]
     if trim:
         above = waves.abs() > 1e-3
         idx = torch.where(above, torch.arange(total, device=waves.device),

@@ -7,8 +7,10 @@ TunesFormer inference and serving (the model, the bar generator, the
 server and its HTTP front end, the CLIs), TunesFormer training (the
 train step, curation, cli/tunesformer_train.py, the MFU probe), ABC ->
 WAV (the synth, the eval pipeline and its CLI), the Audiobox scorer
-(the WavLM encoder, the predictor, cli/audio_aes.py) and the
-Mixture-of-Experts GPT (the model, training, decode, serving, sampling).
+(the WavLM encoder, the predictor, cli/audio_aes.py), the
+Mixture-of-Experts GPT (the model, training, decode, serving, sampling)
+and the parallel paths at world size 1 (the sharded trainer, the sharded
+servers and render, the pipeline and sequence steps).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -284,12 +286,28 @@ printing a result):
     next loss; then the 4-expert MoE protocol of phase 37 with expert
     parallelism over the model axis, against the plain MoE trainer. ms/iter
     of both trainers (CUDA events, the median after 5 warm-up
-    iterations); no kernel of the port runs.
+    iterations); no kernel of the port runs;
+42. the rest of the parallel paths in a group of one over NCCL (as phase
+    41): ``GenerationServer`` over ``make_mesh(1, 1)`` (serve/mesh.py's
+    control plane, the model's mesh parts, the token gather) at phase 19's
+    configuration under its cold and hot passes, every request's tokens
+    equal to the unsharded server's on the same weights, K1 launched on
+    that path (``by_path["serve_mesh"]`` of K1's entry), tok/s of both
+    over two more hot passes each, in turns (plain, sharded, sharded,
+    plain); ``TunesServer`` over it (the reference model at phase 27's
+    1,024 slots, its cold pass, then two passes of 1,024 more in turns),
+    texts equal to the unsharded server's; the render of
+    phase 32's tunes over it bit-equal to the unsharded render; the
+    pipeline (one stage, 4 microbatches) and sequence (one chunk, the ring
+    attention) train steps on the music config (dropout 0, batch 16 x 256,
+    optax_adamw at 1e-3) against the plain step on the same batches, each
+    of 6 losses within MESH_LOSS_FRAC of its value, ms/step printed. The
+    render and the steps launch none of K1-K7.
 
 The last two lines are a JSON summary of each kernel and
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` counts its
 launches in its path's main-path run (phases 5, 8, 12, 15, 19, 20, 22,
-26, 27, 28, 30, 37-41;
+26, 27, 28, 30, 37-42;
 every count is set to 0 just before each of them and read just after); a
 kernel with no caller on any path (K3, K5, K6) shows its count summed over
 those runs up to phase 30 (phases 37-40 are asserted to launch K1 alone),
@@ -310,6 +328,8 @@ attention alone, which writes no column. ``gqa_decode_update/moe`` is K1 on
 the MoE paths (phases 38-40): timed at the trained model's decode step,
 its launches those of the lockstep paths, ``ring_launches`` the serving
 path's, ``by_path`` each path's and ``shapes`` the shapes they ran at.
+K1's own entry's ``by_path["serve_mesh"]`` is its launches on phase 42's
+sharded server.
 ``bound_ms`` is the least time the card could take for the timed call: its
 bytes (each input read once, each output written once) over 3.35 TB/s or
 its operations over 989 TFLOP/s (1979 TOP/s for int8 x int8 products; the
@@ -5176,7 +5196,6 @@ def phase_mesh_train(device="cuda", iters=MESH_ITERS) -> dict:
 
     from ai_music_generation_tpu_torch.experiments import moe_probe
     from ai_music_generation_tpu_torch.parallel import distributed
-    from ai_music_generation_tpu_torch.parallel.worker_smoke import free_port
     from ai_music_generation_tpu_torch.train import checkpoint as ckpt_lib
     from ai_music_generation_tpu_torch.train.trainer import Trainer
 
@@ -5200,10 +5219,7 @@ def phase_mesh_train(device="cuda", iters=MESH_ITERS) -> dict:
             dense, out_dir=os.path.join(root, "plain"))), iters + 1)
         plain_moe = _iterations(Trainer(moe("plain-moe")), MESH_MOE_ITERS)
         torch.cuda.empty_cache()
-        info = distributed.initialize_distributed(
-            device, rank=0, world_size=1, master_addr="localhost",
-            master_port=free_port())
-        try:
+        with distributed.group_of_one(device) as info:
             backend = dist.get_backend()
             out = os.path.join(root, "fsdp")
             trainer = Trainer(dict(dense, out_dir=out, fsdp=True))
@@ -5234,8 +5250,6 @@ def phase_mesh_train(device="cuda", iters=MESH_ITERS) -> dict:
                 raise AssertionError("the MoE layers have no mesh layout")
             mesh_moe = _iterations(sharded_moe, MESH_MOE_ITERS)
             del sharded_moe
-        finally:
-            distributed.shutdown()
         torch.cuda.empty_cache()
     errs = {
         "dense": _close_losses(fsdp[0], plain[0][:iters], "FSDP + TP plan"),
@@ -5260,6 +5274,268 @@ def phase_mesh_train(device="cuda", iters=MESH_ITERS) -> dict:
           f"plain {res['plain_ms']:.3f} vs sharded {res['mesh_ms']:.3f} "
           f"(MoE {res['plain_moe_ms']:.3f} vs {res['mesh_moe_ms']:.3f})")
     return res
+
+
+# phase 42: the rest of the parallel paths at world size 1, in a group of
+# one over NCCL joined in this process (as phase 41): the sharded
+# GenerationServer at phase 19's serving configuration and load, the
+# sharded TunesServer (the reference model at phase 27's 1,024 slots over
+# the requests of its cold pass: cli/serve_bench.py's tunes protocol, 1,024
+# requests at 32 patches, seeds 10,000 + i), the sharded render of phase 32's tunes, and the pipeline and
+# sequence train steps on the music config (phase 41's widths, dropout 0)
+# for MESH_STEPS steps of a MESH_STEP_B x block_size batch against the
+# plain step (optax_adamw at MESH_LR, no clip), each loss within
+# MESH_LOSS_FRAC of its value
+MESH_STEPS, MESH_STEP_B, MESH_MICRO, MESH_LR = 6, 16, 4, 1e-3
+
+
+def _served(srv, n, seed):
+    """(tokens by request id, generated tokens, wall s) of one pass of
+    cli/serve_bench.py's load."""
+    from ai_music_generation_tpu_torch.cli import serve_bench
+
+    finished, wall = serve_bench.run_pass(srv, n, SERVE_MAX_NEW, seed)
+    return ({r.id: r.generated for r in finished},
+            sum(len(r.generated) for r in finished), wall)
+
+
+# the timed passes of phase 42's servers, each engine's cold pass first:
+# (engine, load seed), the plain and the sharded engine in turns
+MESH_TURNS = (("plain", 0), ("mesh", 0), ("mesh", 1), ("plain", 1))
+
+
+@torch.inference_mode()
+def phase_mesh_serve(device="cuda", n_slots=SERVE_SLOTS,
+                     requests=SERVE_REQUESTS) -> dict:
+    """Phase 42's GenerationServer: the unsharded engine and the engine
+    over ``make_mesh(1, 1)`` (the control plane of serve/mesh.py, the
+    model's mesh parts, the token gather) over the same weights, each
+    through phase 19's cold pass, then two hot passes each in turns
+    (MESH_TURNS): every request's tokens equal. K1's launches on the
+    sharded engine's passes (its count set to 0 just before each, read just
+    after) must be > 0. Returns the mean tok/s of each engine's hot passes
+    and those launches."""
+    import statistics
+
+    from ai_music_generation_tpu_torch.ops.gqa_decode import gqa_decode_update
+    from ai_music_generation_tpu_torch.parallel.mesh import make_mesh
+    from ai_music_generation_tpu_torch.serve.engine import GenerationServer
+
+    kw = dict(n_slots=n_slots, ticks_per_call=SERVE_TICKS,
+              admit_group=SERVE_GROUP, cache_len=SERVE_CACHE)
+    kind = torch.device(device).type
+    srv = {name: GenerationServer(_bench_model(device)[1], **kw, mesh=mesh)
+           for name, mesh in (("plain", None),
+                              ("mesh", make_mesh(1, 1, kind)))}
+    tokens = {name: [] for name in srv}
+    tok_s = {name: [] for name in srv}
+    launches = 0
+    turns = [(name, None) for name in srv] + list(MESH_TURNS)
+    for name, turn in turns:
+        gqa_decode_update.launches = 0
+        if turn is None:  # the cold pass
+            out = _served(srv[name], n_slots, 1338)
+        else:
+            out = _served(srv[name], requests, 1337 + 2 * turn)
+            tok_s[name].append(out[1] / out[2])
+        if name == "mesh":
+            launches += gqa_decode_update.launches
+        tokens[name].append(out[0])
+    srv["mesh"].shutdown()
+    del srv
+    _empty_cache(device)
+    if tokens["mesh"] != tokens["plain"]:
+        raise AssertionError("the sharded server's tokens differ from the "
+                             "unsharded server's")
+    if kind == "cuda" and not launches:
+        raise AssertionError("the sharded server launched no K1")
+    res = dict(plain_tok_s=statistics.mean(tok_s["plain"]),
+               mesh_tok_s=statistics.mean(tok_s["mesh"]), launches=launches,
+               passes=tok_s)
+    print(f"sharded serving (mesh 1x1): {n_slots} slots, a cold pass of "
+          f"{n_slots} and two hot passes of {requests} requests each, in "
+          f"turns, every request's tokens equal to the unsharded server's; "
+          f"hot passes {res['mesh_tok_s']:.1f} tok/s vs unsharded "
+          f"{res['plain_tok_s']:.1f} (each: {tok_s}); K1 launches on the "
+          f"sharded passes {launches}")
+    return res
+
+
+@torch.inference_mode()
+def phase_mesh_tunes(device="cuda", n_slots=TUNES_SLOTS,
+                     max_patch=TUNES_MAX_PATCH) -> dict:
+    """Phase 42's TunesServer: the unsharded server and the server over
+    ``make_mesh(1, 1)``, each over the reference model's init weights,
+    through phase 27's cold pass (``n_slots`` requests of
+    cli/serve_bench.py's tunes protocol, seeds 10,000 + i), then in turns
+    (MESH_TURNS) through two passes of ``n_slots`` more (seeds 20,000 + i,
+    then 30,000 + i): every text equal. Returns the mean tunes/min of each
+    server's timed passes."""
+    import statistics
+
+    from ai_music_generation_tpu_torch.cli import serve_bench
+    from ai_music_generation_tpu_torch.parallel.mesh import make_mesh
+    from ai_music_generation_tpu_torch.serve.tunes_engine import TunesServer
+
+    kind = torch.device(device).type
+    srv = {name: TunesServer(_tunes_model(device)[1], n_slots=n_slots,
+                             mesh=mesh)
+           for name, mesh in (("plain", None),
+                              ("mesh", make_mesh(1, 1, kind)))}
+    texts = {name: [] for name in srv}
+    rates = {name: [] for name in srv}
+    turns = [(name, None) for name in srv] + list(MESH_TURNS)
+    for name, turn in turns:
+        seed0 = 10_000 if turn is None else 20_000 + 10_000 * turn
+        finished, wall = serve_bench.run_tunes_pass(srv[name], n_slots,
+                                                    max_patch, seed0)
+        texts[name].append({r.id: r.text for r in finished})
+        if turn is not None:
+            rates[name].append(n_slots / wall * 60)
+    srv["mesh"].shutdown()
+    del srv
+    _empty_cache(device)
+    if texts["mesh"] != texts["plain"] or any(
+            len(t) != n_slots for t in texts["plain"]):
+        raise AssertionError("the sharded TunesServer's texts differ from "
+                             "the unsharded server's")
+    res = dict(plain=statistics.mean(rates["plain"]),
+               mesh=statistics.mean(rates["mesh"]), passes=rates)
+    print(f"sharded TunesServer (mesh 1x1): {n_slots} slots, phase 27's "
+          f"cold pass and two passes of {n_slots} requests in turns at "
+          f"{max_patch} patches, every text equal to the unsharded server's;"
+          f" {res['mesh']:.1f} tunes/min vs unsharded {res['plain']:.1f} "
+          f"(each: {rates})")
+    return res
+
+
+def phase_mesh_synth(device="cuda", n_tunes=SYNTH_BATCH) -> dict:
+    """Phase 42's render: ``synthesize_midi_batch`` of phase 32's tunes
+    over ``make_mesh(1, 1)`` bit-equal to the unsharded render."""
+    import numpy as np
+
+    from ai_music_generation_tpu_torch.parallel.mesh import make_mesh
+    from ai_music_generation_tpu_torch.synth.render import (
+        synthesize_midi_batch,
+    )
+
+    midis = _synth_corpus(n_tunes)
+    want = synthesize_midi_batch(midis, device=device)
+    got = synthesize_midi_batch(
+        midis, mesh=make_mesh(1, 1, torch.device(device).type), device=device)
+    if len(got) != len(want) or not all(
+            np.array_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("the sharded render differs from the unsharded "
+                             "render")
+    print(f"sharded render (mesh 1x1): {n_tunes} tunes bit-equal to the "
+          f"unsharded render")
+    return dict(tunes=n_tunes, samples=sum(len(w) for w in want))
+
+
+def _timed_steps(step, batches, device) -> tuple[list, list]:
+    """(losses, ms) of ``step(x, y)`` over the batches: CUDA events on the
+    card (one sync at the end), the host clock on the CPU."""
+    cuda = torch.device(device).type == "cuda"
+    losses, marks = [], []
+    for x, y in batches:
+        start = (torch.cuda.Event(enable_timing=True) if cuda
+                 else time.perf_counter())
+        if cuda:
+            start.record()
+        loss = step(x, y)
+        if cuda:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+        else:
+            float(loss)
+            end = time.perf_counter()
+        losses.append(loss)
+        marks.append((start, end))
+    if cuda:
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in marks]
+    else:
+        ms = [(b - a) * 1e3 for a, b in marks]
+    return [float(v) for v in losses], ms
+
+
+def phase_mesh_steps(device="cuda", steps=MESH_STEPS, B=MESH_STEP_B) -> dict:
+    """Phase 42's train steps: the music config at full width (dropout 0)
+    from one init, the plain step (train/step.py, optax_adamw, no clip)
+    against ``make_pipeline_train_step`` over ``make_pipe_mesh(1, 1)`` (one
+    stage of every block, MESH_MICRO microbatches) and
+    ``make_seq_train_step`` over ``make_seq_mesh(1, 1)`` (the ring
+    attention over one chunk), on the same batches: each loss within
+    MESH_LOSS_FRAC of the plain step's. Returns ms/step of the three."""
+    import statistics
+
+    from ai_music_generation_tpu_torch.models.convert import init_weights
+    from ai_music_generation_tpu_torch.models.gpt import GPT, GPTConfig
+    from ai_music_generation_tpu_torch.parallel.pipeline import (
+        PipelineGPT, make_pipe_mesh, make_pipeline_train_step,
+    )
+    from ai_music_generation_tpu_torch.parallel.sequence import (
+        make_seq_mesh, make_seq_train_step,
+    )
+    from ai_music_generation_tpu_torch.train.optimizer import optax_adamw
+    from ai_music_generation_tpu_torch.train.step import make_train_step
+
+    kind = torch.device(device).type
+    with tempfile.TemporaryDirectory() as root:
+        _, arch = _music_arch(_cli_workspace(root, n_val=8)[0])
+    cfg = GPTConfig(**dict(arch, dropout=0.0))
+    base = init_weights(GPT(cfg, device=device),
+                        torch.Generator(device).manual_seed(0))
+    state = {k: v.clone() for k, v in base.state_dict().items()}
+    del base
+    g = torch.Generator(device).manual_seed(1)
+    x = torch.randint(0, cfg.vocab_size, (steps, B, cfg.block_size),
+                      generator=g, device=device)
+    batches = list(zip(x, x.roll(-1, dims=-1)))
+
+    def lr(_):
+        return MESH_LR
+
+    def plain_model():
+        model = GPT(cfg, device=device)
+        model.load_state_dict(state)
+        return model
+
+    model = plain_model()
+    step = make_train_step(model, optax_adamw(model.parameters()), lr, None)
+    plain = _timed_steps(lambda a, b: step(a[None], b[None], 0)["loss"],
+                         batches, device)
+    mesh = make_pipe_mesh(1, 1, kind)
+    stage = PipelineGPT(cfg, mesh, device=device)
+    stage.load_plain(state)
+    step = make_pipeline_train_step(stage, optax_adamw(stage.parameters()),
+                                    mesh, MESH_MICRO, lr)
+    pipe = _timed_steps(lambda a, b: step(a, b)["loss"], batches, device)
+    model = plain_model()
+    step = make_seq_train_step(model, optax_adamw(model.parameters()),
+                               make_seq_mesh(1, 1, kind), lr)
+    seq = _timed_steps(lambda a, b: step(a, b)["loss"], batches, device)
+    del model, stage, step
+    _empty_cache(device)
+    errs = {"pipeline": _close_losses(pipe[0], plain[0], "pipeline step"),
+            "sequence": _close_losses(seq[0], plain[0], "sequence step")}
+
+    def median(ms):
+        return statistics.median(ms[1:])
+
+    res = dict(errs=errs, plain_ms=median(plain[1]), pipe_ms=median(pipe[1]),
+               seq_ms=median(seq[1]), losses=plain[0])
+    print(f"pipeline and sequence steps (meshes 1x1): music config, {steps} "
+          f"steps of {B} x {cfg.block_size}, losses within {errs} of the "
+          f"plain step's; ms/step plain {res['plain_ms']:.3f}, pipeline "
+          f"({MESH_MICRO} microbatches) {res['pipe_ms']:.3f}, sequence "
+          f"{res['seq_ms']:.3f}")
+    return res
+
+
+def _empty_cache(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def _counted_ops() -> dict:
@@ -5726,6 +6002,37 @@ def main(argv=None) -> int:
           f"{mesh['plain_ms']:.3f} vs sharded {mesh['mesh_ms']:.3f} (MoE "
           f"{mesh['plain_moe_ms']:.3f} vs {mesh['mesh_moe_ms']:.3f}); loss "
           f"errors {mesh['errs']}")
+    # the sharded servers, render and the pipeline and sequence steps
+    # (phase 42), in a group of one over NCCL: the serving path launches
+    # K1 alone, the render and the steps none of K1-K7
+    from ai_music_generation_tpu_torch.parallel.distributed import (
+        group_of_one,
+    )
+
+    with group_of_one("cuda"):
+        srv_mesh, counts = _main_path(phase_mesh_serve)
+        if any(n for k, n in counts.items() if k != "gqa_decode_update"):
+            raise AssertionError(f"the sharded serving path launched another "
+                                 f"kernel than K1: {counts}")
+        tunes_mesh, counts = _main_path(phase_mesh_tunes)
+        if any(n for k, n in counts.items() if k != "gqa_decode_update"):
+            raise AssertionError(f"the sharded tunes path launched another "
+                                 f"kernel than K1: {counts}")
+        _, synth_counts = _main_path(phase_mesh_synth)
+        steps, counts = _main_path(phase_mesh_steps)
+        if any(synth_counts.values()) or any(counts.values()):
+            raise AssertionError(f"the sharded render or the pipeline and "
+                                 f"sequence steps launched kernels of the "
+                                 f"port: {synth_counts}, {counts}")
+    kernels[0]["by_path"] = {"serve_mesh": srv_mesh["launches"]}
+    print(f"[{card}] sharded serving (world size 1): "
+          f"{srv_mesh['mesh_tok_s']:.1f} tok/s vs unsharded "
+          f"{srv_mesh['plain_tok_s']:.1f}, K1 launches "
+          f"{srv_mesh['launches']}; TunesServer {tunes_mesh['mesh']:.1f} "
+          f"tunes/min vs {tunes_mesh['plain']:.1f}; render bit-equal; "
+          f"pipeline and sequence steps: launches of K1-K7 {counts}, loss "
+          f"errors {steps['errs']}, ms/step plain {steps['plain_ms']:.3f}, "
+          f"pipeline {steps['pipe_ms']:.3f}, sequence {steps['seq_ms']:.3f}")
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

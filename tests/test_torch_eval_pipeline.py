@@ -280,12 +280,13 @@ def test_midi_and_wav_cli_writes_jax_tree_without_aesthetics(tmp_path):
 
 def test_no_card_no_mesh(tmp_path, monkeypatch):
     """Asked for the card without one, the pipeline raises before any
-    stage; ``shard_synth`` raises naming item 6."""
+    stage; ``shard_synth`` in a plain process renders on the one device
+    (no mesh), as JAX's ``make_mesh()`` over one device (the sharded render
+    over processes: tests/test_torch_serve_mesh.py)."""
     abc = _abc_dir(str(tmp_path / "abc"), SHORT_TUNES[:1])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        pipeline.EvalPipeline(pipeline.PipelineConfig(
-            abc_input_folder=abc, base_output_dir=str(tmp_path / "o"),
-            shard_synth=True, device="cpu"))
+    assert pipeline.EvalPipeline(pipeline.PipelineConfig(
+        abc_input_folder=abc, base_output_dir=str(tmp_path / "o"),
+        shard_synth=True, device="cpu")).mesh is None
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         abc_cli.main([abc, str(tmp_path / "out")])

@@ -203,9 +203,16 @@ def test_init_weights_follows_jax_scheme():
 
 
 def test_refuses_unported_features():
+    """``seq_axis`` is ported (tests/test_torch_sequence.py); as in JAX it
+    is the training path only: a cache raises, and the loss forward needs
+    the seq layout of parallel/sequence.py."""
     cfg = _configs("kh2")[1]
-    with pytest.raises(NotImplementedError):
-        GPT(dataclasses.replace(cfg, seq_axis="seq"), device="cpu")
+    seq = GPT(dataclasses.replace(cfg, seq_axis="seq"), device="cpu")
+    idx = torch.zeros((2, 8), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="training-path knob"):
+        seq(idx, cache=KVCache.create(seq.config, 2, device="cpu"))
+    with pytest.raises(ValueError, match="layout with a seq axis"):
+        seq(idx, idx)
     # MoE is ported: its blocks hold the routed experts, not the MLP
     model = GPT(dataclasses.replace(cfg, n_expert=4), device="cpu")
     assert all(hasattr(b, "moe") and not hasattr(b, "mlp")

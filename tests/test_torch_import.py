@@ -75,15 +75,19 @@ MODULES = [
     "ai_music_generation_tpu_torch.ops.decode_attention_int8",
     "ai_music_generation_tpu_torch.ops.gqa_decode",
     "ai_music_generation_tpu_torch.ops.lean_attention",
+    "ai_music_generation_tpu_torch.ops.ring_attention",
     "ai_music_generation_tpu_torch.ops.spec_attention",
     "ai_music_generation_tpu_torch.parallel",
     "ai_music_generation_tpu_torch.parallel.collectives",
     "ai_music_generation_tpu_torch.parallel.distributed",
     "ai_music_generation_tpu_torch.parallel.mesh",
+    "ai_music_generation_tpu_torch.parallel.pipeline",
+    "ai_music_generation_tpu_torch.parallel.sequence",
     "ai_music_generation_tpu_torch.parallel.sharding",
     "ai_music_generation_tpu_torch.parallel.worker_smoke",
     "ai_music_generation_tpu_torch.serve.engine",
     "ai_music_generation_tpu_torch.serve.http",
+    "ai_music_generation_tpu_torch.serve.mesh",
     "ai_music_generation_tpu_torch.serve.tunes_engine",
     "ai_music_generation_tpu_torch.synth.piano_bank",
     "ai_music_generation_tpu_torch.synth.render",

@@ -279,7 +279,8 @@ def test_orbax_only_gpt2_and_no_card_raise(tmp_path, monkeypatch):
 
 def test_serve_cli_builds_a_working_server(corpus, ckpts):
     """cli/serve.py's server over a ckpt.pt and its corpus's codec answers a
-    text prompt with tokens and their text; ``--mesh`` is refused."""
+    text prompt with tokens and their text; ``--mesh`` without torchrun is
+    refused."""
     import threading
     import urllib.request
 
@@ -306,5 +307,6 @@ def test_serve_cli_builds_a_working_server(corpus, ckpts):
         runner.shutdown()
     thread.join(timeout=10)
     assert not thread.is_alive()
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # --mesh without torchrun (the mesh itself: tests/test_torch_serve_mesh)
+    with pytest.raises(RuntimeError, match="torchrun"):
         serve_cli.build_server(dict(c, mesh="2x1", prewarm=False))

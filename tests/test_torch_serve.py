@@ -14,6 +14,7 @@ the port is held to JAX's keep-set (every token JAX draws is one the port
 may draw) and to its own determinism contract.
 """
 
+import copy
 import json
 import threading
 import urllib.request
@@ -43,6 +44,8 @@ from ai_music_generation_tpu_torch.serve.engine import (
     keep_filter,
     noise_bits,
 )
+from ai_music_generation_tpu_torch.parallel import distributed
+from ai_music_generation_tpu_torch.parallel.mesh import make_mesh
 from ai_music_generation_tpu_torch.serve.http import EngineRunner, serve
 
 torch.set_num_threads(1)
@@ -424,6 +427,8 @@ def test_latency_stats(tiny):
 
 
 def test_cache_len_validation_and_mesh(tiny):
+    """The ring-cache bounds; on a mesh of one process (a group of one over
+    gloo) the server serves the unsharded engine's bytes."""
     _, _, model = tiny
     with pytest.raises(ValueError):  # cache_len > block_size
         GenerationServer(model, n_slots=2, ticks_per_call=4, cache_len=128)
@@ -432,8 +437,22 @@ def test_cache_len_validation_and_mesh(tiny):
                          refresh=16)
     with pytest.raises(ValueError):  # ticks_per_call > default refresh
         GenerationServer(model, n_slots=2, ticks_per_call=16, cache_len=16)
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        GenerationServer(model, n_slots=2, mesh=object())
+    kw = dict(n_slots=2, ticks_per_call=4, cache_len=32)
+    reqs = [([1, 2, 3], dict(max_new_tokens=20, seed=1)),
+            ([4, 5], dict(max_new_tokens=9, seed=2, temperature=0.0))]
+
+    def serve(srv):
+        ids = [srv.submit(p, **opts) for p, opts in reqs]
+        done = {r.id: r.generated for r in srv.run_until_idle()}
+        return [done[i] for i in ids]
+
+    want = serve(GenerationServer(model, **kw))
+    with distributed.group_of_one("cpu"):
+        srv = GenerationServer(copy.deepcopy(model), **kw,
+                               mesh=make_mesh(1, 1, "cpu"))
+        assert srv.link.controller and srv.link.rows == 2
+        assert serve(srv) == want
+        srv.shutdown()
     srv = GenerationServer(model, n_slots=2, ticks_per_call=4)
     assert srv.cache_len == 64 and srv.cache.k[0].shape[1] == 64
     assert srv.cache.length.shape == (2,) and srv.cache.cursor.dim() == 0

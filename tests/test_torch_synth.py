@@ -200,8 +200,19 @@ def test_empty_midi_gives_zeros():
 
 
 def test_mesh_raises_naming_item_6():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        render.synthesize_midi_batch(_midis(1), mesh=object(), device="cpu")
+    """The render over a mesh of one process (a group of one over gloo) is
+    bit-equal to the unsharded render (the multi-rank render:
+    tests/test_torch_serve_mesh.py)."""
+    from ai_music_generation_tpu_torch.parallel import distributed
+    from ai_music_generation_tpu_torch.parallel.mesh import make_mesh
+
+    midis = _midis(2)
+    want = render.synthesize_midi_batch(midis, device="cpu")
+    with distributed.group_of_one("cpu"):
+        got = render.synthesize_midi_batch(
+            midis, mesh=make_mesh(1, 1, "cpu"), device="cpu")
+    assert len(got) == 2 and all(np.array_equal(g, w)
+                                 for g, w in zip(got, want))
 
 
 def test_cuda_without_a_card_raises(monkeypatch):

@@ -10,6 +10,7 @@ port's own contract: a request's text depends only on its own fields, not
 on its slot, the ring cursor or other traffic.
 """
 
+import copy
 import json
 import threading
 import urllib.request
@@ -43,6 +44,8 @@ from ai_music_generation_tpu_torch.models.tunesformer_export import (
     save_reference_checkpoint,
 )
 from ai_music_generation_tpu_torch.serve import tunes_engine
+from ai_music_generation_tpu_torch.parallel import distributed
+from ai_music_generation_tpu_torch.parallel.mesh import make_mesh
 from ai_music_generation_tpu_torch.serve.http import EngineRunner, serve_tunes
 from ai_music_generation_tpu_torch.serve.tunes_engine import (
     TunesServer,
@@ -238,6 +241,8 @@ def test_prewarm_leaves_the_server_empty(models):
 
 
 def test_submit_validation_and_mesh(models):
+    """Bad submissions raise; on a mesh of one process (a group of one over
+    gloo) the server writes the unsharded server's text."""
     _, _, model = models
     srv = TunesServer(model, n_slots=1)
     for bad in (dict(prompt=""), dict(prompt="K:C\n", max_patch=0),
@@ -248,8 +253,18 @@ def test_submit_validation_and_mesh(models):
             srv.submit(**bad)
     rid = srv.submit("K:C\n", seed=-1)
     assert srv._live[rid].seed == 2**32 - 1
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TunesServer(model, mesh=object())
+    want = _one_tune(TunesServer(model, n_slots=2))
+    with distributed.group_of_one("cpu"):
+        srv = TunesServer(copy.deepcopy(model), n_slots=2,
+                          mesh=make_mesh(1, 1, "cpu"))
+        assert srv.link.controller and srv.link.rows == 2
+        assert _one_tune(srv) == want
+        srv.shutdown()
+
+
+def _one_tune(srv):
+    rid = srv.submit(ABC, max_patch=5, seed=3, top_p=0.7)
+    return {r.id: r.text for r in srv.run_until_idle()}[rid]
 
 
 def _post(url, payload):
