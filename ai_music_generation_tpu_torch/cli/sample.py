@@ -25,12 +25,17 @@ reference's nanoGPT sampler):
   ``model_args``) onto the CUDA card. ``--device=cpu`` runs on
   the CPU (the tests do); without a card and without that override the run
   raises. An out_dir with only the JAX package's orbax checkpoint raises
-  with the conversion command, and ``init_from=gpt2*`` raises: that needs
-  HF weights (ROADMAP queue 1 item 7).
+  with the conversion command;
+- ``--init_from=gpt2*`` samples a HF GPT-2 instead (``models/hf_import.py``:
+  a local directory such as ``gpt2-small/`` with ``config.json`` and
+  ``model.safetensors`` or ``pytorch_model.bin``, else a HF hub name from
+  the local cache), encoding and decoding with tiktoken's ``gpt2``
+  encoding, as the JAX CLI does.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -77,15 +82,24 @@ IRISHMAN_BAR_REGEX = re.compile(r"(:\||::|\s\||\|\])")
 def load_model(out_dir: str, dtype: str = "bfloat16",
                init_from: str = "resume", kv_quantized: bool = False,
                flat_kv: bool = False, device: str = "cuda"):
-    """(GPT on ``device``, checkpoint meta) from ``<out_dir>/ckpt.pt``.
-    ``dtype`` other than "bfloat16" computes in fp32, as the JAX CLI."""
+    """(GPT on ``device``, checkpoint meta) from ``<out_dir>/ckpt.pt``, or
+    from a HF GPT-2 when ``init_from`` starts with "gpt2" (ref
+    sample.py:55-71). ``dtype`` other than "bfloat16" computes in fp32, as
+    the JAX CLI."""
     from ai_music_generation_tpu_torch.models.nanogpt_ckpt import load_ckpt
 
+    tdtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
     if init_from.startswith("gpt2"):
-        raise NotImplementedError(
-            f"init_from={init_from!r} needs the HF GPT-2 weights, which the "
-            "port does not import yet (ROADMAP queue 1 item 7, the rest that "
-            "imports jax)")
+        from ai_music_generation_tpu_torch.models.gpt import GPT
+        from ai_music_generation_tpu_torch.models.hf_import import (
+            from_pretrained,
+        )
+
+        config, state = from_pretrained(init_from)
+        config = dataclasses.replace(config, dtype=tdtype, flat_kv=flat_kv)
+        model = GPT(config, device=resolve_device(device))
+        model.load_state_dict(state)
+        return model.eval(), {"model_args": {}, "config": {}}
     torch_ckpt = os.path.join(out_dir, "ckpt.pt")
     if not os.path.exists(torch_ckpt):
         if os.path.exists(os.path.join(out_dir, "ckpt", "meta.json")):
@@ -95,7 +109,6 @@ def load_model(out_dir: str, dtype: str = "bfloat16",
                 "ai_music_generation_tpu.cli.convert_ckpt gpt to-torch "
                 f"--out_dir {out_dir} --out {torch_ckpt}`")
         raise FileNotFoundError(f"no checkpoint at {torch_ckpt}")
-    tdtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
     return load_ckpt(torch_ckpt, device=resolve_device(device), dtype=tdtype,
                      kv_quantized=kv_quantized, flat_kv=flat_kv)
 
@@ -187,7 +200,16 @@ def run_sampling(c: dict, write: bool = True) -> list[tuple[object, str]]:
         c["out_dir"], c["dtype"], c["init_from"],
         c.get("kv_quantized", False), c.get("flat_kv", False),
         c.get("device", "cuda"))
-    encode, decode = build_codec(ckpt_meta, c["data_root"], c["tokens_format"])
+    if c["init_from"].startswith("gpt2"):
+        # GPT-2 BPE fallback (ref: sample.py:96-100)
+        import tiktoken
+
+        enc = tiktoken.get_encoding("gpt2")
+        encode = lambda s: enc.encode(s, allowed_special={"<|endoftext|>"})  # noqa: E731
+        decode = lambda l: enc.decode(list(map(int, l)))  # noqa: E731,E741
+    else:
+        encode, decode = build_codec(ckpt_meta, c["data_root"],
+                                     c["tokens_format"])
     prompts = list(prompt_iter(c))
     top_p = None if c["top_p"] >= 1.0 else c["top_p"]
     if c.get("speculative"):

@@ -1,0 +1,6 @@
+# experiment config: eval_gpt2_large (value parity with ref nanoGPT/config/eval_gpt2_large.py)
+batch_size = 8
+eval_iters = 500
+eval_only = True
+wandb_log = False
+init_from = 'gpt2-large'

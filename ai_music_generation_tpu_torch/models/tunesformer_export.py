@@ -37,7 +37,7 @@ from ai_music_generation_tpu_torch.models.tunesformer_import import (
 PATCH_EMBEDDING = "patch_level_decoder.patch_embedding."
 
 
-def _reference_layout(named: dict[str, torch.Tensor], config
+def reference_layout(named: dict[str, torch.Tensor], config
                       ) -> dict[str, torch.Tensor]:
     """Port-named tensors (the parameters, or one of their moments) under
     their reference keys in the reference's order, transposed where the
@@ -69,7 +69,7 @@ def tunesformer_state_from_port(model: TunesFormer
                                 ) -> dict[str, torch.Tensor]:
     """The reference TunesFormer state dict (fp32 CPU tensors; tied and
     aliased keys share one tensor) of ``model``'s parameters."""
-    return _reference_layout(
+    return reference_layout(
         {k: v.detach().to("cpu", torch.float32).clone()
          for k, v in model.named_parameters()}, model.config)
 
@@ -108,7 +108,7 @@ def save_reference_checkpoint(path: str, model: TunesFormer, epoch: int = 0,
                                 weight_decay=group["weight_decay"])
         named = dict(model.named_parameters())
         moments = {
-            m: _reference_layout({n: optimizer.state[p][m].detach().to(
+            m: reference_layout({n: optimizer.state[p][m].detach().to(
                 "cpu", torch.float32) for n, p in named.items()}, cfg)
             for m in ("exp_avg", "exp_avg_sq")}
         steps = {reference_key(n, cfg.share_weights)[0]:

@@ -9,7 +9,9 @@ trainer.py`` (and, through it, of nanoGPT's train.py):
   ``seed`` on the run's device), ``resume`` (``last_iter_ckpt.pt``, the
   architecture forced from its ``model_args``), ``<path>.pt`` (fine-tune
   from a nanoGPT checkpoint's weights and architecture; optimizer and
-  iteration start fresh);
+  iteration start fresh), ``gpt2*`` (a HF GPT-2, ``models/hf_import.py``:
+  a local directory or a hub name; its architecture, block_size
+  ``n_positions`` uncropped, optimizer and iteration fresh);
 - the cosine LR with warmup, AdamW decay groups and the optax clip
   (``train/optimizer.py``), accumulation over micro-steps
   (``train/step.py``);
@@ -33,8 +35,7 @@ checkpoint.py``), and the MFU counts the mesh's tokens over its cards.
 ``dtype`` is the compute type. MoE (``n_expert > 0``, ``models/moe.py``)
 trains as in JAX: the loss the step reports includes the aux term,
 ``model_args`` carries ``MOE_KEYS`` and a resume restores the MoE
-architecture from them. ``init_from=gpt2*`` raises until ROADMAP queue 1
-item 7 imports the HF weights.
+architecture from them.
 """
 
 from __future__ import annotations
@@ -86,7 +87,7 @@ DEFAULTS: dict[str, Any] = dict(
     eval_iters=200,
     eval_only=False,
     always_save_checkpoint=True,
-    init_from="scratch",  # 'scratch' | 'resume' | '<path>.pt'
+    init_from="scratch",  # 'scratch' | 'resume' | '<path>.pt' | 'gpt2*'
     wandb_log=False,
     wandb_project="owt",
     wandb_run_name="gpt2",
@@ -200,7 +201,7 @@ class Trainer:
         c = self.c
         model_args = self._model_args()
         out_dir = c["out_dir"]
-        ckpt = None
+        ckpt = state = None
         if c["init_from"] == "resume":
             if not ckpt_lib.checkpoint_exists(out_dir, ckpt_lib.LAST):
                 hint = ""
@@ -221,9 +222,17 @@ class Trainer:
             ckpt = ckpt_lib.load_checkpoint(out_dir, ckpt_lib.LAST)
             self._arch_from(model_args, ckpt["model_args"])
         elif c["init_from"].startswith("gpt2"):
-            raise NotImplementedError(
-                f"init_from={c['init_from']!r} needs the HF GPT-2 weights, "
-                "which the port does not import yet (ROADMAP queue 1 item 7)")
+            # HF GPT-2 weight import (ref: train.py:196-203)
+            from ai_music_generation_tpu_torch.models.hf_import import (
+                from_pretrained,
+            )
+
+            hf_config, state = from_pretrained(c["init_from"], c["dropout"])
+            model_args.update(
+                n_layer=hf_config.n_layer, n_head=hf_config.n_head,
+                n_embd=hf_config.n_embd, block_size=hf_config.block_size,
+                bias=hf_config.bias, vocab_size=hf_config.vocab_size,
+            )
         elif c["init_from"].endswith(".pt"):
             ckpt = read_ckpt(c["init_from"])
             self._arch_from(model_args, ckpt["model_args"])
@@ -238,11 +247,13 @@ class Trainer:
         self.gpt_config = GPTConfig(dropout=c["dropout"], dtype=dtype,
                                     **model_args)
         self.model = GPT(self.gpt_config, device=self.device)
-        if ckpt is None:
+        if ckpt is not None:
+            state = model_state(ckpt)
+        if state is None:
             init_weights(self.model, torch.Generator(self.device).manual_seed(
                 c["seed"]))
         else:
-            self.model.load_state_dict(model_state(ckpt))
+            self.model.load_state_dict(state)
         self.n_params = self.model.num_params()
         self.module = self.model
         if self.layout is not None:

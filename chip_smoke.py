@@ -8,9 +8,11 @@ server and its HTTP front end, the CLIs), TunesFormer training (the
 train step, curation, cli/tunesformer_train.py, the MFU probe), ABC ->
 WAV (the synth, the eval pipeline and its CLI), the Audiobox scorer
 (the WavLM encoder, the predictor, cli/audio_aes.py), the
-Mixture-of-Experts GPT (the model, training, decode, serving, sampling)
-and the parallel paths at world size 1 (the sharded trainer, the sharded
-servers and render, the pipeline and sequence steps).
+Mixture-of-Experts GPT (the model, training, decode, serving, sampling),
+the parallel paths at world size 1 (the sharded trainer, the sharded
+servers and render, the pipeline and sequence steps), GPT-2 import
+(``init_from=gpt2*``: sampling, evaluation and fine-tuning at GPT-2 124M's
+width) and the golden-replay harness.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -302,12 +304,40 @@ printing a result):
     attention) train steps on the music config (dropout 0, batch 16 x 256,
     optax_adamw at 1e-3) against the plain step on the same batches, each
     of 6 losses within MESH_LOSS_FRAC of its value, ms/step printed. The
-    render and the steps launch none of K1-K7.
+    render and the steps launch none of K1-K7;
+43. GPT-2 import: K1 at GPT-2 124M's decode step (B=256, S=1024, MHA
+    H = KH = 12, D = 64, bf16 cache, lockstep) against the twin at pos 0,
+    128, 507 and 1023 (the yardstick of phase 3), then timed beside SDPA;
+    a random-init GPT-2 124M (vocab 50257, 1024 positions) written from a
+    seed as a HF directory (``gpt2-random/``: config.json and
+    model.safetensors with the hub file's names, Conv1D layout and mask
+    buffers) and loaded through ``cli/sample.py::load_model(init_from=
+    "gpt2-random")`` on the card (bf16) and on the CPU (fp32): a prefill
+    and 16 decode steps at B=256 vs 4 CPU rows within 2^-4 of the range;
+    ``Generator`` (T 0.8, top_k 200, window 1024) at 256 prompts of 8
+    tokens, 500 new tokens, twice at one seed: tokens in range, identical
+    runs, exactly 12 x 500 = 6,000 K1 launches a generate (the prefill
+    runs none; positions 8..507 are one T=1 step each), every K1 shape of
+    the path one checked and timed here; tok/s of a third generate; then
+    ``cli/train.py configs/eval_gpt2.py --init_from=gpt2-random
+    --eval_iters=20`` and ``cli/train.py configs/finetune_shakespeare.py
+    --init_from=gpt2-random`` for 5 iterations (accum 2 x 1 x 1024, bf16)
+    on 2M random ids: every loss finite, the iter-0 loss within 2^-6 of
+    the CPU's fp32 loss on the trainer's first batch, no launch of K1-K7;
+    ``utils/sizing.print_report`` for GPT-2 124M at the card's peak;
+44. the replay harness: ``cli/replay_goldens.py --device cuda`` over
+    fixtures made from a seed (IrishMAN-style JSON, Bach-style midi-text
+    directories, the reference TunesFormer's weights.pth written by the
+    port's exporter, phase 34's seeded Audiobox checkpoint and 4 WAVs, a
+    byte-level BPE trained by ``tokenizers`` as encoder.json/vocab.bpe with
+    an input.txt) with goldens counted from their recipes: every stage
+    with inputs PASSes, audio-aes parity, abc2midi and fluidsynth SKIP
+    unless their binaries are present, exit 0; no launch of K1-K7.
 
 The last two lines are a JSON summary of each kernel and
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` counts its
 launches in its path's main-path run (phases 5, 8, 12, 15, 19, 20, 22,
-26, 27, 28, 30, 37-42;
+26, 27, 28, 30, 37-44;
 every count is set to 0 just before each of them and read just after); a
 kernel with no caller on any path (K3, K5, K6) shows its count summed over
 those runs up to phase 30 (phases 37-40 are asserted to launch K1 alone),
@@ -329,7 +359,9 @@ the MoE paths (phases 38-40): timed at the trained model's decode step,
 its launches those of the lockstep paths, ``ring_launches`` the serving
 path's, ``by_path`` each path's and ``shapes`` the shapes they ran at.
 K1's own entry's ``by_path["serve_mesh"]`` is its launches on phase 42's
-sharded server.
+sharded server, ``by_path["gpt2"]`` its launches a GPT-2 generate (phase
+43); ``gqa_decode_update/gpt2`` is K1 at that path's shape, timed in phase
+43, with those launches and the shapes the path ran at.
 ``bound_ms`` is the least time the card could take for the timed call: its
 bytes (each input read once, each output written once) over 3.35 TB/s or
 its operations over 989 TFLOP/s (1979 TOP/s for int8 x int8 products; the
@@ -2562,11 +2594,13 @@ def _tee(fn, *args) -> str:
 
 
 def _iter_lines(log):
-    """(iter, ms, mfu %) of each ``iter N: ...`` line of a trainer log."""
+    """(iter, ms, mfu %, loss) of each ``iter N: ...`` line of a trainer
+    log (a non-finite loss parsed as such)."""
     import re
 
-    return [(int(a), float(b), float(c)) for a, b, c in re.findall(
-        r"iter (\d+): loss [\d.]+, time ([\d.]+)ms, mfu (-?[\d.]+)%", log)]
+    return [(int(a), float(c), float(d), float(b)) for a, b, c, d in
+            re.findall(r"iter (\d+): loss (\S+), time ([\d.]+)ms, mfu "
+                       r"(-?[\d.]+)%", log)]
 
 
 def phase_train_cli(ws, device, iters=TRAIN_ITERS) -> dict:
@@ -2604,7 +2638,7 @@ def phase_train_cli(ws, device, iters=TRAIN_ITERS) -> dict:
         if not ckpt_lib.checkpoint_exists(out, name):
             raise AssertionError(f"the music run wrote no {name}")
     lines = _iter_lines(log)
-    steady = [ms for i, ms, _ in lines if i >= 5 and i % TRAIN_EVAL]
+    steady = [ms for i, ms, _, _ in lines if i >= 5 and i % TRAIN_EVAL]
     ms = statistics.median(steady)
     mfu = lines[-1][2]
     last = ckpt_lib.load_checkpoint(out, ckpt_lib.LAST)
@@ -2738,7 +2772,7 @@ def phase_profile_train(top=12) -> None:
 
 PROFILED = ("pallas", "bench", "spec", "serve", "train", "tunes",
             "tunes_serve", "tunes_train", "synth", "audiobox", "moe",
-            "moe_serve")
+            "moe_serve", "gpt2")
 
 
 @torch.inference_mode()
@@ -2747,7 +2781,8 @@ def phase_profile(path="pallas", B=BATCH, max_new=MAX_NEW, top=12) -> None:
     5's, spec: phase 8's, moe: phase 38's bench config with 4 experts;
     serve: one hot pass of phase 19's load, moe_serve: of phase 39's; tunes:
     phase 26's generate at B=16; tunes_serve: one hot pass of phase 27's
-    load) under ``torch.profiler`` (CPU and CUDA activities) after a
+    load; gpt2: phase 43's generate) under ``torch.profiler`` (CPU and
+    CUDA activities) after a
     warm-up and an unprofiled run (timed with CUDA events; serve and the
     tunes paths: their wall after a synchronize): device self time by
     kernel, summed only over entries whose device type is not the CPU (a
@@ -2768,6 +2803,8 @@ def phase_profile(path="pallas", B=BATCH, max_new=MAX_NEW, top=12) -> None:
     kw = dict(max_new_tokens=max_new, temperature=0.8, top_k=200)
     if path in ("tunes", "tunes_serve"):
         run, wall, what = _tunes_profiled(path)
+    elif path == "gpt2":
+        run, wall, what = _gpt2_profiled()
     elif path in ("serve", "moe_serve"):
         # one hot pass of phase 19's (39's) load on a warm server
         moe = path == "moe_serve"
@@ -4921,7 +4958,8 @@ def phase_moe_train(root, device) -> dict:
         raise AssertionError(f"the MoE run's checkpoints: model_args "
                              f"{last['model_args']}")
     lines = _iter_lines(log)
-    ms = statistics.median(m for i, m, _ in lines if i >= 5 and i % MOE_EVAL)
+    ms = statistics.median(m for i, m, _, _ in lines
+                           if i >= 5 and i % MOE_EVAL)
     resumed = _iter_lines(_tee(train_cli.main, base + [
         f"--max_iters={MOE_ITERS + MOE_RESUME}", "--init_from=resume"]))
     after = ckpt_lib.load_checkpoint(out, ckpt_lib.LAST)
@@ -5533,6 +5571,553 @@ def phase_mesh_steps(device="cuda", steps=MESH_STEPS, B=MESH_STEP_B) -> dict:
     return res
 
 
+# GPT-2 import (phase 43): a random-init GPT-2 124M (HF's layout and names:
+# 12 layers, 12 heads, 768 wide, vocab 50257, 1024 positions) written as a
+# local directory the CLIs load by the name GPT2_NAME (init_from routes on
+# the "gpt2" prefix, relative to the working directory); sampled at
+# GPT2_B prompts of PROMPT_LEN tokens, 500 new tokens, T 0.8, top_k 200
+# (the CLI's defaults); evaluated with configs/eval_gpt2.py and fine-tuned
+# with configs/finetune_shakespeare.py on a corpus of random ids
+GPT2_NAME, GPT2_SEED = "gpt2-random", 11
+GPT2 = dict(n_layer=12, n_head=12, n_embd=768, vocab_size=50257,
+            n_positions=1024)
+GPT2_B, GPT2_NEW, GPT2_ROWS, GPT2_STEPS = 256, 500, 4, 16
+GPT2_EVAL_ITERS, GPT2_FT_ITERS, GPT2_FT_ACCUM = 20, 5, 2
+GPT2_CORPUS = 2_000_000
+EVAL_GPT2_CONFIG = "ai_music_generation_tpu_torch/configs/eval_gpt2.py"
+FINETUNE_CONFIG = "ai_music_generation_tpu_torch/configs/finetune_shakespeare.py"
+# the replay harness (phase 44): fixtures made from a seed
+REPLAY_TUNES, REPLAY_BACH, REPLAY_WAVS, REPLAY_BPE_VOCAB = 1000, 200, 4, 1000
+
+
+def _write_hf_gpt2(path, seed=GPT2_SEED) -> int:
+    """A random-init GPT-2 124M in HF's layout: ``config.json`` and
+    ``model.safetensors`` (written by the safetensors package, so the
+    port's own reader is held to the format's writer) with the hub file's
+    names (no ``transformer.`` prefix, Conv1D weights [in, out], each
+    block's causal-mask buffer ``attn.bias``), from a seeded numpy
+    generator: weights N(0, 0.02)
+    (the residual projections 0.02 / sqrt(2 L), as HF's init), biases N(0,
+    0.02) and LayerNorm weights 1 + N(0, 0.1) so that a misplaced one shows.
+    Returns the parameter count."""
+    import os
+
+    import numpy as np
+    from safetensors.numpy import save_file
+
+    rng = np.random.default_rng(seed)
+    L, C = GPT2["n_layer"], GPT2["n_embd"]
+    V, P = GPT2["vocab_size"], GPT2["n_positions"]
+
+    def normal(*shape, std=0.02):
+        return (std * rng.standard_normal(shape)).astype(np.float32)
+
+    def ln():
+        return 1.0 + normal(C, std=0.1), normal(C)
+
+    mask = np.tril(np.ones((P, P), np.float32))[None, None]
+    t = {"wte.weight": normal(V, C), "wpe.weight": normal(P, C, std=0.01)}
+    for i in range(L):
+        h = f"h.{i}."
+        t[h + "ln_1.weight"], t[h + "ln_1.bias"] = ln()
+        t[h + "attn.bias"] = mask
+        t[h + "attn.c_attn.weight"] = normal(C, 3 * C)
+        t[h + "attn.c_attn.bias"] = normal(3 * C)
+        t[h + "attn.c_proj.weight"] = normal(C, C, std=0.02 / (2 * L) ** 0.5)
+        t[h + "attn.c_proj.bias"] = normal(C)
+        t[h + "ln_2.weight"], t[h + "ln_2.bias"] = ln()
+        t[h + "mlp.c_fc.weight"] = normal(C, 4 * C)
+        t[h + "mlp.c_fc.bias"] = normal(4 * C)
+        t[h + "mlp.c_proj.weight"] = normal(4 * C, C,
+                                            std=0.02 / (2 * L) ** 0.5)
+        t[h + "mlp.c_proj.bias"] = normal(C)
+    t["ln_f.weight"], t["ln_f.bias"] = ln()
+    os.makedirs(path, exist_ok=True)
+    save_file(t, os.path.join(path, "model.safetensors"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(dict(architectures=["GPT2LMHeadModel"], model_type="gpt2",
+                       n_ctx=P, activation_function="gelu_new",
+                       layer_norm_epsilon=1e-5, **GPT2), f)
+    return sum(a.size for k, a in t.items() if not k.endswith(".attn.bias"))
+
+
+def _gpt2_workspace(root) -> dict:
+    """The GPT-2 directory and a uint16 corpus of GPT2_CORPUS random ids
+    below the vocabulary (90/10 train/val, no meta.pkl: the trainer takes
+    the HF vocabulary) under ``root``."""
+    import os
+
+    import numpy as np
+
+    from ai_music_generation_tpu_torch.data.memmap import write_bin
+
+    n = _write_hf_gpt2(os.path.join(root, GPT2_NAME))
+    ids = np.random.default_rng(GPT2_SEED).integers(
+        0, GPT2["vocab_size"], GPT2_CORPUS).astype(np.uint16)
+    data = os.path.join(root, "data", "randtok")
+    os.makedirs(data)
+    split = int(0.9 * len(ids))
+    write_bin(ids[:split], os.path.join(data, "train.bin"), np.uint16)
+    write_bin(ids[split:], os.path.join(data, "val.bin"), np.uint16)
+    print(f"GPT-2 workspace: {GPT2_NAME}/ ({n:,} parameters, HF layout, "
+          f"safetensors), {GPT2_CORPUS:,} random ids")
+    return dict(root=root, data_root=os.path.join(root, "data"),
+                n_params=n)
+
+
+@torch.inference_mode()
+def phase_gpt2_model(ws, device="cuda") -> dict:
+    """``cli/sample.py::load_model(init_from=GPT2_NAME)`` on the card (bf16,
+    the CLI's default) and on the CPU in fp32: a prefill of PROMPT_LEN
+    tokens and GPT2_STEPS decode steps teacher-forced at B = GPT2_B on the
+    card (K1 at every step) against GPT2_ROWS rows on the CPU, logits within
+    the phase-4 yardstick (2^-4 of their range). Returns the CPU model (the
+    fine-tune's loss is held against it) and the error."""
+    import contextlib
+
+    from ai_music_generation_tpu_torch.cli.sample import load_model
+    from ai_music_generation_tpu_torch.models.gpt import KVCache
+
+    with contextlib.chdir(ws["root"]):
+        t0 = time.perf_counter()
+        model, meta = load_model("out", init_from=GPT2_NAME, device=device)
+        load_s = time.perf_counter() - t0
+        cpu, _ = load_model("out", dtype="float32", init_from=GPT2_NAME,
+                            device="cpu")
+    cfg = model.config
+    want_cfg = dict(GPT2, block_size=GPT2["n_positions"])
+    del want_cfg["n_positions"]
+    got_cfg = {k: getattr(cfg, k) for k in want_cfg}
+    if got_cfg != want_cfg or meta != {"model_args": {}, "config": {}}:
+        raise AssertionError(f"GPT-2 loaded as {got_cfg}, meta {meta}")
+    if model.num_params(non_embedding=False) != ws["n_params"]:
+        raise AssertionError("GPT-2 parameter count")
+    g = torch.Generator().manual_seed(GPT2_SEED)
+    ids = torch.randint(0, cfg.vocab_size, (GPT2_B, PROMPT_LEN + GPT2_STEPS),
+                        generator=g, dtype=torch.int32)
+    S = cfg.block_size
+    caches = (KVCache.create(cfg, GPT2_B, S, device=device),
+              KVCache.create(cpu.config, GPT2_ROWS, S, device="cpu"))
+    worst, rng = 0.0, 0.0
+    for lo, hi in [(0, PROMPT_LEN)] + [
+            (t, t + 1) for t in range(PROMPT_LEN, PROMPT_LEN + GPT2_STEPS)]:
+        got, _ = model(ids[:, lo:hi].to(device), cache=caches[0])
+        want, _ = cpu(ids[:GPT2_ROWS, lo:hi], cache=caches[1])
+        got = got[:GPT2_ROWS].float().cpu()
+        if not torch.isfinite(got).all():
+            raise AssertionError("non-finite GPT-2 logits on the card")
+        err = (got - want).abs().max().item()
+        rng = max(rng, want.abs().max().item())
+        if not err <= 2.0 ** -4 * rng:
+            raise AssertionError(f"GPT-2 logits differ by {err} > "
+                                 f"{2.0 ** -4 * rng} at {lo}")
+        worst = max(worst, err)
+    print(f"GPT-2 124M from {GPT2_NAME}/ via cli/sample.py::load_model on "
+          f"{device} in {load_s:.1f} s (bf16) and on the CPU (fp32): prefill "
+          f"{PROMPT_LEN} + {GPT2_STEPS} decode steps at B={GPT2_B}, "
+          f"{GPT2_ROWS} rows vs CPU: logits max abs err {worst} = "
+          f"{worst / rng:.3e} of the range (tol 2^-4)")
+    del model, caches
+    _empty_cache(device)
+    return dict(cpu=cpu, err=worst / rng)
+
+
+def phase_gpt2_kernel(B=GPT2_B, S=GPT2["n_positions"]) -> tuple[dict, set]:
+    """K1 at GPT-2 124M's decode step (B rows, MHA H = KH = 12, D = 64, bf16
+    cache of S columns, lockstep): held against the twin at pos 0, 128
+    (the second tile of columns), PROMPT_LEN + GPT2_NEW - 1 (the last step
+    the sampling path runs) and S-1 (caches bit-exact, out within one bf16
+    ulp of its range of the twin in fp32), then timed with the twin (plain, kernel, kernel, plain)
+    at pos S-1 (every column valid) beside ``scaled_dot_product_attention``
+    over the same columns (attention only: no column write). Returns (the
+    JSON numbers, the (B, S, KH*D, dtype, ring) checked)."""
+    import torch.nn.functional as F
+
+    from ai_music_generation_tpu_torch.ops.gqa_decode import (
+        gqa_decode_reference, gqa_decode_update,
+    )
+
+    H, D = GPT2["n_head"], GPT2["n_embd"] // GPT2["n_head"]
+    worst = 0.0
+    # one set of inputs (a lockstep step's depend on pos only through the
+    # column it writes and the columns it reads), fresh copies per check
+    cpu = _decode_inputs(False, False, S - 1, B, S, H=H, KH=H, seed=3)
+    checked = (0, 128, PROMPT_LEN + GPT2_NEW - 1, S - 1)
+    for pos in checked:
+        err, _ = _check_k1(_to(cpu, "cuda"), [a if a is None else a.clone()
+                                              for a in cpu], pos, "cuda",
+                           f"GPT-2 shape pos={pos}")
+        worst = max(worst, err)
+    x = _to(cpu, "cuda")
+    p = torch.tensor(S - 1, dtype=torch.int32, device="cuda")
+    qs = x[0][:, :, None, :].contiguous()
+    ks, vs = (t.view(B, S, H, D).transpose(1, 2).contiguous()
+              for t in x[1:3])
+    kernel, plain = _timed(lambda: gqa_decode_update(*x, p),
+                           lambda: gqa_decode_reference(*x, p), 50, 10)
+    library = [_cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs),
+                        50) for _ in range(2)]
+    bound_ms, bound_by = _k1_tunes_bound(x, S - 1)
+    ms = min(kernel)
+    print(f"K1 at the GPT-2 decode step (B={B}, S={S}, H=KH={H}, D={D}, "
+          f"bf16, lockstep): vs twin at pos {checked}: caches bit-exact, out "
+          f"max abs err {worst}; kernel {kernel} ms, twin {plain} ms (plain, "
+          f"kernel, kernel, plain); SDPA (attention only) {library} ms; "
+          f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.3f} of it")
+    return (dict(ms=ms, plain_ms=min(plain), bound_ms=bound_ms,
+                 bound_by=bound_by, library_ms=min(library),
+                 max_abs_err=worst),
+            {(B, S, H * D, torch.bfloat16, False)})
+
+
+@torch.inference_mode()
+def phase_gpt2_main_path(ws, device="cuda"):
+    """``Generator`` over ``load_model(init_from=GPT2_NAME)`` (what
+    cli/sample.py's run_sampling runs after encoding: tiktoken's table
+    cannot be fetched without a network) at GPT2_B prompts of PROMPT_LEN
+    random ids, GPT2_NEW new tokens, T 0.8, top_k 200, the default window
+    (block_size 1024), twice at one seed: shape, prompts kept, tokens in
+    range, identical runs, and exactly n_layer x GPT2_NEW K1 launches a
+    generate: the 8-token prefill runs no K1, then positions 8 .. 507 are
+    one T=1 step each (the last feeds the final token, as every generate
+    does), 500 steps x 12 layers = 6,000; no refresh (508 <= 1024).
+    Returns (generator, prompts, launches a generate)."""
+    import contextlib
+
+    from ai_music_generation_tpu_torch.cli.sample import DEFAULTS, load_model
+    from ai_music_generation_tpu_torch.decode.generate import Generator
+    from ai_music_generation_tpu_torch.ops.gqa_decode import gqa_decode_update
+
+    with contextlib.chdir(ws["root"]):
+        model, _ = load_model("out", init_from=GPT2_NAME, device=device)
+    cfg = model.config
+    gen = Generator(model, max_new_tokens=GPT2_NEW,
+                    temperature=DEFAULTS["temperature"],
+                    top_k=DEFAULTS["top_k"])
+    prompts = torch.randint(0, cfg.vocab_size, (GPT2_B, PROMPT_LEN),
+                            generator=torch.Generator().manual_seed(2),
+                            dtype=torch.int32)
+    runs, seconds = [], []
+    for _ in range(2):
+        before = gqa_decode_update.launches
+        t0 = time.perf_counter()
+        out = gen.generate(prompts, seed=1234)
+        _sync(device)
+        seconds.append(round(time.perf_counter() - t0, 3))
+        runs.append((out.cpu(), gqa_decode_update.launches - before))
+    (out, launches), (again, launches2) = runs
+    want = cfg.n_layer * GPT2_NEW if torch.device(device).type == "cuda" \
+        else 0
+    if out.shape != (GPT2_B, PROMPT_LEN + GPT2_NEW) or not torch.equal(
+            out[:, :PROMPT_LEN], prompts):
+        raise AssertionError(f"GPT-2 generate: shape {tuple(out.shape)}")
+    if not ((out >= 0) & (out < cfg.vocab_size)).all():
+        raise AssertionError("GPT-2 token out of range")
+    if not torch.equal(out, again):
+        raise AssertionError("GPT-2: same seed gave different tokens")
+    if not launches == launches2 == want:
+        raise AssertionError(f"GPT-2 K1 launches per generate {launches}, "
+                             f"{launches2} != {want}")
+    print(f"GPT-2 main path: generate [{GPT2_B}, {PROMPT_LEN}] -> "
+          f"{tuple(out.shape)}, prompts kept, tokens in range, same seed "
+          f"identical, {launches} K1 launches per generate ({cfg.n_layer} "
+          f"layers x {GPT2_NEW} steps); {seconds} s (host clock)")
+    return gen, prompts, launches
+
+
+def _gpt2_profiled():
+    """(run, unprofiled wall s, description) of phase 43's generate to
+    profile, after a warm run."""
+    import contextlib
+
+    from ai_music_generation_tpu_torch.cli.sample import load_model
+    from ai_music_generation_tpu_torch.decode.generate import Generator
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _gpt2_workspace(tmp)
+        with contextlib.chdir(tmp):
+            model, _ = load_model("out", init_from=GPT2_NAME, device="cuda")
+    gen = Generator(model, max_new_tokens=GPT2_NEW, temperature=0.8,
+                    top_k=200)
+    prompts = torch.randint(0, model.config.vocab_size, (GPT2_B, PROMPT_LEN),
+                            generator=torch.Generator().manual_seed(6),
+                            dtype=torch.int32)
+    gen.generate(prompts, seed=1)
+    wall = _event_seconds(lambda: gen.generate(prompts, seed=2))
+    return (lambda: gen.generate(prompts, seed=3), wall,
+            f"GPT-2 124M, B={GPT2_B}, {GPT2_NEW} new tokens, window "
+            f"{gen.window}")
+
+
+def phase_gpt2_train(ws, cpu, device="cuda") -> dict:
+    """``cli/train.py configs/eval_gpt2.py --init_from=GPT2_NAME
+    --eval_iters=GPT2_EVAL_ITERS`` (eval_only, batch 8 x 1024) on the
+    random-id corpus: both losses finite. Then ``cli/train.py
+    configs/finetune_shakespeare.py --init_from=GPT2_NAME`` (batch 1,
+    block_size 1024 = n_positions, lr 3e-5 constant, bf16) on it for
+    GPT2_FT_ITERS iterations at accum GPT2_FT_ACCUM: every loss finite, and
+    the iter-0 loss within TRAIN_STEP_FRAC[bf16] of its value of the CPU's
+    fp32 loss on the same batch (the trainer's first batch, drawn as it
+    draws it). Returns the numbers."""
+    import contextlib
+    import math
+    import os
+
+    from ai_music_generation_tpu_torch.cli import train as train_cli
+    from ai_music_generation_tpu_torch.data.memmap import BinDataset
+    from ai_music_generation_tpu_torch.train.trainer import DEFAULTS
+
+    common = [f"--init_from={GPT2_NAME}", "--dataset=randtok",
+              f"--data_root={ws['data_root']}", f"--device={device}"]
+    eval_out = os.path.join(ws["root"], "eval-gpt2")
+    ft_out = os.path.join(ws["root"], "finetune-gpt2")
+    configs = [os.path.abspath(p) for p in (EVAL_GPT2_CONFIG,
+                                            FINETUNE_CONFIG)]
+    with contextlib.chdir(ws["root"]):
+        t0 = time.perf_counter()
+        _tee(train_cli.main, [configs[0], *common,
+                              f"--eval_iters={GPT2_EVAL_ITERS}",
+                              f"--out_dir={eval_out}"])
+        eval_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        log = _tee(train_cli.main, [
+            configs[1], *common, f"--max_iters={GPT2_FT_ITERS}",
+            f"--eval_interval={GPT2_FT_ITERS}", "--eval_iters=2",
+            f"--gradient_accumulation_steps={GPT2_FT_ACCUM}",
+            "--log_interval=1", f"--out_dir={ft_out}"])
+        ft_s = time.perf_counter() - t0
+    with open(os.path.join(eval_out, "losses.jsonl")) as f:
+        evals = [json.loads(line) for line in f]
+    losses = [(i, loss) for i, _, _, loss in _iter_lines(log)]
+    if (len(evals) != 1 or not all(math.isfinite(evals[0][k])
+                                   for k in ("train/loss", "val/loss"))
+            or [i for i, _ in losses] != list(range(GPT2_FT_ITERS + 1))
+            or not all(math.isfinite(v) for _, v in losses)):
+        raise AssertionError(f"GPT-2 eval {evals}, fine-tune {losses}")
+    ds = BinDataset(os.path.join(ws["data_root"], "randtok", "train.bin"))
+    x, y = (torch.from_numpy(a) for a in ds.sharded_sample(
+        DEFAULTS["seed"], 0, (GPT2_FT_ACCUM, 1), DEFAULTS["block_size"],
+        (0, 1)))
+    with torch.no_grad():
+        want = sum(float(cpu(x[i], y[i])[1]) for i in range(GPT2_FT_ACCUM)
+                   ) / GPT2_FT_ACCUM
+    got = losses[0][1]
+    frac = TRAIN_STEP_FRAC[torch.bfloat16]
+    if not abs(got - want) <= frac * abs(want):
+        raise AssertionError(f"GPT-2 iter-0 loss {got} on the card vs "
+                             f"{want} on the CPU (fp32)")
+    print(f"GPT-2 eval (configs/eval_gpt2.py, {GPT2_EVAL_ITERS} x batch 8 x "
+          f"1024): train loss {evals[0]['train/loss']:.4f}, val loss "
+          f"{evals[0]['val/loss']:.4f} (ln V = "
+          f"{math.log(GPT2['vocab_size']):.4f}) in {eval_s:.1f} s; "
+          f"fine-tune (configs/finetune_shakespeare.py, accum "
+          f"{GPT2_FT_ACCUM} x 1 x 1024): losses {losses} in {ft_s:.1f} s; "
+          f"iter-0 loss {got} vs the CPU's fp32 {want:.6f} (tol {frac:.3g} "
+          f"of it)")
+    return dict(eval=evals[0], losses=losses, cpu_loss=want,
+                eval_s=eval_s, ft_s=ft_s)
+
+
+def phase_gpt2_sizing() -> float:
+    """utils/sizing.py's report for GPT-2 124M and its training tokens/s at
+    40% MFU of the card's peak (models/gpt.py::peak_flops_for). Returns
+    that peak."""
+    from ai_music_generation_tpu_torch.models.gpt import (
+        GPTConfig, peak_flops_for,
+    )
+    from ai_music_generation_tpu_torch.utils import sizing
+
+    cfg = GPTConfig(block_size=GPT2["n_positions"],
+                    vocab_size=GPT2["vocab_size"], n_layer=GPT2["n_layer"],
+                    n_head=GPT2["n_head"], n_embd=GPT2["n_embd"])
+    peak = peak_flops_for("cuda")
+    sizing.print_report(cfg)
+    print(f"projected training at 40% MFU of {peak / 1e12:.0f} TFLOP/s: "
+          f"{sizing.projected_tokens_per_sec(cfg, 0.4, peak=peak):,.0f} "
+          f"tokens/s")
+    return peak
+
+
+def _replay_fixtures(root) -> dict:
+    """phase 44's inputs under ``root`` and the goldens they imply, each
+    counted here from its recipe: IrishMAN-style JSON (random tunes:
+    entries stripped, " $" appended, space-joined, char vocab) for the
+    irishman and leadsheet stages; Bach-style midi-text directories (a
+    "$ " per piece, whitespace tokens, the vocab a union with an extra
+    corpus); a weights.pth of the reference TunesFormer written by the
+    port's exporter from a seeded init; phase 34's seeded Audiobox
+    checkpoint and REPLAY_WAVS WAVs (seeded tones and noise of 3.7-25 s);
+    an encoder.json/vocab.bpe of a byte-level BPE trained by ``tokenizers``
+    on the tunes, with an input.txt whose token counts ``tokenizers``
+    gives."""
+    import os
+    import random
+
+    import numpy as np
+    from tokenizers import Tokenizer, models, pre_tokenizers, trainers
+
+    from ai_music_generation_tpu_torch.cli.random_baselines import (
+        random_tunes,
+    )
+    from ai_music_generation_tpu_torch.models.convert import (
+        init_tunesformer_weights,
+    )
+    from ai_music_generation_tpu_torch.models.tunesformer import (
+        TunesFormer, TunesFormerConfig,
+    )
+    from ai_music_generation_tpu_torch.models.tunesformer_export import (
+        save_reference_checkpoint,
+    )
+    from ai_music_generation_tpu_torch.synth.wav_io import write_wav
+
+    f, goldens = {}, {}
+    tunes = random_tunes(REPLAY_TUNES, seed=SYNTH_SEED)
+    for stage, lo, hi in (("irishman", 0, REPLAY_TUNES),
+                          ("leadsheet", 0, REPLAY_TUNES // 4)):
+        part = tunes[lo:hi]
+        n_val = len(part) // 10
+        splits = {"train": part[n_val:], "valid": part[:n_val]}
+        text = {}
+        for name, rows in splits.items():
+            f[f"{stage}_{name}"] = os.path.join(root, f"{stage}_{name}.json")
+            with open(f[f"{stage}_{name}"], "w") as fh:
+                json.dump([{"abc notation": "\n " + t + " \n"}
+                           for t in rows], fh)
+            text[name] = " ".join(t.strip() + " $" for t in rows)
+        goldens[f"{stage}_char"] = {
+            "vocab": len(set(text["train"] + text["valid"])),
+            "train_tokens": len(text["train"]),
+            "val_tokens": len(text["valid"])}
+    rng = random.Random(SYNTH_SEED)
+
+    def piece():
+        return " | ".join(" ".join(
+            f"p{rng.randint(40, 90)} d{rng.choice((1, 2, 4, 8))} "
+            f"o{rng.randint(0, 16)}" for _ in range(rng.randint(2, 6)))
+            for _ in range(rng.randint(4, 12)))
+
+    texts, vocab = {}, set()
+    for name, n in (("train", REPLAY_BACH), ("valid", REPLAY_BACH // 10),
+                    ("extra", REPLAY_BACH // 10)):
+        d = f[f"bach_{name}"] = os.path.join(root, "bach", name)
+        os.makedirs(d)
+        texts[name] = [piece() for _ in range(n)]
+        for i, t in enumerate(texts[name]):
+            with open(os.path.join(d, f"{i:04d}.txt"), "w") as fh:
+                fh.write(t)
+        vocab |= {w for t in texts[name] for w in ("$ " + t).split()}
+    count = {k: sum(len(("$ " + t).split()) for t in texts[k])
+             for k in ("train", "valid")}
+    goldens["bach_midi"] = {"vocab": len(vocab),
+                            "train_tokens": count["train"],
+                            "val_tokens": count["valid"]}
+    cfg = TunesFormerConfig()
+    f["weights"] = os.path.join(root, "weights.pth")
+    save_reference_checkpoint(f["weights"], init_tunesformer_weights(
+        TunesFormer(cfg, device="cpu"), torch.Generator().manual_seed(
+            SYNTH_SEED)))
+    goldens["tunesformer"] = {"patch_layers": cfg.patch_layers,
+                              "char_layers": cfg.char_layers,
+                              "n_embd": cfg.n_embd,
+                              "patch_size": cfg.patch_size}
+    f["audiobox"] = os.path.join(root, "audiobox.pt")
+    _audiobox_checkpoint(f["audiobox"], _audiobox_config())
+    wav_rng = np.random.default_rng(AUDIOBOX_SEED)
+    f["wav_jsonl"] = os.path.join(root, "wavs.jsonl")
+    with open(f["wav_jsonl"], "w") as fh:
+        for i, seconds in enumerate((3.7, 10.0, 12.5, 25.0)[:REPLAY_WAVS]):
+            t = np.arange(int(seconds * 16_000)) / 16_000
+            wave = (0.3 * np.sin(2 * np.pi * 110 * (i + 2) * t)
+                    + 0.05 * wav_rng.standard_normal(len(t)))
+            path = os.path.join(root, f"tone{i}.wav")
+            write_wav(path, wave.astype(np.float32))
+            fh.write(json.dumps({"path": path}) + "\n")
+    tok = Tokenizer(models.BPE())
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tok.train_from_iterator(tunes, trainers.BpeTrainer(
+        vocab_size=REPLAY_BPE_VOCAB,
+        initial_alphabet=pre_tokenizers.ByteLevel.alphabet()))
+    state = json.loads(tok.to_str())
+    f["bpe"] = os.path.join(root, "bpe")
+    os.makedirs(f["bpe"])
+    with open(os.path.join(f["bpe"], "encoder.json"), "w") as fh:
+        json.dump(state["model"]["vocab"], fh)
+    with open(os.path.join(f["bpe"], "vocab.bpe"), "w") as fh:
+        fh.write("#version: 0.2\n" + "\n".join(
+            m if isinstance(m, str) else " ".join(m)
+            for m in state["model"]["merges"]) + "\n")
+    text = "\n\n".join(tunes)
+    f["input_txt"] = os.path.join(root, "input.txt")
+    with open(f["input_txt"], "w", encoding="utf-8") as fh:
+        fh.write(text)
+    split = int(len(text) * 0.9)
+    goldens["shakespeare_gpt2"] = {
+        "train_tokens": len(tok.encode(text[:split]).ids),
+        "val_tokens": len(tok.encode(text[split:]).ids)}
+    f["goldens"] = os.path.join(root, "goldens.json")
+    with open(f["goldens"], "w") as fh:
+        json.dump(goldens, fh)
+    return f
+
+
+def phase_replay(root, device="cuda") -> dict:
+    """``cli/replay_goldens.py --device cuda`` over ``_replay_fixtures``
+    with their ``--goldens`` file: every stage with inputs PASSes
+    (irishman and leadsheet char, bach midi, the TunesFormer arch and
+    bridge, the Audiobox keys on the card with every WAV scored finite,
+    the GPT-2 BPE prepare); the audio-aes parity leg, abc2midi and
+    fluidsynth SKIP with JAX's reasons unless their binaries are present;
+    exit 0. Returns the statuses and the wall time."""
+    import math
+    import os
+    import shutil
+
+    from ai_music_generation_tpu_torch.cli import replay_goldens
+
+    t0 = time.perf_counter()
+    fx = _replay_fixtures(root)
+    fixtures_s = time.perf_counter() - t0
+    out = os.path.join(root, "replay")
+    argv = ["--irishman_train", fx["irishman_train"],
+            "--irishman_valid", fx["irishman_valid"],
+            "--leadsheet_train", fx["leadsheet_train"],
+            "--leadsheet_valid", fx["leadsheet_valid"],
+            "--bach_train_dir", fx["bach_train"],
+            "--bach_valid_dir", fx["bach_valid"],
+            "--bach_extra_vocab_dirs", fx["bach_extra"],
+            "--tunesformer_weights", fx["weights"],
+            "--audiobox_ckpt", fx["audiobox"], "--wav_jsonl", fx["wav_jsonl"],
+            "--shakespeare_txt", fx["input_txt"], "--bpe_assets", fx["bpe"],
+            "--goldens", fx["goldens"], "--out_dir", out,
+            "--device", device]
+    binaries = {name: shutil.which(name) for name in ("abc2midi",
+                                                      "fluidsynth")}
+    t0 = time.perf_counter()
+    rc = replay_goldens.main(argv)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out, "replay_report.json")) as fh:
+        rows = {r["stage"]: r["status"] for r in json.load(fh)}
+    with open(os.path.join(out, "audiobox_ours.jsonl")) as fh:
+        scores = [json.loads(line) for line in fh]
+    must = {s: "PASS" for s in (
+        "irishman_char", "leadsheet_char", "bach_midi", "tunesformer_arch",
+        "tunesformer_bridge", "audiobox_keys", "shakespeare_gpt2")}
+    must.update({s: "SKIP" for s, b in (("abc2midi_diff", "abc2midi"),
+                                        ("fluidsynth_ab", "fluidsynth"))
+                 if binaries[b] is None})
+    if shutil.which("audio-aes") is None:
+        must["audiobox_parity"] = "SKIP"
+    bad = {s: rows.get(s) for s, want in must.items() if rows.get(s) != want}
+    if rc != 0 or bad or "FAIL" in rows.values() or len(scores) != \
+            REPLAY_WAVS or not all(math.isfinite(v) for r in scores
+                                   for v in r.values()):
+        raise AssertionError(f"replay: exit {rc}, {rows}, off {bad}, "
+                             f"scores {scores}")
+    print(f"replay_goldens --device {device}: exit {rc}, {rows}; fixtures "
+          f"{fixtures_s:.1f} s, the harness {wall:.1f} s")
+    return dict(rows=rows, wall=wall, fixtures_s=fixtures_s)
+
+
 def _empty_cache(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
@@ -6033,6 +6618,68 @@ def main(argv=None) -> int:
           f"pipeline and sequence steps: launches of K1-K7 {counts}, loss "
           f"errors {steps['errs']}, ms/step plain {steps['plain_ms']:.3f}, "
           f"pipeline {steps['pipe_ms']:.3f}, sequence {steps['seq_ms']:.3f}")
+    # GPT-2 import (phase 43): K1 at GPT-2 124M's decode step, the model
+    # loaded from a HF-layout directory card vs CPU, sampling through K1
+    # (every K1 shape of the path checked and timed here), evaluation and a
+    # fine-tune (no kernel of the port), the sizing report
+    gpt2_t0 = time.perf_counter()
+    gpt2_k1, gpt2_checked = phase_gpt2_kernel()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        gpt2_ws = _gpt2_workspace(tmp)
+        gpt2_model = phase_gpt2_model(gpt2_ws)
+        gpt2_model_err = gpt2_model["err"]
+        with _K1Calls() as gpt2_calls:
+            (gen, prompts, gpt2_launches), counts = _main_path(
+                phase_gpt2_main_path, gpt2_ws)
+        if any(n for k, n in counts.items() if k != "gqa_decode_update") \
+                or counts["gqa_decode_update"] != 2 * gpt2_launches:
+            raise AssertionError(f"the GPT-2 sampling path launched {counts}")
+        if not gpt2_calls.keys <= gpt2_checked:
+            raise AssertionError(f"the GPT-2 path ran K1 at "
+                                 f"{sorted(gpt2_calls.keys - gpt2_checked)}, "
+                                 f"which phase 43 did not check and time")
+        gpt2_tok_s = phase_throughput(gen, prompts, runs=1)
+        gpt2_peak = torch.cuda.max_memory_allocated() / 2**30
+        del gen, prompts
+        torch.cuda.empty_cache()
+        gpt2_train, counts = _main_path(phase_gpt2_train, gpt2_ws,
+                                        gpt2_model["cpu"])
+        if any(counts.values()):
+            raise AssertionError(f"GPT-2 training launched kernels of the "
+                                 f"port: {counts}")
+    del gpt2_model
+    torch.cuda.empty_cache()
+    gpt2_peak_flops = phase_gpt2_sizing()
+    gpt2_s = time.perf_counter() - gpt2_t0
+    # the replay harness (phase 44) on the card: no kernel of the port
+    replay_t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        replay, counts = _main_path(phase_replay, tmp)
+    replay_s = time.perf_counter() - replay_t0
+    if any(counts.values()):
+        raise AssertionError(f"the replay harness launched kernels of the "
+                             f"port: {counts}")
+    torch.cuda.empty_cache()
+    kernels[0]["by_path"]["gpt2"] = gpt2_launches
+    kernels.append(_entry(
+        "gqa_decode_update/gpt2", KERNEL_SOURCE, KERNEL_REPLACES,
+        gpt2_launches, gpt2_k1.pop("max_abs_err"), gpt2_k1,
+        shapes=sorted(f"B={b} S={S} KHD={khd} {str(dt)[6:]} "
+                      f"{'ring' if ring else 'lockstep'}"
+                      for b, S, khd, dt, ring in gpt2_calls.keys)))
+    print(f"[{card}] GPT-2 124M (random init from a HF-layout directory): "
+          f"model card vs CPU {gpt2_model_err:.3e} of the range; sampling "
+          f"{gpt2_tok_s:.1f} tok/s at B={GPT2_B} ({GPT2_NEW} new tokens, "
+          f"peak {gpt2_peak:.2f} GiB), {gpt2_launches} K1 launches a "
+          f"generate; K1 at the decode step {gpt2_k1['ms']:.4f} ms (bound "
+          f"{gpt2_k1['bound_ms']:.4f}, SDPA {gpt2_k1['library_ms']:.4f}); "
+          f"eval loss {gpt2_train['eval']['val/loss']:.4f}; fine-tune "
+          f"losses {[v for _, v in gpt2_train['losses']]} (iter 0 vs CPU "
+          f"fp32 {gpt2_train['cpu_loss']:.6f}); sizing at "
+          f"{gpt2_peak_flops / 1e12:.0f} TFLOP/s; phase 43 {gpt2_s:.1f} s; "
+          f"phase 44 {replay_s:.1f} s (the harness {replay['wall']:.1f} s, "
+          f"fixtures {replay['fixtures_s']:.1f} s): {replay['rows']}")
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

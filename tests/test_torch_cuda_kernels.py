@@ -1070,6 +1070,32 @@ def test_gqa_decode_kernel_at_the_tunesformer_shapes(cuda, B, S, ring):
             assert torch.equal(again, out)
 
 
+@pytest.mark.cuda
+def test_gqa_decode_kernel_at_the_gpt2_shape(cuda):
+    """K1 at GPT-2 124M's decode step (MHA H = KH = 12, D = 64, a bf16
+    cache of n_positions = 1024 columns, lockstep), 4 rows, pos from 0 to
+    S-1: caches bit-exact, the output within one bf16 ulp of its range of
+    the twin in fp32."""
+    S = 1024
+    for pos in (0, 7, 8, 130, 511, S - 1):
+        cpu = _tunes_inputs(4, S, False, pos, seed=pos)
+        gpu = [None if a is None else a.to(cuda) for a in cpu]
+        cpu32 = [None if a is None else
+                 (a.float() if i in (0, 3, 4) else a.clone())
+                 for i, a in enumerate(cpu)]
+        p = torch.tensor(pos, dtype=torch.int32)
+        before = gqa_decode_update.launches
+        out = gqa_decode_update(*gpu, p.to(cuda))
+        assert gqa_decode_update.launches == before + 1
+        gqa_decode_update(*cpu, p)
+        ref32 = gqa_decode_reference(*cpu32, p)
+        torch.cuda.synchronize()
+        for got, want in zip(gpu[1:3], cpu[1:3]):
+            assert torch.equal(got.cpu(), want)
+        err = (out.float().cpu() - ref32).abs().max()
+        assert err <= 2.0 ** -7 * ref32.abs().max(), (pos, err)
+
+
 TUNES_TINY = dict(patch_length=16, patch_size=16, patch_layers=2,
                   char_layers=2, n_embd=64, n_head=4, dropout=0.0)
 

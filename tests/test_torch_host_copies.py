@@ -1,8 +1,9 @@
 """The port's copies of JAX-package host code against their originals (the
 port imports nothing of the JAX package, so it keeps its own copies; these
 tests show when either side changes): the configurator, the memmap file
-helpers, the random-note corpus helpers, ``prepare_char``, the training
-configs that chip_smoke.py and the tests run, TunesFormer's Patchilizer,
+helpers, the random-note corpus helpers, ``prepare_char``, the
+experiment config grid (all 26 files) and its generator, TunesFormer's
+Patchilizer,
 and the control-code curation (``data/curation.py``) with its
 ``cli/add_control_codes.py``; the ABC -> WAV path's host modules: the ABC
 parser, its native compiler (the port builds its own copy), ``to_midi``
@@ -161,7 +162,14 @@ def test_prepare_char_writes_the_same_files(tmp_path):
         jax_prepare.entries_to_text(entries[:3])
 
 
-@pytest.mark.parametrize("name", ["irishman_char.py", "train_gpt2.py"])
+CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "ai_music_generation_tpu", "configs")
+# the JAX package's 26 experiment configs (its generator and __init__ aside)
+CONFIG_NAMES = sorted(n for n in os.listdir(CONFIG_DIR) if n.endswith(".py")
+                      and n not in ("generate_configs.py", "__init__.py"))
+
+
+@pytest.mark.parametrize("name", CONFIG_NAMES)
 def test_training_config_copies_equal_jax(name):
     """Each copy sets the same keys to the same values as its original, and
     both apply to the trainers' defaults alike."""
@@ -183,6 +191,31 @@ def test_training_config_copies_equal_jax(name):
     theirs = jax_conf.apply_overrides(JAX_DEFAULTS, [paths[1]])
     assert {k: ours[k] for k in spaces[0]} == {k: theirs[k] for k in
                                                spaces[1]}
+
+
+def test_config_generator_renders_the_jax_grid(tmp_path):
+    """The port's generator renders every config byte-equal to JAX's, its
+    grid is the 26 files of both packages, and ``main(out_dir=)`` writes
+    there."""
+    from ai_music_generation_tpu.configs import generate_configs as jax_gen
+    from ai_music_generation_tpu_torch.configs import generate_configs as gen
+
+    assert len(CONFIG_NAMES) == 26
+    assert gen.CONFIGS == jax_gen.CONFIGS
+    assert sorted(f"{n}.py" for n in gen.CONFIGS) == CONFIG_NAMES
+    for name, config in gen.CONFIGS.items():
+        assert gen.render(name, config) == jax_gen.render(name, config)
+    port_dir = os.path.join(os.path.dirname(os.path.dirname(CONFIG_DIR)),
+                            "ai_music_generation_tpu_torch", "configs")
+    assert gen.HERE == port_dir
+    for name, mod in (("port", gen), ("jax", jax_gen)):
+        os.makedirs(tmp_path / name)
+        assert mod.main(out_dir=str(tmp_path / name)) == 26
+    for name in CONFIG_NAMES:
+        assert filecmp.cmp(tmp_path / "port" / name, tmp_path / "jax" / name,
+                           shallow=False), name
+        assert filecmp.cmp(tmp_path / "port" / name,
+                           os.path.join(port_dir, name), shallow=False), name
 
 
 # headers, control codes, every bar delimiter, a leading one, a trailing

@@ -25,9 +25,11 @@ MODULES = [
     "ai_music_generation_tpu_torch.cli.audio_aes",
     "ai_music_generation_tpu_torch.cli.create_generations_ranking",
     "ai_music_generation_tpu_torch.cli.irishman_pipeline",
+    "ai_music_generation_tpu_torch.cli.prepare",
     "ai_music_generation_tpu_torch.cli.midi_and_wav_to_aesthetics",
     "ai_music_generation_tpu_torch.cli.midi_to_wav_and_aesthetics",
     "ai_music_generation_tpu_torch.cli.random_baselines",
+    "ai_music_generation_tpu_torch.cli.replay_goldens",
     "ai_music_generation_tpu_torch.cli.sample",
     "ai_music_generation_tpu_torch.cli.sample_tunesformer",
     "ai_music_generation_tpu_torch.cli.serve",
@@ -43,7 +45,9 @@ MODULES = [
     "ai_music_generation_tpu_torch.codec.quantized_converter",
     "ai_music_generation_tpu_torch.codec.score",
     "ai_music_generation_tpu_torch.configs",
+    "ai_music_generation_tpu_torch.configs.generate_configs",
     "ai_music_generation_tpu_torch.data.curation",
+    "ai_music_generation_tpu_torch.data.gpt2_bpe",
     "ai_music_generation_tpu_torch.data.memmap",
     "ai_music_generation_tpu_torch.data.prepare",
     "ai_music_generation_tpu_torch.decode.generate",
@@ -65,6 +69,7 @@ MODULES = [
     "ai_music_generation_tpu_torch.experiments.tunes_mfu",
     "ai_music_generation_tpu_torch.models.convert",
     "ai_music_generation_tpu_torch.models.gpt",
+    "ai_music_generation_tpu_torch.models.hf_import",
     "ai_music_generation_tpu_torch.models.moe",
     "ai_music_generation_tpu_torch.models.nanogpt_ckpt",
     "ai_music_generation_tpu_torch.models.tunesformer",
@@ -95,6 +100,7 @@ MODULES = [
     "ai_music_generation_tpu_torch.synth.wav_io",
     "ai_music_generation_tpu_torch.tokenizers",
     "ai_music_generation_tpu_torch.tokenizers.patchilizer",
+    "ai_music_generation_tpu_torch.tokenizers.simple",
     "ai_music_generation_tpu_torch.train",
     "ai_music_generation_tpu_torch.train.checkpoint",
     "ai_music_generation_tpu_torch.train.optimizer",
@@ -104,6 +110,8 @@ MODULES = [
     "ai_music_generation_tpu_torch.utils.configurator",
     "ai_music_generation_tpu_torch.utils.device",
     "ai_music_generation_tpu_torch.utils.hash32",
+    "ai_music_generation_tpu_torch.utils.scaling_laws",
+    "ai_music_generation_tpu_torch.utils.sizing",
 ]
 
 

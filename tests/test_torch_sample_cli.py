@@ -14,6 +14,8 @@ write the same texts, with and without ``--speculative``.
 import dataclasses
 import json
 import os
+import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -263,6 +265,17 @@ def test_ckpt_round_trip_and_jax_reads_the_port_save(corpus, ckpts,
 
 
 def test_orbax_only_gpt2_and_no_card_raise(tmp_path, monkeypatch):
+    """An orbax-only out_dir and a missing one raise; a GPT-2 zoo name with
+    no local directory goes through transformers and, with no cached
+    weights, raises the JAX CLI's RuntimeError (transformers is a stand-in
+    whose loader raises as the real one then does: nothing reaches for the
+    network)."""
+    def offline(name, *args, **kwargs):
+        raise OSError(f"we could not connect to fetch {name!r}")
+
+    monkeypatch.setitem(sys.modules, "transformers", types.SimpleNamespace(
+        GPT2LMHeadModel=types.SimpleNamespace(from_pretrained=offline)))
+    monkeypatch.chdir(tmp_path)
     os.makedirs(tmp_path / "ckpt")
     (tmp_path / "ckpt" / "meta.json").write_text("{}")
     with pytest.raises(FileNotFoundError,
@@ -270,8 +283,9 @@ def test_orbax_only_gpt2_and_no_card_raise(tmp_path, monkeypatch):
         sample.load_model(str(tmp_path), device="cpu")
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         sample.load_model(str(tmp_path / "empty"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        sample.load_model(str(tmp_path), init_from="gpt2-medium")
+    with pytest.raises(RuntimeError, match="could not load 'gpt2-medium'"):
+        sample.load_model(str(tmp_path), init_from="gpt2-medium",
+                          device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device=cpu"):
         sample.resolve_device(sample.DEFAULTS["device"])

@@ -9,6 +9,8 @@ what the trainer writes.
 
 import json
 import os
+import sys
+import types
 
 import numpy as np
 import pytest
@@ -193,8 +195,11 @@ def test_vocab_falls_back_to_50304_without_meta(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("kw,error,match", [
-    (dict(init_from="gpt2"), NotImplementedError, "item 7"),
-    (dict(init_from="gpt2-xl"), NotImplementedError, "item 7"),
+    # a zoo name without a local directory or cached weights (transformers
+    # a stand-in whose loader raises as the real one does offline): the JAX
+    # trainer's error
+    (dict(init_from="gpt2"), RuntimeError, "could not load 'gpt2'"),
+    (dict(init_from="gpt2-xl"), RuntimeError, "could not load 'gpt2-xl'"),
     # the mesh knobs need a process group (torchrun); under one they train
     # (tests/test_torch_parallel_steps.py)
     (dict(fsdp=True), RuntimeError, "torchrun"),
@@ -202,7 +207,14 @@ def test_vocab_falls_back_to_50304_without_meta(corpus, tmp_path):
     (dict(n_model=2), RuntimeError, "torchrun"),
     (dict(init_from="nothing"), ValueError, "unknown init_from"),
 ], ids=["gpt2", "gpt2-xl", "fsdp", "n_expert", "n_model", "unknown"])
-def test_refused_options_raise(corpus, tmp_path, kw, error, match):
+def test_refused_options_raise(corpus, tmp_path, monkeypatch, kw, error,
+                               match):
+    def offline(name, *args, **kwargs):
+        raise OSError(f"we could not connect to fetch {name!r}")
+
+    monkeypatch.setitem(sys.modules, "transformers", types.SimpleNamespace(
+        GPT2LMHeadModel=types.SimpleNamespace(from_pretrained=offline)))
+    monkeypatch.chdir(tmp_path)
     root, _ = corpus
     with pytest.raises(error, match=match):
         Trainer(make_config(root, str(tmp_path / "out"), **kw))
