@@ -12,7 +12,9 @@ Mixture-of-Experts GPT (the model, training, decode, serving, sampling),
 the parallel paths at world size 1 (the sharded trainer, the sharded
 servers and render, the pipeline and sequence steps), GPT-2 import
 (``init_from=gpt2*``: sampling, evaluation and fine-tuning at GPT-2 124M's
-width) and the golden-replay harness.
+width), the golden-replay harness, the transfer experiment and the host
+entry points (the Bach pipeline, MIDI <-> text, the 4-part builder,
+MusicXML -> ABC, the random baselines, the project shell).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -332,12 +334,27 @@ printing a result):
     byte-level BPE trained by ``tokenizers`` as encoder.json/vocab.bpe with
     an input.txt) with goldens counted from their recipes: every stage
     with inputs PASSes, audio-aes parity, abc2midi and fluidsynth SKIP
-    unless their binaries are present, exit 0; no launch of K1-K7.
+    unless their binaries are present, exit 0; no launch of K1-K7;
+45. the last host entry points: ``cli/transfer_experiment.py`` at its
+    defaults with ``--device=cuda`` in a temporary directory (400 melodies
+    and 120 chorales synthesized, converted to midi-text, split and
+    prepared with the union vocab; three legs through ``cli/train.py``:
+    600 iterations on the melodies, a resume into the chorales to 900, 300
+    from scratch on the chorales; 4L/4H/256d, block 256, batch 32, bf16):
+    each leg ends at its iteration, the transfer leg's evals start at 600,
+    every val loss finite, no launch of K1-K7; the losses, the verdict
+    (recorded, not gated) and ms/iter per leg printed; then each host CLI
+    once on seeded fixtures (``bach_pipeline``'s six subcommands,
+    ``midi_to_text --processes=2`` and ``text_to_midi``,
+    ``build_synthetic_4parts``, ``batch_convert_xml --processes=2``,
+    ``random_baselines`` in its four modes, ``python -m
+    ai_music_generation_tpu_torch run`` as a subprocess), every output
+    present and non-empty in its expected count.
 
 The last two lines are a JSON summary of each kernel and
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` counts its
 launches in its path's main-path run (phases 5, 8, 12, 15, 19, 20, 22,
-26, 27, 28, 30, 37-44;
+26, 27, 28, 30, 37-45;
 every count is set to 0 just before each of them and read just after); a
 kernel with no caller on any path (K3, K5, K6) shows its count summed over
 those runs up to phase 30 (phases 37-40 are asserted to launch K1 alone),
@@ -6118,6 +6135,280 @@ def phase_replay(root, device="cuda") -> dict:
     return dict(rows=rows, wall=wall, fixtures_s=fixtures_s)
 
 
+# the last host entry points (phase 45): cli/transfer_experiment.py at its
+# defaults (:73-85: 400 melodies, 120 chorales, 600 pretrain and 300
+# fine-tune iterations, 4L/4H/256d, block 256, batch 32, dropout 0.1,
+# bf16, an eval of 20 batches every 100 iterations) on the card, then each
+# host CLI once on fixtures made from a seed
+TRANSFER_ITERS = {"--pretrain_iters": 600, "--finetune_iters": 300,
+                  "--eval_interval": 100}
+HOST_CHORALES, HOST_MELODIES, HOST_XML = 24, 40, 8
+HOST_PIECES_PER_SIG, HOST_GENERATED = 10, 4
+HOST_BASELINES = 1000  # random_baselines' default --num_files
+HOST_HANG_S = 300  # a hung pool ends the script with its traceback
+
+
+def phase_transfer(root, device="cuda", flags=()) -> dict:
+    """``cli/transfer_experiment.py`` with ``--device`` (and ``flags``: none
+    on the card, a tiny model in a CPU rehearsal) in ``root``, its
+    ``--doc_out`` there too: the three legs finish at their iterations
+    (melody 0 -> 600, transfer 600 -> 900, resumed from the melody
+    checkpoint, scratch 0 -> 300), every val loss finite. The verdict
+    (transfer beats scratch or not) is recorded, not gated. ms/iter of a
+    leg: the median of its log lines whose 50-iteration window holds no
+    eval. Returns the best val losses, the verdict, ms/iter per leg and
+    the wall time."""
+    import math
+    import os
+    import re
+    import statistics
+
+    from ai_music_generation_tpu_torch.cli import transfer_experiment
+
+    it = dict(TRANSFER_ITERS)
+    for flag in flags:
+        name, _, value = flag.partition("=")
+        if name in it:
+            it[name] = int(value)
+    pre, fine = it["--pretrain_iters"], it["--finetune_iters"]
+    w = os.path.join(root, "transfer")
+    doc = os.path.join(root, "transfer.md")
+    t0 = time.perf_counter()
+    log = _tee(transfer_experiment.main, [
+        f"--work_dir={w}", f"--doc_out={doc}", f"--device={device}",
+        *flags])
+    wall = time.perf_counter() - t0
+    spans = {"melody": (0, pre), "transfer": (pre, pre + fine),
+             "scratch": (0, fine)}
+    best, ms = {}, {}
+    for (leg, (first, last)), part in zip(spans.items(),
+                                          log.split("== leg ")[1:]):
+        with open(os.path.join(w, f"out_{leg}", "losses.jsonl")) as fh:
+            evals = [json.loads(line) for line in fh]
+        iters = [r["iter"] for r in evals]
+        if (iters[0] != first or iters[-1] != last
+                or not all(math.isfinite(r["val/loss"]) for r in evals)):
+            raise AssertionError(f"transfer experiment, {leg} leg: evals "
+                                 f"{evals}, expected iterations {first} to "
+                                 f"{last} with finite losses")
+        best[leg] = min(r["val/loss"] for r in evals)
+        steady = [m for i, m, _, _ in _iter_lines(part)
+                  if i != first and i % it["--eval_interval"]]
+        ms[leg] = statistics.median(steady) if steady else float("nan")
+    verdict = re.search(r"transfer (beats|does NOT beat) scratch", log)
+    with open(doc) as fh:
+        row = fh.read()
+    if verdict is None or f"| {verdict.group(1)} |" not in row:
+        raise AssertionError(f"transfer experiment: no verdict ({row!r})")
+    print(f"transfer experiment ({device}): best val loss melody "
+          f"{best['melody']:.4f}, transfer {best['transfer']:.4f}, scratch "
+          f"{best['scratch']:.4f}: transfer {verdict.group(1)} scratch; "
+          f"ms/iter {ms}; {wall:.1f} s")
+    return dict(best=best, verdict=verdict.group(1), ms=ms, wall=wall)
+
+
+def _host_files(d, suffix, n, what) -> list:
+    """The ``suffix`` files of ``d``: exactly ``n``, none empty."""
+    import os
+
+    names = sorted(f for f in os.listdir(d) if f.endswith(suffix))
+    empty = [f for f in names if os.path.getsize(os.path.join(d, f)) == 0]
+    if len(names) != n or empty:
+        raise AssertionError(f"{what}: {len(names)} {suffix} files in {d} "
+                             f"(expected {n}), empty: {empty}")
+    return names
+
+
+def _host_musicxml(d, n, seed=SYNTH_SEED) -> None:
+    """``n`` one-part MusicXML files of seeded notes, rests and chords in
+    4/4, 3/4 or 6/8 and a key of -5..5 fifths (the last one zipped as
+    .mxl), and one malformed file."""
+    import os
+    import random
+    import zipfile
+
+    rng = random.Random(seed)
+    os.makedirs(d)
+    for i in range(n):
+        beats, beat_type = rng.choice([(4, 4), (3, 4), (6, 8)])
+        units = 4 * beats * 2 // beat_type  # divisions 2
+        measures = []
+        for m_idx in range(rng.randint(2, 6)):
+            notes, left = [], units
+            while left:
+                dur = rng.randint(1, min(left, 4))
+                if rng.random() < 0.2:
+                    notes.append(f"<note><rest/><duration>{dur}</duration>"
+                                 "</note>")
+                else:
+                    for c in range(rng.choice([1, 1, 1, 3])):
+                        notes.append(
+                            f"<note>{'<chord/>' if c else ''}<pitch><step>"
+                            f"{rng.choice('CDEFGAB')}</step><alter>"
+                            f"{rng.choice([-1, 0, 0, 1])}</alter><octave>"
+                            f"{rng.randint(3, 5)}</octave></pitch><duration>"
+                            f"{dur}</duration></note>")
+                left -= dur
+            attrs = (f"<attributes><divisions>2</divisions><key><fifths>"
+                     f"{rng.randint(-5, 5)}</fifths></key><time><beats>"
+                     f"{beats}</beats><beat-type>{beat_type}</beat-type>"
+                     "</time></attributes>" if m_idx == 0 else "")
+            measures.append(f'<measure number="{m_idx + 1}">{attrs}'
+                            + "".join(notes) + "</measure>")
+        xml = ('<?xml version="1.0"?><score-partwise><work><work-title>'
+               f"Tune {i}</work-title></work><part-list><score-part "
+               'id="P1"/></part-list><part id="P1">' + "".join(measures)
+               + "</part></score-partwise>")
+        if i == n - 1:
+            with zipfile.ZipFile(os.path.join(d, f"tune{i}.mxl"), "w") as z:
+                z.writestr("score.xml", xml)
+        else:
+            with open(os.path.join(d, f"tune{i}.xml"), "w") as fh:
+                fh.write(xml)
+    with open(os.path.join(d, "broken.xml"), "w") as fh:
+        fh.write("<not-musicxml/>")
+
+
+def phase_host_clis(root) -> dict:
+    """Each host entry point once, on fixtures made from a seed, every
+    output file present and non-empty in its expected count:
+    ``bach_pipeline`` synthesize-corpus (HOST_CHORALES + 3 blacklisted)
+    -> ground-truth -> split (90/10) -> score-templates ->
+    measure-templates -> generate (HOST_GENERATED); ``midi_to_text
+    --processes=2`` on the chorales -> ``text_to_midi``; ``build_
+    synthetic_4parts`` on the midi-texts of HOST_MELODIES soprano lines
+    (``midi_to_text --processes=2``), HOST_PIECES_PER_SIG a meter with 4
+    melodies or more; ``batch_convert_xml --processes=2`` on HOST_XML
+    MusicXML files (one .mxl) and a malformed one; ``random_baselines`` in
+    its four modes at its default 1,000 files; ``python -m
+    ai_music_generation_tpu_torch run`` in a fresh interpreter over a copy
+    of the repository's ``conf/`` and ``data/01_raw/``. The pools fork from
+    this process, which holds a CUDA context; none of these modules imports
+    torch. Returns the file counts and the wall time."""
+    import faulthandler
+    import os
+    import re
+    import shutil
+
+    from ai_music_generation_tpu_torch.cli import (
+        bach_pipeline,
+        batch_convert_xml,
+        build_synthetic_4parts,
+        midi_to_text,
+        random_baselines,
+        text_to_midi,
+    )
+    from ai_music_generation_tpu_torch.codec import midi_io
+    from ai_music_generation_tpu_torch.codec.score import Score, score_to_midi
+    from ai_music_generation_tpu_torch.data.chorales import synthesize_chorale
+
+    def p(*parts):
+        return os.path.join(root, "host", *parts)
+
+    n, counts = HOST_CHORALES, {}
+    t0 = time.perf_counter()
+    faulthandler.dump_traceback_later(HOST_HANG_S, exit=True)
+    try:
+        bach_pipeline.main(["synthesize-corpus", f"--out_dir={p('raw')}",
+                            f"--num_pieces={n}", "--seed=0"])
+        _host_files(p("raw"), ".mid", n + 3, "synthesize-corpus")
+        bach_pipeline.main(["ground-truth", p("raw"), f"--out_dir={p('gt')}"])
+        counts["ground-truth"] = len(_host_files(p("gt"), ".mid", n,
+                                                 "ground-truth"))
+        bach_pipeline.main(["split", p("gt"), f"--out_dir={p('split')}"])
+        n_train = int(n * 0.9)
+        counts["split"] = (
+            len(_host_files(p("split", "train"), ".mid", n_train, "split")),
+            len(_host_files(p("split", "validation"), ".mid", n - n_train,
+                            "split")))
+        bach_pipeline.main(["score-templates", p("gt"),
+                            f"--out_dir={p('stats')}"])
+        _host_files(p("stats"), ".json", 3, "score-templates")
+        bach_pipeline.main(["measure-templates", p("gt"),
+                            f"--out_dir={p('stats')}"])
+        _host_files(p("stats"), ".json", 6, "measure-templates")
+        bach_pipeline.main(["generate", p("stats"), f"--out_dir={p('gen')}",
+                            f"--num_pieces={HOST_GENERATED}"])
+        counts["generate"] = len(_host_files(p("gen"), ".mid",
+                                             HOST_GENERATED, "generate"))
+
+        if midi_to_text.main([p("gt"), p("texts"), "--processes=2"]) != (
+                n, 0):
+            raise AssertionError("midi_to_text failed on a chorale")
+        counts["midi_to_text"] = len(_host_files(p("texts"), ".txt", n,
+                                                 "midi_to_text"))
+        if text_to_midi.main([p("texts"), p("back")]) != (n, 0):
+            raise AssertionError("text_to_midi failed on a chorale text")
+        counts["text_to_midi"] = len(_host_files(p("back"), ".mid", n,
+                                                 "text_to_midi"))
+
+        os.makedirs(p("melodies"))
+        for i in range(HOST_MELODIES):
+            score = synthesize_chorale(SYNTH_SEED * 1_000 + i)
+            midi_io.write_midi_file(score_to_midi(Score(parts=score.parts[:1])),
+                                    p("melodies", f"mel{i:03d}.mid"))
+        midi_to_text.main([p("melodies"), p("melody_texts"), "--processes=2"])
+        meters = collections.Counter()
+        for name in _host_files(p("melody_texts"), ".txt", HOST_MELODIES,
+                                "midi_to_text (melodies)"):
+            with open(p("melody_texts", name)) as fh:
+                meters[re.search(r"time_signature_(\d+/\d+)",
+                                 fh.read()).group(1)] += 1
+        pieces = HOST_PIECES_PER_SIG * sum(c >= 4 for c in meters.values())
+        if build_synthetic_4parts.main([
+                p("melody_texts"), p("pieces"),
+                f"--pieces_per_sig={HOST_PIECES_PER_SIG}"]) != pieces:
+            raise AssertionError("build_synthetic_4parts: wrong piece count")
+        counts["build_synthetic_4parts"] = len(_host_files(
+            p("pieces"), ".txt", pieces, "build_synthetic_4parts"))
+
+        _host_musicxml(p("xml"), HOST_XML)
+        if batch_convert_xml.main([p("xml"), p("abc"), "--processes=2"]) != (
+                HOST_XML, 1):
+            raise AssertionError("batch_convert_xml: wrong counts")
+        abc = _host_files(p("abc"), ".abc", HOST_XML, "batch_convert_xml")
+        for name in abc:
+            with open(p("abc", name)) as fh:
+                if not fh.read().startswith("X:"):
+                    raise AssertionError(f"batch_convert_xml: {name} is not "
+                                         f"ABC")
+        counts["batch_convert_xml"] = len(abc)
+
+        val = p("validation.json")
+        with open(val, "w") as fh:
+            json.dump([{"abc notation": t} for t in
+                       random_baselines.random_tunes(50, seed=SYNTH_SEED)], fh)
+        for mode in ("random", "repeated", "repeated_measures",
+                     "sampled_measures"):
+            if random_baselines.main([mode, p(mode), "--validation_json",
+                                      val]) != HOST_BASELINES:
+                raise AssertionError(f"random_baselines {mode}: wrong count")
+            counts[mode] = len(_host_files(p(mode), ".abc", HOST_BASELINES,
+                                           f"random_baselines {mode}"))
+
+        repo = os.path.dirname(os.path.abspath(__file__))
+        shutil.copytree(os.path.join(repo, "conf"), p("project", "conf"))
+        shutil.copytree(os.path.join(repo, "data", "01_raw"),
+                        p("project", "data", "01_raw"))
+        proc = subprocess.run(
+            [sys.executable, "-m", "ai_music_generation_tpu_torch", "run"],
+            cwd=p("project"), capture_output=True, text=True, timeout=120,
+            env={**os.environ, "PYTHONPATH": repo})
+        if proc.returncode != 0 or "pipeline '__default__' completed" \
+                not in proc.stdout:
+            raise AssertionError(f"python -m ai_music_generation_tpu_torch "
+                                 f"run: exit {proc.returncode}\n"
+                                 f"{proc.stdout}{proc.stderr}")
+        counts["python -m run"] = len(_host_files(
+            p("project", "data", "02_preprocessed"), ".csv", 1,
+            "python -m ai_music_generation_tpu_torch run"))
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    wall = time.perf_counter() - t0
+    print(f"host entry points: {counts}; {wall:.1f} s")
+    return dict(counts=counts, wall=wall)
+
+
 def _empty_cache(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
@@ -6680,6 +6971,29 @@ def main(argv=None) -> int:
           f"{gpt2_peak_flops / 1e12:.0f} TFLOP/s; phase 43 {gpt2_s:.1f} s; "
           f"phase 44 {replay_s:.1f} s (the harness {replay['wall']:.1f} s, "
           f"fixtures {replay['fixtures_s']:.1f} s): {replay['rows']}")
+    # the last host entry points (phase 45): the transfer experiment at its
+    # defaults trains on the card, then each host CLI runs once; no kernel
+    # of the port
+    host_t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        transfer, counts = _main_path(phase_transfer, tmp)
+        clis, cli_counts = _main_path(phase_host_clis, tmp)
+    host_s = time.perf_counter() - host_t0
+    if any(counts.values()) or any(cli_counts.values()):
+        raise AssertionError(f"the transfer experiment or the host CLIs "
+                             f"launched kernels of the port: {counts}, "
+                             f"{cli_counts}")
+    torch.cuda.empty_cache()
+    print(f"[{card}] transfer experiment (defaults, bf16): best val loss "
+          f"melody {transfer['best']['melody']:.4f}, transfer "
+          f"{transfer['best']['transfer']:.4f}, scratch "
+          f"{transfer['best']['scratch']:.4f}: transfer "
+          f"{transfer['verdict']} scratch; ms/iter melody "
+          f"{transfer['ms']['melody']:.2f}, transfer "
+          f"{transfer['ms']['transfer']:.2f}, scratch "
+          f"{transfer['ms']['scratch']:.2f}; the experiment "
+          f"{transfer['wall']:.1f} s; launches of K1-K7 {counts}; host CLIs "
+          f"{clis['wall']:.1f} s {clis['counts']}; phase 45 {host_s:.1f} s")
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

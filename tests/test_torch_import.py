@@ -15,6 +15,8 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "ai_music_generation_tpu_torch",
+    "ai_music_generation_tpu_torch.__main__",
+    "ai_music_generation_tpu_torch.abcnotation.from_musicxml",
     "ai_music_generation_tpu_torch.abcnotation.music21_oracle",
     "ai_music_generation_tpu_torch.abcnotation.native",
     "ai_music_generation_tpu_torch.abcnotation.parser",
@@ -23,11 +25,15 @@ MODULES = [
     "ai_music_generation_tpu_torch.cli.add_control_codes",
     "ai_music_generation_tpu_torch.cli.aesthetics_ab",
     "ai_music_generation_tpu_torch.cli.audio_aes",
+    "ai_music_generation_tpu_torch.cli.bach_pipeline",
+    "ai_music_generation_tpu_torch.cli.batch_convert_xml",
+    "ai_music_generation_tpu_torch.cli.build_synthetic_4parts",
     "ai_music_generation_tpu_torch.cli.create_generations_ranking",
     "ai_music_generation_tpu_torch.cli.irishman_pipeline",
-    "ai_music_generation_tpu_torch.cli.prepare",
     "ai_music_generation_tpu_torch.cli.midi_and_wav_to_aesthetics",
+    "ai_music_generation_tpu_torch.cli.midi_to_text",
     "ai_music_generation_tpu_torch.cli.midi_to_wav_and_aesthetics",
+    "ai_music_generation_tpu_torch.cli.prepare",
     "ai_music_generation_tpu_torch.cli.random_baselines",
     "ai_music_generation_tpu_torch.cli.replay_goldens",
     "ai_music_generation_tpu_torch.cli.sample",
@@ -35,8 +41,10 @@ MODULES = [
     "ai_music_generation_tpu_torch.cli.serve",
     "ai_music_generation_tpu_torch.cli.serve_bench",
     "ai_music_generation_tpu_torch.cli.serve_tunesformer",
+    "ai_music_generation_tpu_torch.cli.text_to_midi",
     "ai_music_generation_tpu_torch.cli.train",
     "ai_music_generation_tpu_torch.cli.train_bench",
+    "ai_music_generation_tpu_torch.cli.transfer_experiment",
     "ai_music_generation_tpu_torch.cli.tunesformer_generate",
     "ai_music_generation_tpu_torch.cli.tunesformer_train",
     "ai_music_generation_tpu_torch.codec.encoding_settings",
@@ -46,6 +54,7 @@ MODULES = [
     "ai_music_generation_tpu_torch.codec.score",
     "ai_music_generation_tpu_torch.configs",
     "ai_music_generation_tpu_torch.configs.generate_configs",
+    "ai_music_generation_tpu_torch.data.chorales",
     "ai_music_generation_tpu_torch.data.curation",
     "ai_music_generation_tpu_torch.data.gpt2_bpe",
     "ai_music_generation_tpu_torch.data.memmap",
@@ -90,6 +99,12 @@ MODULES = [
     "ai_music_generation_tpu_torch.parallel.sequence",
     "ai_music_generation_tpu_torch.parallel.sharding",
     "ai_music_generation_tpu_torch.parallel.worker_smoke",
+    "ai_music_generation_tpu_torch.project",
+    "ai_music_generation_tpu_torch.project.framework",
+    "ai_music_generation_tpu_torch.project.pipelines",
+    "ai_music_generation_tpu_torch.project.pipelines.data_processing",
+    "ai_music_generation_tpu_torch.project.pipelines.data_processing.nodes",
+    "ai_music_generation_tpu_torch.project.pipelines.data_processing.pipeline",
     "ai_music_generation_tpu_torch.serve.engine",
     "ai_music_generation_tpu_torch.serve.http",
     "ai_music_generation_tpu_torch.serve.mesh",
@@ -246,3 +261,18 @@ def test_build_key_tracks_sources_and_flags(monkeypatch, tmp_path):
     before = _build.library_path()
     header.write_text("// shared, edited")
     assert _build.library_path() != before
+
+
+def test_every_jax_module_has_a_port_counterpart():
+    """The two packages' ``.py`` file lists differ by ``cli/convert_ckpt.py``
+    alone: reading orbax checkpoints needs jax, so it stays with the JAX
+    package."""
+    def files(pkg):
+        root = os.path.join(ROOT, pkg)
+        return {os.path.relpath(os.path.join(base, name), root)
+                for base, _, names in os.walk(root) for name in names
+                if name.endswith(".py")}
+
+    missing = files("ai_music_generation_tpu") - files(
+        "ai_music_generation_tpu_torch")
+    assert sorted(missing) == [os.path.join("cli", "convert_ckpt.py")]
