@@ -4,8 +4,9 @@
 N OS processes join one process group, as ``torchrun`` starts the
 reference's DDP ranks (nanoGPT/train.py:86-99); each feeds its rows of one
 global batch to a data-parallel GPT train step, and DDP's all-reduce
-averages the gradients. Gloo carries it on the CPU (the test harness); on
-the cards the same code runs over NCCL.
+averages the gradients. The worker runs on the card over NCCL unless it is
+given ``--device cpu``, where gloo carries it (the test harness). NCCL
+takes one rank a card.
 
 - :func:`run_smoke` builds a (world, 1) mesh over every rank, runs ONE
   sharded train step on a deterministic global batch and an explicit
@@ -38,7 +39,7 @@ SMOKE_BLOCK = 16
 SMOKE_BATCH = 8
 
 
-def run_smoke(device: str = "cpu") -> dict:
+def run_smoke(device: str = "cuda") -> dict:
     """One (sharded) train step and one all-reduce; deterministic: weights
     from seed 0, the batch from an arange, so every launch topology
     computes the same global step."""
@@ -55,7 +56,9 @@ def run_smoke(device: str = "cpu") -> dict:
         make_optimizer,
     )
     from ai_music_generation_tpu_torch.train.step import make_train_step
+    from ai_music_generation_tpu_torch.utils.device import resolve_device
 
+    device = resolve_device(device).type
     world = dist.get_world_size() if dist.is_initialized() else 1
     config = GPTConfig(block_size=SMOKE_BLOCK, vocab_size=SMOKE_VOCAB,
                        n_layer=2, n_head=2, n_embd=32, dropout=0.0,
@@ -97,6 +100,8 @@ def main(argv: Optional[list] = None) -> None:
     ap.add_argument("--process-id", type=int, required=True)
     ap.add_argument("--num-processes", type=int, required=True)
     ap.add_argument("--out-dir", required=True)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="cuda: NCCL, one rank a card; cpu: gloo")
     args = ap.parse_args(argv)
 
     import torch
@@ -111,7 +116,7 @@ def main(argv: Optional[list] = None) -> None:
 
     if args.process_id == 0:
         info = initialize_distributed(
-            "cpu", rank=0, world_size=args.num_processes,
+            args.device, rank=0, world_size=args.num_processes,
             master_addr="localhost", master_port=args.port)
     else:  # the torchrun environment
         os.environ.update(RANK=str(args.process_id),
@@ -119,9 +124,9 @@ def main(argv: Optional[list] = None) -> None:
                           LOCAL_RANK=str(args.process_id),
                           MASTER_ADDR="localhost",
                           MASTER_PORT=str(args.port))
-        info = initialize_distributed("cpu")
+        info = initialize_distributed(args.device)
     try:
-        result = run_smoke()
+        result = run_smoke(args.device)
         # the only writer (the reference's master_process, nanoGPT/
         # train.py:90-95)
         if is_main_process():
@@ -186,17 +191,18 @@ def launch_workers(argv: list[str], num_processes: int,
 
 
 def launch_multiprocess_smoke(out_dir: str, num_processes: int = 2,
-                              timeout: int = 300) -> list[dict]:
-    """Spawn the smoke worker in ``num_processes`` OS processes
-    (:func:`launch_workers`) and return each one's report, with the main
-    processes' flag files as ``main_flags``."""
+                              timeout: int = 300,
+                              device: str = "cuda") -> list[dict]:
+    """Spawn the smoke worker on ``device`` in ``num_processes`` OS
+    processes (:func:`launch_workers`) and return each one's report, with
+    the main processes' flag files as ``main_flags``."""
     os.makedirs(out_dir, exist_ok=True)
     for name in os.listdir(out_dir):
         if name.startswith("main_flag_"):
             os.unlink(os.path.join(out_dir, name))
     outs = launch_workers(
         ["-m", "ai_music_generation_tpu_torch.parallel.worker_smoke",
-         "--out-dir", out_dir], num_processes, timeout)
+         "--out-dir", out_dir, "--device", device], num_processes, timeout)
     reports = [json.loads([ln for ln in out.splitlines()
                            if ln.startswith("{")][-1]) for out in outs]
     flags = sorted(n for n in os.listdir(out_dir)

@@ -14,7 +14,8 @@ servers and render, the pipeline and sequence steps), GPT-2 import
 (``init_from=gpt2*``: sampling, evaluation and fine-tuning at GPT-2 124M's
 width), the golden-replay harness, the transfer experiment and the host
 entry points (the Bach pipeline, MIDI <-> text, the 4-part builder,
-MusicXML -> ABC, the random baselines, the project shell).
+MusicXML -> ABC, the random baselines, the project shell), the
+trained-model decode studies and the multi-process smoke.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -223,9 +224,10 @@ printing a result):
     within 1e-5 of its range, trim indices and ``synthesize_midi_batch``'s
     output lengths equal, two card runs bit-equal;
 33. ABC -> WAV: cli/abc_to_midi_wav_and_aesthetics.py through ``main`` on
-    the card at the JAX package's protocol (1,000 random ABC tunes, the
-    proxy scorer): n_failed 0, a MIDI, a WAV, an aesthetics row (finite)
-    and a similarity row for every tune, 8 WAVs within 1 LSB of the CPU's
+    the card on the JAX package's recipe (500 random ABC tunes, half its
+    protocol's 1,000 for the script's time limit; the proxy scorer):
+    n_failed 0, a MIDI, a WAV, an aesthetics row (finite) and a similarity
+    row for every tune, 8 WAVs within 1 LSB of the CPU's
     render; tunes/min of the whole run and each stage's seconds (ABC ->
     MIDI, render, trim and write, metrics, scoring), then the render alone
     at synth_batch 8 and 64 with its peak memory. Phases 32-33 launch none
@@ -244,7 +246,7 @@ printing a result):
     10, peak memory, FLOPs a chunk (``FlopCounterMode``) and their share
     of 67 TFLOP/s;
 35. cli/audio_aes.py (``--ckpt`` = phase 34's file, ``--batch-size 10``)
-    over phase 33's 1,000 WAVs and a missing path: 1,001 rows, the missing
+    over phase 33's 500 WAVs and a missing path: 501 rows, the missing
     one NaN; files/min and chunks/s; then EvalPipeline through
     cli/abc_to_midi_wav_and_aesthetics.py on 64 of phase 33's tunes with
     ``$AUDIOBOX_WEIGHTS`` set: engine ``audio-aes``, rows within 1e-5 of
@@ -297,10 +299,11 @@ printing a result):
     configuration under its cold and hot passes, every request's tokens
     equal to the unsharded server's on the same weights, K1 launched on
     that path (``by_path["serve_mesh"]`` of K1's entry), tok/s of both
-    over two more hot passes each, in turns (plain, sharded, sharded,
-    plain); ``TunesServer`` over it (the reference model at phase 27's
-    1,024 slots, its cold pass, then two passes of 1,024 more in turns),
-    texts equal to the unsharded server's; the render of
+    over two more hot passes of MESH_SERVE_REQUESTS each, in turns
+    (plain, sharded, sharded, plain); ``TunesServer`` over it (the
+    reference model at phase 27's 1,024 slots, its cold pass, then two
+    passes of 1,024 more in turns), texts equal to the unsharded server's;
+    the render of
     phase 32's tunes over it bit-equal to the unsharded render; the
     pipeline (one stage, 4 microbatches) and sequence (one chunk, the ring
     attention) train steps on the music config (dropout 0, batch 16 x 256,
@@ -349,12 +352,25 @@ printing a result):
     ``build_synthetic_4parts``, ``batch_convert_xml --processes=2``,
     ``random_baselines`` in its four modes, ``python -m
     ai_music_generation_tpu_torch run`` as a subprocess), every output
-    present and non-empty in its expected count.
+    present and non-empty in its expected count;
+46. the trained-model decode studies (``experiments/{realpath_bench_r5,
+    realpath_window_r5,window64_probe,int8_quality,gqa_quality,
+    spec_decode,spec_trace,serve_soak}.py``) at full width and batch (the
+    bench widths, 3,000 tunes, B=4096, 500 new tokens, the 1,000-sample
+    CLI leg), their three trainings cut to STUDY_ITERS iterations, one
+    timed generate a leg, spec_trace unprofiled, the soak at STUDY_WAVES
+    waves: every val loss falls, every teacher NLL is finite, every plain
+    generate, CLI run and soak wave launches exactly n_layer K1 a T=1 step
+    and no K2, every speculative generate K2 and no K1 (spec_trace's
+    int8_dots variant included), the soak's accounting holds; each study's
+    JSON line printed. Then K2's int8_dots mode against its twin at
+    spec_trace's verify step (B=4096, S=256, T=8) and timed, and
+    ``parallel/worker_smoke.py`` over NCCL at world size 1.
 
 The last two lines are a JSON summary of each kernel and
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` counts its
 launches in its path's main-path run (phases 5, 8, 12, 15, 19, 20, 22,
-26, 27, 28, 30, 37-45;
+26, 27, 28, 30, 37-46;
 every count is set to 0 just before each of them and read just after); a
 kernel with no caller on any path (K3, K5, K6) shows its count summed over
 those runs up to phase 30 (phases 37-40 are asserted to launch K1 alone),
@@ -379,6 +395,10 @@ K1's own entry's ``by_path["serve_mesh"]`` is its launches on phase 42's
 sharded server, ``by_path["gpt2"]`` its launches a GPT-2 generate (phase
 43); ``gqa_decode_update/gpt2`` is K1 at that path's shape, timed in phase
 43, with those launches and the shapes the path ran at.
+``by_path["studies"]`` of K1's and of K2's entry is their launches in
+phase 46; K2's ``int8_dots`` holds that mode's numbers at spec_trace's
+verify step, its launches in spec_trace's timed generate and the
+generate's ms a verify step.
 ``bound_ms`` is the least time the card could take for the timed call: its
 bytes (each input read once, each output written once) over 3.35 TB/s or
 its operations over 989 TFLOP/s (1979 TOP/s for int8 x int8 products; the
@@ -511,18 +531,19 @@ TUNES_TRAIN_B, TUNES_CORPUS, TUNES_EPOCHS = 2, 1000, 2
 TUNES_MFU_B = (8, 32)
 # ABC -> WAV (phases 32-33): the eval pipeline's render (synth_batch 8,
 # synthesize_midi_batch's 120 s at 16 kHz) and the JAX package's protocol
-# (docs/PERF.md:11): 1,000 random ABC tunes (cli/random_baselines.py's
-# recipe) through cli/abc_to_midi_wav_and_aesthetics.py, proxy scorer. The
+# (docs/PERF.md:11: 1,000 random ABC tunes of cli/random_baselines.py's
+# recipe through cli/abc_to_midi_wav_and_aesthetics.py, proxy scorer), cut
+# to 500 tunes to keep the script inside its time limit. The
 # card's render is held to the CPU's within 1e-5 of each wave's range
 # (CUDA's and the CPU's exp and sin differ by an ulp; every index, mask and
 # trim is computed from equal bits)
-SYNTH_BATCH, SYNTH_SECONDS, SYNTH_RATE, SYNTH_TUNES = 8, 120, 16_000, 1000
+SYNTH_BATCH, SYNTH_SECONDS, SYNTH_RATE, SYNTH_TUNES = 8, 120, 16_000, 500
 SYNTH_SEED = 7
 SYNTH_FRAC = 1e-5
 # the Audiobox scorer (phases 34-35): AudioboxConfig() (WavLM base, fp32)
 # from a seeded init, 10-s chunks at 16 kHz, timed at AesPredictor's batch
 # (8) and audio-aes's (10); card vs CPU within 1e-4 of the range (the fp32
-# yardstick of phases 17 and 25); cli/audio_aes.py over phase 33's 1,000
+# yardstick of phases 17 and 25); cli/audio_aes.py over phase 33's 500
 # WAVs, EvalPipeline over its first 64 tunes. AUDIOBOX_WAVLM overrides
 # WavLMConfig's fields (none on the card; narrow widths to rehearse)
 AUDIOBOX_WAVLM: dict = {}
@@ -5357,11 +5378,14 @@ def _served(srv, n, seed):
 # the timed passes of phase 42's servers, each engine's cold pass first:
 # (engine, load seed), the plain and the sharded engine in turns
 MESH_TURNS = (("plain", 0), ("mesh", 0), ("mesh", 1), ("plain", 1))
+# the sharded server's hot passes: half of phase 19's load (the script's
+# time limit)
+MESH_SERVE_REQUESTS = 8192
 
 
 @torch.inference_mode()
 def phase_mesh_serve(device="cuda", n_slots=SERVE_SLOTS,
-                     requests=SERVE_REQUESTS) -> dict:
+                     requests=MESH_SERVE_REQUESTS) -> dict:
     """Phase 42's GenerationServer: the unsharded engine and the engine
     over ``make_mesh(1, 1)`` (the control plane of serve/mesh.py, the
     model's mesh parts, the token gather) over the same weights, each
@@ -6409,6 +6433,195 @@ def phase_host_clis(root) -> dict:
     return dict(counts=counts, wall=wall)
 
 
+# the trained-model decode studies (phase 46): experiments/{realpath_bench_r5,
+# realpath_window_r5,window64_probe,int8_quality,gqa_quality,spec_decode,
+# spec_trace,serve_soak}.py at full width and batch (decode_studies.Sizes:
+# 6L/6H/384d, block 256, 3,000 tunes, B=4096, 500 new tokens, 64 quality
+# generations), each training cut to STUDY_ITERS iterations, one timed
+# generate a leg, the 1,000-sample CLI leg alone, spec_trace without the
+# profiler and the soak cut to STUDY_WAVES waves (the full protocols run
+# through python -m, PERF.md); then parallel/worker_smoke.py over NCCL at
+# world size 1
+STUDY_ITERS, STUDY_WAVES = 500, 3
+SPEC_TRACE_T = 8  # spec_trace's verify step: n_draft 7 + 1
+
+
+def _study_counts(result, path, spec=False, n_layer=BENCH["n_layer"]):
+    """Hold one generate's counts (decode_studies.StepCount) to the path:
+    a plain path launches K1 once a layer a T=1 step and no K2; a spec path
+    K2, no K1."""
+    for c in result if isinstance(result, list) else [result]:
+        ok = (c["k1"] == 0 and c["k2"] > 0 if spec else
+              c["t1_steps"] > 0 and c["k1"] == n_layer * c["t1_steps"]
+              and c["k2"] == 0)
+        if not ok:
+            raise AssertionError(f"{path}: launches {c} (n_layer "
+                                 f"{n_layer}, {'spec' if spec else 'plain'})")
+
+
+def phase_studies(root, device="cuda", iters=STUDY_ITERS, waves=STUDY_WAVES,
+                  sizes=None, soak=None) -> dict:
+    """Every study's ``run`` in ``root`` (trainings shared as the harness
+    shares them: the KH=2 flagship trained by realpath_bench_r5, MHA by
+    int8_quality, the spec model by spec_decode; the others reuse them),
+    each printed as its JSON line, and the gates: every training's val loss
+    falls, every teacher NLL is finite, every plain generate and CLI run
+    launches n_layer x its T=1 steps of K1 (no K2), every spec generate K2
+    and no K1 (spec_trace's int8_dots variant included), the soak's
+    accounting holds (its run raises otherwise) with its ticks on K1; then
+    worker_smoke over NCCL at world size 1. ``sizes`` / ``soak`` override
+    the study sizes and the soak's arguments (a CPU rehearsal)."""
+    import math
+    import os
+
+    from ai_music_generation_tpu_torch.experiments import (
+        decode_studies as ds,
+        gqa_quality,
+        int8_quality,
+        realpath_bench_r5,
+        realpath_window_r5,
+        serve_soak,
+        spec_decode,
+        spec_trace,
+        window64_probe,
+    )
+    from ai_music_generation_tpu_torch.parallel.worker_smoke import (
+        launch_multiprocess_smoke,
+    )
+
+    sizes = sizes or ds.Sizes(iters=iters, reps=1, samples=(1000,))
+    steps = (
+        ("realpath_bench_r5", lambda: realpath_bench_r5.run(
+            root, sizes, device)),
+        ("realpath_window_r5", lambda: realpath_window_r5.run(
+            root, sizes, device, reuse=True)),
+        ("window64_probe", lambda: window64_probe.run(
+            root, sizes, device, reuse=True)),
+        ("int8_quality", lambda: int8_quality.run(root, sizes, device)),
+        ("gqa_quality", lambda: gqa_quality.run(root, sizes, device,
+                                                reuse=True)),
+        ("spec_decode", lambda: spec_decode.run(root, sizes, device)),
+        ("spec_trace", lambda: spec_trace.run(root, sizes, device,
+                                              reuse=True, profile=False)),
+        ("serve_soak", lambda: serve_soak.run(
+            device, **(soak or dict(waves=waves)))),
+    )
+    res, walls = {}, {}
+    for name, run in steps:
+        t0 = time.perf_counter()
+        res[name] = ds.print_result(run())
+        walls[name] = time.perf_counter() - t0
+        _empty_cache(device)
+    n_layer = sizes.n_layer
+    for name, r in res.items():
+        trains = r.get("train", {})
+        for t in trains.values() if "history" not in trains else [trains]:
+            first, last = t["history"][0][2], t["history"][-1][2]
+            if not (math.isfinite(last) and last < first):
+                raise AssertionError(f"{name}: the val loss did not fall: "
+                                     f"{t['history']}")
+        for leg in (r, r.get("window"), r.get("quality")):
+            nll = leg.get("teacher_nll") if isinstance(leg, dict) else None
+            if nll and not all(math.isfinite(v) for v in nll.values()):
+                raise AssertionError(f"{name}: teacher NLL {nll}")
+    rb, rw = res["realpath_bench_r5"], res["realpath_window_r5"]
+    for name, legs in (("realpath_bench_r5", rb["cli"]),
+                       ("realpath_window_r5", rw["cli"])):
+        for leg in legs:
+            for run in ("cold", "warm"):
+                _study_counts(leg[run]["counts"], f"{name} CLI {run}",
+                              n_layer=n_layer)
+    _study_counts(rb["microbench"]["counts"], "realpath microbench",
+                  n_layer=n_layer)
+    _study_counts(res["window64_probe"]["throughput"]["counts"],
+                  "window64 throughput", n_layer=n_layer)
+    for name in ("int8_quality", "gqa_quality"):
+        for leg, t in res[name]["throughput"].items():
+            _study_counts(t["counts"], f"{name} {leg}", n_layer=n_layer)
+    sd = res["spec_decode"]
+    _study_counts(sd["plain"]["counts"], "spec_decode plain",
+                  n_layer=n_layer)
+    for k, t in sd["spec"].items():
+        _study_counts(t["counts"], f"spec_decode n_draft {k}", spec=True)
+    st = res["spec_trace"]
+    _study_counts(st["plain"]["counts"], "spec_trace plain", n_layer=n_layer)
+    for leg in ("bf16_k7", "int8dots_k7"):
+        _study_counts(st[leg]["counts"], f"spec_trace {leg}", spec=True)
+    for w in res["serve_soak"]["waves"]:
+        _study_counts(w["counts"], f"serve_soak wave {w['wave']}",
+                      n_layer=n_layer)
+    t0 = time.perf_counter()
+    smoke = launch_multiprocess_smoke(os.path.join(root, "worker_smoke"),
+                                      num_processes=1, timeout=300,
+                                      device=device)[0]
+    walls["worker_smoke"] = time.perf_counter() - t0
+    if not (smoke["process_count"] == smoke["n_devices"] == 1
+            and math.isfinite(smoke["loss"]) and smoke["psum"] == 0.0
+            and smoke["main_flags"] == ["main_flag_0"]):
+        raise AssertionError(f"worker_smoke over {device}: {smoke}")
+    print(f"worker_smoke ({device}, world size 1): {json.dumps(smoke)}")
+    print(f"studies: walls {json.dumps(walls)}")
+    return dict(results=res, walls=walls, smoke=smoke)
+
+
+def phase_int8_dots_timing(B=BATCH, S=256, H=6, D=64, T=SPEC_TRACE_T) -> dict:
+    """K2's int8_dots mode at spec_trace's verify step (B=4096, S=256, T=8,
+    cursor S-8, every history column live) against its twin (write_slab +
+    the int8_dots reference) in fp32: the write bit-exact, the output
+    within 2^-6 of its largest value (phase 6's yardstick); then both timed
+    (plain,
+    kernel, kernel, plain). Its bound: the bytes, or the int8 x int8
+    products at 1979 TOP/s; no one PyTorch call computes it."""
+    from ai_music_generation_tpu_torch.ops.spec_attention import (
+        spec_attention_int8_dots_reference, spec_attention_update,
+        write_slab,
+    )
+
+    x = _spec_inputs(True, T, S - 8, B, S, H, D, seed=2, device="cuda",
+                     n_live=S - 8)
+
+    def plain(x):
+        write_slab(x["k"], x["v"], x["k_slab"], x["v_slab"], x["cursor"])
+        return spec_attention_int8_dots_reference(
+            *[x[n] for n in SPEC_ATT], n_head=H)
+
+    def kernel(x):
+        return spec_attention_update(*[x[n] for n in SPEC_UPD], n_head=H,
+                                     int8_dots=True)
+
+    ref_k, ref_v = x["k"].clone(), x["v"].clone()
+    got = kernel(x)
+    write_slab(ref_k, ref_v, x["k_slab"], x["v_slab"], x["cursor"])
+    if not (torch.equal(x["k"], ref_k) and torch.equal(x["v"], ref_v)):
+        raise AssertionError("int8_dots: the cache write differs")
+    want = spec_attention_int8_dots_reference(
+        x["q"].float(), ref_k, ref_v, *[x[n] for n in SPEC_ATT[3:]],
+        n_head=H)
+    err = float((got.float() - want).abs().max())
+    span = float(want.abs().max())
+    if err > 2.0 ** -6 * span:
+        raise AssertionError(f"int8_dots at T={T}: error {err} > 2^-6 of "
+                             f"{span}")
+    del ref_k, ref_v, got, want
+    ks, ps = [], []
+    for order in (0, 1, 1, 0):
+        if order:
+            ks.append(_cuda_ms(lambda: kernel(x), 20))
+        else:
+            ps.append(_cuda_ms(lambda: plain(x), 5))
+    bound_ms, bound_by = bound(*_spec_work(x, T, S - 8, H, True),
+                               INT8_OPS_PER_S)
+    r = dict(ms=min(ks), plain_ms=min(ps), bound_ms=bound_ms,
+             bound_by=bound_by, library_ms=None, max_abs_err=err)
+    print(f"spec_attention_update int8_dots (B={B} S={S} T={T}, {S - 8} live"
+          f" history columns): kernel {ks} ms/call, twin {ps} (plain, "
+          f"kernel, kernel, plain); error {err:.3e} (largest value "
+          f"{span:.3f}); "
+          f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / r['ms']:.3f} "
+          f"of it")
+    return r
+
+
 def _empty_cache(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
@@ -6994,6 +7207,47 @@ def main(argv=None) -> int:
           f"{transfer['ms']['scratch']:.2f}; the experiment "
           f"{transfer['wall']:.1f} s; launches of K1-K7 {counts}; host CLIs "
           f"{clis['wall']:.1f} s {clis['counts']}; phase 45 {host_s:.1f} s")
+    # the trained-model decode studies (phase 46): K1 on every plain
+    # generate, CLI run and soak tick, K2 (bf16 verify, int8_dots) on the
+    # speculative ones; none of K3-K7; then worker_smoke over NCCL
+    studies_t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        studies, counts = _main_path(phase_studies, tmp)
+    studies_s = time.perf_counter() - studies_t0
+    k1_k2 = ("gqa_decode_update", "spec_attention_update")
+    if any(n for k, n in counts.items() if k not in k1_k2) or not all(
+            counts[k] for k in k1_k2):
+        raise AssertionError(f"the studies launched {counts}")
+    dots = phase_int8_dots_timing()
+    torch.cuda.empty_cache()
+    res = studies["results"]
+    trace = res["spec_trace"]
+    kernels[0]["by_path"]["studies"] = counts["gqa_decode_update"]
+    kernels[1]["by_path"] = {"studies": counts["spec_attention_update"]}
+    kernels[1]["int8_dots"] = dict(
+        dots, launches=trace["int8dots_k7"]["counts"]["k2"],
+        ms_per_step=trace["int8dots_k7"]["ms_per_step"])
+    rb, soak = res["realpath_bench_r5"], res["serve_soak"]
+    print(f"[{card}] trained-model studies ({STUDY_ITERS} iterations a "
+          f"checkpoint): flagship val loss {rb['train']['val_loss']:.4f}; "
+          f"sample CLI {rb['cli'][0]['warm']['samples_s']:.2f} samples/s "
+          f"(window {BENCH['block_size']}), "
+          f"{res['realpath_window_r5']['cli'][0]['warm']['samples_s']:.2f} "
+          f"(window 128); teacher NLL window 256/128 "
+          f"{rb['window']['teacher_nll']}, window 64 "
+          f"{res['window64_probe']['quality']['teacher_nll']}; int8 vs bf16 "
+          f"{res['int8_quality']['teacher_nll']}; spec committed/step "
+          + ", ".join(f"n_draft {k} {t['committed_per_step'][0]:.3f} "
+                      f"({t['speedup']:.3f}x plain)"
+                      for k, t in res["spec_decode"]["spec"].items())
+          + f"; spec_trace ms/step plain {trace['plain']['ms_per_step']:.3f},"
+          f" bf16 {trace['bf16_k7']['ms_per_step']:.3f}, int8_dots "
+          f"{trace['int8dots_k7']['ms_per_step']:.3f}; K2 int8_dots "
+          f"{dots['ms']:.4f} ms/call (bound {dots['bound_ms']:.4f}); soak "
+          f"spread {soak['warm_spread']:.4f}, rss "
+          f"{soak['rss_growth_mb']:+.1f} MB, device "
+          f"{soak['device_growth_mb']:+.1f} MB; launches {counts}; phase 46 "
+          f"{studies_s:.1f} s")
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
