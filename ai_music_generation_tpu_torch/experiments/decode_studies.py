@@ -90,21 +90,28 @@ class Sizes:
                     n_embd=self.n_embd, block_size=self.block_size)
 
 
-def add_common_flags(ap: argparse.ArgumentParser) -> None:
-    """``--work_dir``, ``--device``, ``--reuse`` and every :class:`Sizes`
-    field (defaults: the JAX protocol)."""
-    ap.add_argument("--work_dir", default="studies_out",
-                    help="corpora, checkpoints and outputs")
+def add_common_flags(ap: argparse.ArgumentParser,
+                     defaults: Optional[Sizes] = None,
+                     trains: bool = True) -> None:
+    """``--work_dir`` and ``--reuse`` (unless the study neither trains nor
+    writes: ``trains=False``), ``--device`` and every :class:`Sizes` field
+    (defaults: ``defaults``, else the JAX protocol)."""
+    defaults = defaults or Sizes()
+    if trains:
+        ap.add_argument("--work_dir", default="studies_out",
+                        help="corpora, checkpoints and outputs")
+        ap.add_argument("--reuse", action="store_true",
+                        help="load the checkpoints already in --work_dir "
+                             "(train those that are missing)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    ap.add_argument("--reuse", action="store_true",
-                    help="load the checkpoints already in --work_dir "
-                         "(train those that are missing)")
     for f in dataclasses.fields(Sizes):
         if f.name == "samples":
-            ap.add_argument("--samples", default="1000,4096",
+            ap.add_argument("--samples",
+                            default=",".join(map(str, defaults.samples)),
                             help="cli/sample.py legs, comma-separated")
         else:
-            ap.add_argument(f"--{f.name}", type=int, default=f.default)
+            ap.add_argument(f"--{f.name}", type=int,
+                            default=getattr(defaults, f.name))
 
 
 def parse(ap: argparse.ArgumentParser, argv=None):
@@ -235,13 +242,18 @@ def load_dataset_meta(ds: str) -> dict:
 
 def schedule_for(sizes: Sizes, base: dict = SCHEDULE) -> dict:
     """``base`` at ``sizes``: the widths, and the JAX schedule cut to
-    ``sizes.iters`` (warmup and decay scaled, evals at most 500 apart)."""
+    ``sizes.iters`` (warmup and decay scaled, evals at most the base's
+    interval apart, at an interval that divides the iterations: the
+    trainer writes its checkpoints at evals only)."""
     full = base["max_iters"]
     iters = sizes.iters
+    every = max(1, min(base["eval_interval"], iters))
+    while iters % every:
+        every -= 1
     c = dict(base, **sizes.arch)
     c.update(max_iters=iters, lr_decay_iters=iters,
              warmup_iters=max(1, round(base["warmup_iters"] * iters / full)),
-             eval_interval=max(1, min(base["eval_interval"], iters)),
+             eval_interval=every,
              log_interval=max(1, min(base["log_interval"], iters)),
              eval_iters=sizes.eval_iters)
     return c

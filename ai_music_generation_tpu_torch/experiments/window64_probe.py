@@ -29,15 +29,16 @@ from ai_music_generation_tpu_torch.experiments.realpath_bench_r5 import (
 )
 
 
-def bench_model(sizes: ds.Sizes, device: str, seed: int = 0):
+def bench_model(sizes: ds.Sizes, device: str, seed: int = 0,
+                n_kv_head=2, flat_kv=True):
     """The bench config (bench.py:60-65) at ``sizes``' widths from seeded
-    init weights."""
+    init weights (``n_kv_head=None, flat_kv=False``: its MHA twin)."""
     from ai_music_generation_tpu_torch.models.convert import init_weights
     from ai_music_generation_tpu_torch.models.gpt import GPT, GPTConfig
 
     cfg = GPTConfig(vocab_size=ds.BENCH_VOCAB, dropout=0.0, bias=False,
-                    dtype=torch.bfloat16, kv_quantized=True, n_kv_head=2,
-                    flat_kv=True, **sizes.arch)
+                    dtype=torch.bfloat16, kv_quantized=True,
+                    n_kv_head=n_kv_head, flat_kv=flat_kv, **sizes.arch)
     model = GPT(cfg, device="cpu")
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

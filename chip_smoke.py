@@ -15,7 +15,9 @@ servers and render, the pipeline and sequence steps), GPT-2 import
 width), the golden-replay harness, the transfer experiment and the host
 entry points (the Bach pipeline, MIDI <-> text, the 4-part builder,
 MusicXML -> ABC, the random baselines, the project shell), the
-trained-model decode studies and the multi-process smoke.
+trained-model decode studies, the multi-process smoke and the last
+experiment scripts (the window and refresh contracts, the MFU
+decomposition, the fuzz campaign, the int4 storage probes).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -30,7 +32,8 @@ printing a result):
    ops/csrc`` (nvcc's register/shared-memory report is printed);
 3. kernel vs plain twin at the batched decode shape (B=4096, S=128, H=6,
    KH=2, D=64) and at MHA (KH=6) in all four modes (int8/bf16 cache x
-   lockstep/ring mask), pos in {0, 7, 8, 127}, plus a 3-row batch, and
+   lockstep/ring mask), pos in {0, 127}, plus a 3-row batch at pos in
+   {0, 7, 8, 127}, and
    3 rows over a 1024-column cache (GPTConfig's default block_size) at MHA
    with a bf16 cache and at KH=2 with an int8 one: caches and scales
    bit-exact, the output within one bf16 ulp of its range of the twin
@@ -366,11 +369,23 @@ printing a result):
     JSON line printed. Then K2's int8_dots mode against its twin at
     spec_trace's verify step (B=4096, S=256, T=8) and timed, and
     ``parallel/worker_smoke.py`` over NCCL at world size 1.
+47. the last experiment scripts (``experiments/{window_quality,
+    refresh_quality,window_flat_probe,mfu_sweep,fuzz_campaign,int4_probe,
+    int4_probe2,int4_cache_probe}.py``) in phase 46's work directory
+    (window_quality reuses its spec checkpoint) at full width and batch:
+    trainings cut to STUDY_ITERS, one timed generate a leg, mfu_sweep at
+    both models with every variant, the fuzz campaign at FUZZ_CASES, the
+    int4 probes at their full shapes (B=4096, S=256): every val loss falls,
+    every NLL is finite, every generate launches exactly n_layer K1 a T=1
+    step and no other kernel, mfu_sweep none of K1-K7 with finite losses,
+    MFU in (0, 1) and a big batch run, the campaign clean, the int8 and
+    packed probe variants timed and no sum pass above SUM_RATE_LIMIT; each
+    module's JSON line printed.
 
 The last two lines are a JSON summary of each kernel and
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` counts its
 launches in its path's main-path run (phases 5, 8, 12, 15, 19, 20, 22,
-26, 27, 28, 30, 37-46;
+26, 27, 28, 30, 37-47;
 every count is set to 0 just before each of them and read just after); a
 kernel with no caller on any path (K3, K5, K6) shows its count summed over
 those runs up to phase 30 (phases 37-40 are asserted to launch K1 alone),
@@ -396,9 +411,10 @@ sharded server, ``by_path["gpt2"]`` its launches a GPT-2 generate (phase
 43); ``gqa_decode_update/gpt2`` is K1 at that path's shape, timed in phase
 43, with those launches and the shapes the path ran at.
 ``by_path["studies"]`` of K1's and of K2's entry is their launches in
-phase 46; K2's ``int8_dots`` holds that mode's numbers at spec_trace's
-verify step, its launches in spec_trace's timed generate and the
-generate's ms a verify step.
+phase 46, ``by_path["experiments"]`` of K1's its launches in phase 47;
+K2's ``int8_dots`` holds that mode's numbers at spec_trace's verify step,
+its launches in spec_trace's timed generate and the generate's ms a
+verify step.
 ``bound_ms`` is the least time the card could take for the timed call: its
 bytes (each input read once, each output written once) over 3.35 TB/s or
 its operations over 989 TFLOP/s (1979 TOP/s for int8 x int8 products; the
@@ -413,6 +429,7 @@ from __future__ import annotations
 import argparse
 import collections
 import copy
+import functools
 import json
 import subprocess
 import sys
@@ -514,7 +531,7 @@ BENCH_BURN_IN, BENCH_STEPS = 3, 10
 # cli/serve_bench.py's prompt
 TUNES_H, TUNES_SIZE, TUNES_LENGTH = 12, 32, 128
 TUNES_GEN_B, TUNES_GEN_BIG, TUNES_MAX_PATCH = 16, 1024, 32
-TUNES_SLOTS, TUNES_REQUESTS = 1024, 4096
+TUNES_SLOTS, TUNES_REQUESTS = 1024, 2048
 # the batches of the other tunes paths: the HTTP server's slots (phase 27),
 # tunesformer_generate's tunes (phase 28; sample_tunesformer runs one a
 # leadsheet)
@@ -533,11 +550,11 @@ TUNES_MFU_B = (8, 32)
 # synthesize_midi_batch's 120 s at 16 kHz) and the JAX package's protocol
 # (docs/PERF.md:11: 1,000 random ABC tunes of cli/random_baselines.py's
 # recipe through cli/abc_to_midi_wav_and_aesthetics.py, proxy scorer), cut
-# to 500 tunes to keep the script inside its time limit. The
+# to 250 tunes to keep the script inside its time limit. The
 # card's render is held to the CPU's within 1e-5 of each wave's range
 # (CUDA's and the CPU's exp and sin differ by an ulp; every index, mask and
 # trim is computed from equal bits)
-SYNTH_BATCH, SYNTH_SECONDS, SYNTH_RATE, SYNTH_TUNES = 8, 120, 16_000, 500
+SYNTH_BATCH, SYNTH_SECONDS, SYNTH_RATE, SYNTH_TUNES = 8, 120, 16_000, 250
 SYNTH_SEED = 7
 SYNTH_FRAC = 1e-5
 # the Audiobox scorer (phases 34-35): AudioboxConfig() (WavLM base, fp32)
@@ -605,7 +622,24 @@ def phase_build() -> None:
 
 
 def _decode_inputs(quant, ring, pos, B, S, H=6, KH=2, D=64, seed=0):
-    """CPU tensors for one decode step (arguments of gqa_decode_update)."""
+    """CPU tensors for one decode step (arguments of gqa_decode_update),
+    fresh copies each call (the op writes its caches in place): only
+    ``mask_rel`` depends on ``pos``, so the draw of the last configuration
+    is kept (drawing B=4096 caches on the host costs seconds)."""
+    *args, lengths = _decode_draw(quant, ring, B, S, H, KH, D, seed)
+    args = [None if a is None else a.clone() for a in args]
+    if ring:
+        offset = (pos - torch.arange(S)) % S
+        args.append((lengths[:, None] - offset[None, :]).to(torch.int32))
+    else:
+        args.append(None)
+    return args
+
+
+@functools.lru_cache(maxsize=1)
+def _decode_draw(quant, ring, B, S, H, KH, D, seed):
+    """_decode_inputs' random draw: q, k, v, k_slab, v_slab, k_scale,
+    v_scale and the ring rows' lengths (None in lockstep)."""
     g = torch.Generator().manual_seed(seed)
     bf = lambda *shape: torch.randn(shape, generator=g).to(torch.bfloat16)  # noqa
     q, k_slab, v_slab = bf(B, H, D), bf(B, KH * D), bf(B, KH * D)
@@ -617,12 +651,8 @@ def _decode_inputs(quant, ring, pos, B, S, H=6, KH=2, D=64, seed=0):
     else:
         k, v = bf(B, S, KH * D), bf(B, S, KH * D)
         k_scale = v_scale = None
-    mask_rel = None
-    if ring:
-        lengths = torch.randint(0, S, (B,), generator=g)
-        offset = (pos - torch.arange(S)) % S
-        mask_rel = (lengths[:, None] - offset[None, :]).to(torch.int32)
-    return [q, k, v, k_slab, v_slab, k_scale, v_scale, mask_rel]
+    lengths = torch.randint(0, S, (B,), generator=g) if ring else None
+    return q, k, v, k_slab, v_slab, k_scale, v_scale, lengths
 
 
 def _to(args, device):
@@ -656,9 +686,11 @@ def phase_kernel_vs_twin(device, B=BATCH, S=WINDOW) -> float:
     )
 
     worst32 = worst16 = 0.0
+    # B rows at the first and the last position (their twins run on the
+    # host, seconds a case); the tile edges 7 and 8 at 3 rows
     cases = [(b, S, kh, quant, ring, pos) for b in (B, 3) for kh in (2, 6)
              for quant in (True, False) for ring in (False, True)
-             for pos in (0, 7, 8, S - 1)]
+             for pos in ((0, S - 1) if b == B else (0, 7, 8, S - 1))]
     # a long cache (8 staged tiles of columns): MHA bf16 and GQA int8
     cases += [(3, LONG, kh, quant, ring, pos)
               for kh, quant in ((6, False), (2, True))
@@ -695,8 +727,9 @@ def phase_kernel_vs_twin(device, B=BATCH, S=WINDOW) -> float:
         worst32 = max(worst32, err)
         worst16 = max(worst16,
                       (out - ref.float()).abs().max().item())
-    print(f"kernel vs twin: 4 modes x pos (0, 7, 8, {S - 1}) x G (3, 1) at "
-          f"B={B} and B=3, S={S}, B=3, S={LONG} (MHA bf16, G=3 int8; "
+    print(f"kernel vs twin: 4 modes x G (3, 1) at B={B} (pos 0, {S - 1}) "
+          f"and B=3 (pos 0, 7, 8, {S - 1}), S={S}, B=3, S={LONG} (MHA bf16, "
+          f"G=3 int8; "
           f"pos 0, 7, 8, {LONG - 1}) and the sample CLI's B={CLI_SAMPLES}, "
           f"S={CLI_S} (G=3 int8 lockstep; pos 0, 7, 8, {CLI_S - 1}): caches "
           f"and scales bit-exact; out max abs err {worst32} vs the fp32 twin,"
@@ -5380,7 +5413,7 @@ def _served(srv, n, seed):
 MESH_TURNS = (("plain", 0), ("mesh", 0), ("mesh", 1), ("plain", 1))
 # the sharded server's hot passes: half of phase 19's load (the script's
 # time limit)
-MESH_SERVE_REQUESTS = 8192
+MESH_SERVE_REQUESTS = 4096
 
 
 @torch.inference_mode()
@@ -6442,7 +6475,7 @@ def phase_host_clis(root) -> dict:
 # profiler and the soak cut to STUDY_WAVES waves (the full protocols run
 # through python -m, PERF.md); then parallel/worker_smoke.py over NCCL at
 # world size 1
-STUDY_ITERS, STUDY_WAVES = 500, 3
+STUDY_ITERS, STUDY_WAVES = 300, 3
 SPEC_TRACE_T = 8  # spec_trace's verify step: n_draft 7 + 1
 
 
@@ -6620,6 +6653,158 @@ def phase_int8_dots_timing(B=BATCH, S=256, H=6, D=64, T=SPEC_TRACE_T) -> dict:
           f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / r['ms']:.3f} "
           f"of it")
     return r
+
+
+# the last experiment scripts (phase 47): experiments/{window_quality,
+# refresh_quality,window_flat_probe,mfu_sweep,fuzz_campaign,int4_probe,
+# int4_probe2,int4_cache_probe}.py at full width and batch in phase 46's
+# work directory (window_quality reuses its spec checkpoint), trainings cut
+# to STUDY_ITERS, one timed generate a leg, mfu_sweep at both models with
+# every variant, the fuzz campaign at FUZZ_CASES, the probes at their full
+# shapes (the full protocols run through python -m, PERF.md)
+FUZZ_CASES = (5000, 500)  # ABC differential cases, codec round trips a mode
+SUM_RATE_LIMIT = 1.05 * 3.35e3  # GB/s: no sum pass reads above the HBM rate
+
+
+def phase_experiments(root, device="cuda", iters=STUDY_ITERS, sizes=None,
+                      refresh_sizes=None, mfu=None, fuzz=FUZZ_CASES,
+                      probes=None) -> dict:
+    """Each module's ``run`` in ``root``, its JSON line printed, and the
+    gates: every training's val loss falls, every NLL is finite, every
+    generate launches n_layer x its T=1 steps of K1 and no other kernel,
+    mfu_sweep launches none of K1-K7 with every variant's loss finite and
+    MFU in (0, 1) and a big batch run, the fuzz campaign is clean, the int8
+    and packed probe variants are timed and no sum pass reads above
+    SUM_RATE_LIMIT. ``sizes``, ``refresh_sizes``, ``mfu`` (mfu_sweep.run's
+    keyword arguments a model) and ``probes`` (each probe's) cut a CPU
+    rehearsal."""
+    import dataclasses
+    import math
+
+    from ai_music_generation_tpu_torch.experiments import (
+        decode_studies as ds,
+        fuzz_campaign,
+        int4_cache_probe,
+        int4_probe,
+        int4_probe2,
+        mfu_sweep,
+        refresh_quality,
+        window_flat_probe,
+        window_quality,
+    )
+
+    sizes = sizes or ds.Sizes(iters=iters, reps=1)
+    refresh_sizes = refresh_sizes or dataclasses.replace(
+        refresh_quality.SIZES, iters=iters, reps=1)
+    probes = probes or {}
+    ops = _counted_ops()
+    res, walls, mfu_launches = {}, {}, {}
+
+    def mfu_runs():
+        out = {}
+        for model in mfu_sweep.MODELS:
+            before = {k: f.launches for k, f in ops.items()}
+            out[model] = mfu_sweep.run(model, device=device,
+                                       **(mfu or {}).get(model, {}))
+            mfu_launches[model] = {k: f.launches - before[k]
+                                   for k, f in ops.items()}
+            _empty_cache(device)
+        return out
+
+    steps = (
+        ("window_quality", lambda: window_quality.run(
+            root, sizes, device, reuse=True)),
+        ("refresh_quality", lambda: refresh_quality.run(
+            root, refresh_sizes, device)),
+        ("window_flat_probe", lambda: window_flat_probe.run(sizes, device)),
+        ("mfu_sweep", mfu_runs),
+        ("fuzz_campaign", lambda: fuzz_campaign.run(*fuzz)),
+        ("int4_probe", lambda: int4_probe.run(
+            device=device, **probes.get("int4_probe", {}))),
+        ("int4_probe2", lambda: int4_probe2.run(
+            device=device, **probes.get("int4_probe2", {}))),
+        ("int4_cache_probe", lambda: int4_cache_probe.run(
+            device=device, **probes.get("int4_cache_probe", {}))),
+    )
+    for name, run in steps:
+        t0 = time.perf_counter()
+        res[name] = run()
+        for r in res[name].values() if name == "mfu_sweep" else [res[name]]:
+            ds.print_result(r)
+        walls[name] = time.perf_counter() - t0
+        _empty_cache(device)
+    wq, rq = res["window_quality"], res["refresh_quality"]
+    for name, r in (("window_quality", wq), ("refresh_quality", rq)):
+        hist = r["train"]["history"]
+        first, last = hist[0][2], hist[-1][2]
+        if not (math.isfinite(last) and last < first):
+            raise AssertionError(f"{name}: the val loss did not fall: "
+                                 f"{r['train']['history']}")
+    for name, nll in (("window_quality", wq["teacher_nll"]),
+                      ("refresh_quality", rq["nll_vs_context"])):
+        if not all(math.isfinite(v) for v in nll.values()):
+            raise AssertionError(f"{name}: NLL {nll}")
+    for w, t in wq["throughput"].items():
+        _study_counts(t["counts"], f"window_quality window {w}",
+                      n_layer=sizes.n_layer)
+    for r, t in rq["throughput"].items():
+        _study_counts(t["counts"], f"refresh_quality refresh {r}",
+                      n_layer=refresh_sizes.n_layer)
+    for row in res["window_flat_probe"]["all"]:
+        _study_counts(row["counts"], f"window_flat_probe {row['config']} "
+                      f"window {row['window']}", n_layer=sizes.n_layer)
+    for model, r in res["mfu_sweep"].items():
+        if any(mfu_launches[model].values()):
+            raise AssertionError(f"mfu_sweep {model} launched "
+                                 f"{mfu_launches[model]}")
+        for v, x in r["variants"].items():
+            if not (math.isfinite(x["loss"]) and 0 < x["mfu"] < 1):
+                raise AssertionError(f"mfu_sweep {model} {v}: {x}")
+        if not any(x["batch"] != r["batch"] for x in r["variants"].values()):
+            raise AssertionError(f"mfu_sweep {model}: no big batch ran "
+                                 f"({r['big_failures']})")
+    if not res["fuzz_campaign"]["clean"]:
+        raise AssertionError(f"fuzz campaign: {res['fuzz_campaign']}")
+    p1, p2, p3 = (res[k] for k in ("int4_probe", "int4_probe2",
+                                   "int4_cache_probe"))
+    timed = ([p1["variants"][k] for k in ("int8", "packed")]
+             + [p2["cases"][f"{k}-{s}"] for k in ("attn", "sum")
+                for s in ("int8", "packed")] + [p3["variants"]["int8"]])
+    if not all(t.get("ms_per_call", 0) > 0 for t in timed):
+        raise AssertionError(f"int4 probes: a variant was not timed: {timed}")
+    for label, c in p2["cases"].items():
+        if label.startswith("sum") and c.get("gb_s", 0) > SUM_RATE_LIMIT:
+            raise AssertionError(f"int4_probe2 {label} reads {c['gb_s']:.0f}"
+                                 f" GB/s, above {SUM_RATE_LIMIT:.0f}")
+    print(f"experiments: walls {json.dumps(walls)}")
+    return dict(results=res, walls=walls, mfu_launches=mfu_launches)
+
+
+def _experiments_summary(er) -> str:
+    """Phase 47's results in one line."""
+    wq, rq, mfu = er["window_quality"], er["refresh_quality"], er["mfu_sweep"]
+    return (
+        f"experiments: window_quality NLL {wq['teacher_nll']}, tok/s "
+        + ", ".join(f"{w} {t['tok_s']:.1f}"
+                    for w, t in wq["throughput"].items())
+        + f"; refresh_quality NLL vs context {rq['nll_vs_context']}, tok/s "
+        + ", ".join(f"{r} {t['tok_s']:.1f}"
+                    for r, t in rq["throughput"].items())
+        + "; window x flat " + ", ".join(
+            f"{row['config']} @{row['window']} {row['tok_s']:.1f}"
+            for row in er["window_flat_probe"]["all"])
+        + "; mfu_sweep " + "; ".join(
+            f"{m}: " + ", ".join(f"{k} {v['ms']:.2f} ms {v['mfu']:.4f}"
+                                 for k, v in r["variants"].items())
+            for m, r in mfu.items())
+        + f"; fuzz {er['fuzz_campaign']['abc']['cases']} ABC + "
+        f"{er['fuzz_campaign']['codec']['cases']} codec cases clean; "
+        "int4_probe ms/step " + ", ".join(
+            f"{k} {v.get('ms_per_step', 'FAILED')}"
+            for k, v in er["int4_probe"]["variants"].items())
+        + "; int4_probe2 GB/s " + ", ".join(
+            f"{k} {v['gb_s']:.0f}" if "gb_s" in v else f"{k} FAILED"
+            for k, v in er["int4_probe2"]["cases"].items()))
 
 
 def _empty_cache(device) -> None:
@@ -7213,13 +7398,21 @@ def main(argv=None) -> int:
     studies_t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         studies, counts = _main_path(phase_studies, tmp)
-    studies_s = time.perf_counter() - studies_t0
-    k1_k2 = ("gqa_decode_update", "spec_attention_update")
-    if any(n for k, n in counts.items() if k not in k1_k2) or not all(
-            counts[k] for k in k1_k2):
-        raise AssertionError(f"the studies launched {counts}")
-    dots = phase_int8_dots_timing()
-    torch.cuda.empty_cache()
+        studies_s = time.perf_counter() - studies_t0
+        k1_k2 = ("gqa_decode_update", "spec_attention_update")
+        if any(n for k, n in counts.items() if k not in k1_k2) or not all(
+                counts[k] for k in k1_k2):
+            raise AssertionError(f"the studies launched {counts}")
+        dots = phase_int8_dots_timing()
+        torch.cuda.empty_cache()
+        # the last experiment scripts (phase 47), in phase 46's work
+        # directory: K1 on every generate, no other kernel
+        exp_t0 = time.perf_counter()
+        experiments, exp_counts = _main_path(phase_experiments, tmp)
+        experiments_s = time.perf_counter() - exp_t0
+    if any(n for k, n in exp_counts.items() if k != "gqa_decode_update") \
+            or not exp_counts["gqa_decode_update"]:
+        raise AssertionError(f"the experiments launched {exp_counts}")
     res = studies["results"]
     trace = res["spec_trace"]
     kernels[0]["by_path"]["studies"] = counts["gqa_decode_update"]
@@ -7248,6 +7441,9 @@ def main(argv=None) -> int:
           f"{soak['rss_growth_mb']:+.1f} MB, device "
           f"{soak['device_growth_mb']:+.1f} MB; launches {counts}; phase 46 "
           f"{studies_s:.1f} s")
+    kernels[0]["by_path"]["experiments"] = exp_counts["gqa_decode_update"]
+    print(f"[{card}] " + _experiments_summary(experiments["results"])
+          + f"; launches {exp_counts}; phase 47 {experiments_s:.1f} s")
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
