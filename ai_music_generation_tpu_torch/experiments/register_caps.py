@@ -34,7 +34,8 @@ import torch
 from ai_music_generation_tpu_torch.models.gpt import KVCache
 from ai_music_generation_tpu_torch.ops import _build
 
-SOURCES = ("spec_attention.cu", "spec_attention_f32.cu")
+SOURCES = ("spec_attention.cu", "spec_attention_f32.cu",
+           "spec_attention_dots.cu")
 # the cap of an fp32 q's verify blocks over an int8 cache in mma_min_blocks
 CAP = re.compile(r"(std::is_same<QT, float>::value \? )(\d+)( : 8\))")
 
@@ -57,10 +58,9 @@ def build(cap: int):
     _build._run_all([[_build._nvcc(), *_build.LINK_FLAGS, "-o", str(lib),
                       *objs]])
     cdll = ctypes.CDLL(str(lib))
-    for name, n_int in (("spec_attention_launch", 7),
-                        ("spec_attention_f32_launch", 6)):
+    for name in ("spec_attention_launch", "spec_attention_f32_launch"):
         fn = getattr(cdll, name)
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * n_int
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return cdll, log
@@ -114,8 +114,9 @@ def inputs(fp32: bool, T: int, cursor: int, n_live: int, B=4096, S=256,
                                     device="cuda"))
 
 
-def launch(cdll, x: dict, H: int = 6) -> torch.Tensor:
-    """K2 through ``cdll``, as ops/spec_attention.py::_launch calls it."""
+def launch(cdll, x: dict, H: int = 6, dots: bool = False) -> torch.Tensor:
+    """K2 through ``cdll``, as ops/spec_attention.py::_launch calls it
+    (``dots``: in int8_dots mode)."""
     q = x["q"]
     B, T, HD = q.shape
     out = torch.empty_like(q)
@@ -124,9 +125,8 @@ def launch(cdll, x: dict, H: int = 6) -> torch.Tensor:
                                       "lengths", "cursor")]
     args += [out.data_ptr(), B, T, x["k"].shape[1], H, HD // H, 1]
     stream = torch.cuda.current_stream().cuda_stream
-    rc = (cdll.spec_attention_f32_launch(*args, stream)
-          if q.dtype == torch.float32
-          else cdll.spec_attention_launch(*args, 0, stream))
+    rc = (cdll.spec_attention_f32_launch if q.dtype == torch.float32
+          else cdll.spec_attention_launch)(*args, int(dots), stream)
     if rc != 0:
         raise RuntimeError(f"launch failed: {rc}")
     return out

@@ -128,7 +128,7 @@ def load_library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name, n_ptr, n_int in (("gqa_decode_update_launch", 10, 7),
                                ("spec_attention_launch", 11, 7),
-                               ("spec_attention_f32_launch", 11, 6),
+                               ("spec_attention_f32_launch", 11, 7),
                                ("decode_attention_launch", 7, 5),
                                ("lean_attention_launch", 6, 5)):
         fn = getattr(lib, name)

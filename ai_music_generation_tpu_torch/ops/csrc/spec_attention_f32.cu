@@ -4,7 +4,9 @@
 // its note gives the design, what bounds it and the split passes that keep
 // the products at fp32 accuracy on the tensor cores (fp16 hi + lo of q and
 // P over an int8 cache, 3xTF32 over an fp32 one). spec_attention.cu
-// instantiates the same kernel for bf16, in its own nvcc process.
+// instantiates the same kernel for bf16, in its own nvcc process, and
+// spec_attention_dots.cu in int8_dots mode, which this entry point reaches
+// through launch_mma_dots.
 //
 // Replaces, at fp32, the TPU kernels ai_music_generation_tpu/ops/
 // spec_attention.py::_spec_attention_update (slab write + attention) and
@@ -22,16 +24,20 @@
 // device pointer to a contiguous tensor: q and out fp32, the cache and the
 // slabs int8 when quantized is set (k_scale/v_scale bf16 then, else null),
 // fp32 otherwise. k_slab, v_slab and cursor are null for the attention
-// alone and all set for the write + attention. Returns the cudaError_t of
-// the launch (0 = launched), or -1 without launching when the block's
-// buffers exceed shared memory.
+// alone and all set for the write + attention; int8_dots needs quantized.
+// Returns the cudaError_t of the launch (0 = launched), or -1 without
+// launching when the block's buffers exceed shared memory.
 extern "C" int spec_attention_f32_launch(const void* q, void* k, void* v, const void* k_slab,
                                          const void* v_slab, const void* k_scale,
                                          const void* v_scale, const void* col_pos,
                                          const void* lengths, const void* cursor, void* out,
                                          int B, int T, int S, int H, int D, int quantized,
-                                         void* stream) {
+                                         int int8_dots, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (int8_dots && !quantized) return static_cast<int>(cudaErrorInvalidValue);
+  if (int8_dots)
+    return launch_mma_dots(q, k, v, k_slab, v_slab, k_scale, v_scale, col_pos, lengths, cursor,
+                           out, B, T, S, H, D, 1, st);
   if (quantized)
     return launch_mma<float, int8_t>(q, k, v, k_slab, v_slab, k_scale, v_scale, col_pos,
                                      lengths, cursor, out, B, T, S, H, D, st);

@@ -1,16 +1,16 @@
 // The tensor-core kernel of the speculative-verify attention (K2 with its
-// slab write, K3 without), for every mode but int8_dots, templated on the
-// type of q and of the output: bf16 (a bf16 model; instantiated in
-// spec_attention.cu) or fp32 (an fp32 model; instantiated in
-// spec_attention_f32.cu). Each source compiles its half of the
-// instantiations in its own nvcc process (ops/_build.py::build), so the
-// two types build side by side. The contract and the plain PyTorch twins
-// live in ai_music_generation_tpu_torch/ops/spec_attention.py.
+// slab write, K3 without), templated on the type of q and of the output,
+// bf16 (a bf16 model) or fp32 (an fp32 model), and on the int8_dots mode.
+// spec_attention.cu instantiates the bf16 modes, spec_attention_f32.cu the
+// fp32 ones and spec_attention_dots.cu int8_dots for both types, each
+// source in its own nvcc process (ops/_build.py::build), so they build
+// side by side. The contract and the plain PyTorch twins live in
+// ai_music_generation_tpu_torch/ops/spec_attention.py.
 //
 // Replaces the TPU kernels ai_music_generation_tpu/ops/spec_attention.py::
 // _spec_attention_update (slab write + attention) and _spec_attention
 // (attention alone), which share their body _make_attend and compute in
-// q's dtype.
+// q's dtype (its int8_dots branch in int8 x int8 dots).
 //
 // What bounds it: device-memory bytes in both regimes and both types. At
 // the verify step (B=4096, S=256, H=6, D=64, int8 cache, T=5) one call
@@ -23,7 +23,10 @@
 // as split passes (below) that keep fp32 accuracy. What holds the kernel
 // back on the card is the work of a block between its loads (conversions,
 // softmax, synchronisation), not the loads: its design keeps that work
-// small and as many blocks as possible on an SM.
+// small and as many blocks as possible on an SM. int8_dots is bound the
+// same way: at spec_trace's verify step (T=8, 248 live history columns)
+// 0.8 GB of K and V move (0.27 ms at 3.35 TB/s) against 12.9 GOP of
+// integer products (0.0065 ms at 1,979 TOP/s).
 //
 // Design:
 // - regimes, chosen by the launcher from T: verify (T <= 16) runs one block
@@ -43,7 +46,7 @@
 //   not read, and tiles with no such column are skipped. (TMA cannot
 //   choose the source per column, and wgmma's 64-row minimum would waste
 //   more at T=5 than mma.sync's 16.) col_pos and the scales are loaded once
-//   per block;
+//   per block. Every mode, int8_dots included, shares this staging;
 // - scores: S = Q K^T with mma.sync (m16n8k16 fp16 or bf16, m16n8k8 tf32),
 //   fp32 accumulation; q held as A fragments in registers, K read from
 //   shared memory. The depth index is permuted so that each thread reads
@@ -99,8 +102,49 @@
 // (ops/spec_attention.py::spec_attention_mma_model and
 // spec_attention_f32_mma_model evaluate these roundings on the CPU.)
 //
+// The int8_dots mode (int8 cache; the Pallas kernel's int8 x int8 MXU
+// path, ops/spec_attention.py::spec_attention_int8_dots_reference): both
+// products on the integer tensor cores, mma.sync m16n8k32 s8 x s8 -> s32,
+// whose int32 sums are exact (the integers of the twin's float64
+// products). What differs from the modes above:
+// - q: quantized once a block per (head, query) row while the first tile
+//   lands, a warp per row, into shared memory: s = max(max|q|, 1e-20) /
+//   127, q8 = rint(q / s), the twin's q8 bit for bit (the quotients of
+//   IEEE divisions from one reciprocal a row and two fma steps, div_rn; the
+//   rounding a float addition, kRound; |q / s| < 127.5 needs no clip).
+//   Each warp takes its s8 A fragments in the permuted depth order above,
+//   so a B register is 4 depth bytes of one column as the cache stores
+//   them: K needs no conversion;
+// - scores: int32 x s x k_scale x log2(e)/sqrt(D), the twin's order; then
+//   the same fp32 softmax, x v_scale;
+// - probabilities: p = e x v_scale / sum quantized per row, ps = max(max
+//   p, 1e-20) / 127, p8 = rint(e x v_scale x (1/sum)(1/ps)) by one fma a
+//   value, into an int8 buffer in the order of PV's A fragments (each
+//   thread reads its 8 bytes of a row with one load). The kernel's p
+//   rounds otherwise than the twin's (softmax, then x v_scale) either way,
+//   so an exact p / ps would not give the twin's p8;
+// - PV: the B operand wants 4 consecutive columns of one head element in
+//   a register, while the cache stores a column's elements together. Each
+//   thread loads one word (4 elements) of each of its 8 columns of a
+//   32-column step and transposes the 4x4 bytes with 8 byte permutes (prmt)
+//   per 4 registers. (ldmatrix .trans moves 16-bit elements only; wgmma
+//   takes 8-bit operands K-major only, and its 64-row minimum would waste
+//   most of the tile at T <= 8.) The warps' int32 partial sums meet
+//   exactly in shared memory; the output is int32 x ps, rounded once to
+//   q's type. Output within 2^-6 of its range of the twin evaluated in
+//   fp32: the kernel and the twin may round a probability to neighbouring
+//   integers.
+// What holds the mode back beyond the bf16-dot mode's limits is the work
+// of its quantizers, not its loads (experiments/int8_dots_probe.py times
+// copies of this source with one part changed, on an H100): an IEEE
+// division a probability takes the refresh from 2.22 to 2.69 ms, a
+// float-to-int conversion and two clips a value cost 2-3% more than the
+// rounding addition, and the two quantizers, as they are here, still take
+// 1-6% of a call each (the copies without them).
+//
 // Build with nvcc -gencode arch=compute_90a,code=sm_90a and WITHOUT
-// --use_fast_math (exp2f, and the IEEE 1/sum).
+// --use_fast_math (exp2f, the IEEE 1/sum and reciprocals, which int8_dots'
+// div_rn needs rounded to nearest, and fma's exact products).
 
 #pragma once
 
@@ -167,6 +211,52 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// D += A * B on the integer tensor cores, m16n8k32 s8: exact int32 sums.
+// A slots (row g, k 4t4..4t4+3), (g+8, 4t4..), (g, 16+4t4..), (g+8,
+// 16+4t4..), byte i of a word the k 4t4+i; B slots (k 4t4..4t4+3, col g),
+// (16+4t4.., g); C as m16n8k16
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the 4x4 bytes of w0..w3 transposed: byte j of r[i] is byte i of wj
+__device__ __forceinline__ void transpose_bytes(uint32_t w0, uint32_t w1, uint32_t w2,
+                                                uint32_t w3, uint32_t (&r)[4]) {
+  const uint32_t t0 = __byte_perm(w0, w1, 0x5140), t1 = __byte_perm(w0, w1, 0x7362);
+  const uint32_t t2 = __byte_perm(w2, w3, 0x5140), t3 = __byte_perm(w2, w3, 0x7362);
+  r[0] = __byte_perm(t0, t2, 0x5410);
+  r[1] = __byte_perm(t0, t2, 0x7632);
+  r[2] = __byte_perm(t1, t3, 0x5410);
+  r[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// x / s rounded to the nearest float, as an IEEE division gives it, from
+// r = 1/s (an IEEE division, once per scale): x r is within 2 ulps of x / s,
+// one fma step brings it within one ulp, and a second (Markstein's theorem)
+// rounds it correctly. Here s is normal and |x / s| at most 127 (1 +
+// 2^-23), so nothing overflows, and a quotient among the subnormals rounds
+// to the integer 0 either way.
+__device__ __forceinline__ float div_rn(float x, float s, float r) {
+  float y = __fmul_rn(x, r);
+  y = fmaf(fmaf(-s, y, x), r, y);
+  return fmaf(fmaf(-s, y, x), r, y);
+}
+
+// x + kRound for |x| < 2^22 is a float whose low byte is rint(x) as an
+// int8 (two's complement; the addition rounds half to even)
+constexpr float kRound = 12582912.f;  // 1.5 * 2^23
+
+// the low bytes of a, b, c, d (values + kRound) as one word, a lowest
+__device__ __forceinline__ uint32_t pack_rounded(float a, float b, float c, float d) {
+  return __byte_perm(__byte_perm(__float_as_uint(a), __float_as_uint(b), 0x0040),
+                     __byte_perm(__float_as_uint(c), __float_as_uint(d), 0x0040), 0x5410);
 }
 
 // x rounded to tf32 (10 fraction bits; to nearest, ties away from zero)
@@ -281,38 +371,46 @@ __host__ __device__ constexpr int p_stride(int S, int D) {
                                                          : round_up(2 * (D + 1), 4);
 }
 
+// bytes in a row of int8_dots' quantized probabilities: the padded width +
+// 32 (== 32 or 96 mod 128: the A-fragment reads and the packed writes are
+// conflict-free)
+__host__ __device__ constexpr int p8_stride(int S) { return round_up(S, kCH) + 32; }
+
 // Dynamic shared memory, in order: the ring of kStages tiles [kCH][D] of
-// the cache type, P [min(rows, T)][p_stride] fp32 (only the block's live
+// the cache type, in int8_dots mode the quantized P [min(rows, T)]
+// [p8_stride] int8, P [min(rows, T)][p_stride] fp32 (only the block's live
 // query rows), col_pos [Sp] int, k and v scales [Sp] fp32 each, the rows' PV
 // factors [2][rows], the warps' row maxima [warps / (rows/16)][rows], the
 // live tile list [Sp/kCH] and its length.
-size_t mma_smem_bytes(int S, int D, int item, int rows, int T) {
+size_t mma_smem_bytes(int S, int D, int item, int rows, int T, bool dots) {
   const size_t Sp = static_cast<size_t>(round_up(S, kCH));
   const size_t pr = static_cast<size_t>(T < rows ? T : rows);
-  return static_cast<size_t>(kStages) * kCH * D * item +
+  return static_cast<size_t>(kStages) * kCH * D * item + (dots ? pr * p8_stride(S) : 0) +
          sizeof(float) * (pr * p_stride(S, D) + 3 * Sp + 2 * rows + mma_warps(rows) * 16 +
                           Sp / kCH + 1);
 }
 
 // Blocks of a regime that share an SM: the registers are capped for them.
-// Verify blocks: 8 with a bf16 q over an int8 cache, 6 with an fp32 q over
-// it (the lo parts of q and P spill at 8), 6 over a bf16 cache, 4 over an
-// fp32 one; refresh blocks: 2. Measured (experiments/register_caps.py),
-// more blocks in flight beat fewer spilled registers, up to a point.
-template <typename QT, typename CacheT>
+// Verify blocks: 8 in int8_dots mode and with a bf16 q over an int8 cache,
+// 6 with an fp32 q over it (the lo parts of q and P spill at 8), 6 over a
+// bf16 cache, 4 over an fp32 one; refresh blocks: 2. Measured
+// (experiments/register_caps.py), more blocks in flight beat fewer spilled
+// registers, up to a point.
+template <typename QT, typename CacheT, bool kDots>
 __host__ __device__ constexpr int mma_min_blocks(int rows) {
   return rows == 64 ? 2
-                    : (std::is_same<CacheT, int8_t>::value
-                           ? (std::is_same<QT, float>::value ? 6 : 8)
-                           : (std::is_same<CacheT, float>::value ? 4 : 6));
+                    : kDots ? 8
+                            : (std::is_same<CacheT, int8_t>::value
+                                   ? (std::is_same<QT, float>::value ? 6 : 8)
+                                   : (std::is_same<CacheT, float>::value ? 4 : 6));
 }
 
 // Grid: one block per (query tile, head, row), the query tile fastest.
 // kWR row groups of 16 queries per block: 1 (verify: 4 warps split each
 // tile's columns) or 4 (refresh: 8 warps, two per 16 rows).
-template <typename QT, typename CacheT, int kD, int kWR>
+template <typename QT, typename CacheT, int kD, int kWR, bool kDots>
 __global__ void __launch_bounds__(32 * mma_warps(16 * kWR),
-                                  mma_min_blocks<QT, CacheT>(16 * kWR))
+                                  mma_min_blocks<QT, CacheT, kDots>(16 * kWR))
     spec_attention_mma_kernel(
     const QT* __restrict__ q,             // [B, T, H*D]
     CacheT* __restrict__ k,               // [B, S, H*D], slab written at cursor
@@ -330,6 +428,7 @@ __global__ void __launch_bounds__(32 * mma_warps(16 * kWR),
   constexpr bool kQuant = std::is_same<CacheT, int8_t>::value;
   constexpr bool kTF32 = std::is_same<CacheT, float>::value;  // 3xTF32 products
   static_assert(kQuant || std::is_same<CacheT, QT>::value, "an unquantized cache has q's type");
+  static_assert(kQuant || !kDots, "int8_dots needs the int8 cache");
   constexpr int kItem = static_cast<int>(sizeof(CacheT));
   constexpr int kElems = 16 / kItem;            // cache values per 16 bytes
   constexpr int kChunks = kD / kElems;          // 16-byte chunks per column slice
@@ -350,16 +449,23 @@ __global__ void __launch_bounds__(32 * mma_warps(16 * kWR),
   // ... taken together (one at a time over an fp32 cache: its K runs are 4x
   // an int8 cache's in registers)
   constexpr int kGrp = kTF32 ? 1 : (kNTs < 4 ? kNTs : 4);
+  // int8_dots: k32-steps of QK^T, and the words of K and of q in a
+  // thread's run of D/4 depths (a step takes words 2j and 2j + 1, 0 past
+  // the run: D = 16 pads its one step)
+  constexpr int kNK8 = (kD + 31) / 32;
+  constexpr int kRunW = kD / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int Sp = round_up(S, kCH);
   const int PS = p_stride(S, kD);
+  const int P8S = kDots ? p8_stride(S) : 0;
   const int PR = min(kR, T);  // rows of P: the most live query rows a block has
   unsigned char* ring = smem_raw;
-  float* p_s = reinterpret_cast<float*>(ring + kStages * kTile);
+  unsigned char* p8_s = ring + kStages * kTile;  // int8_dots: [PR][P8S]
+  float* p_s = reinterpret_cast<float*>(p8_s + PR * P8S);
   int* cp_s = reinterpret_cast<int*>(p_s + PR * PS);
   float* ks_s = reinterpret_cast<float*>(cp_s + Sp);
   float* vs_s = ks_s + Sp;
-  float* rowa_s = vs_s + Sp;  // the row's multiplier of P in PV
+  float* rowa_s = vs_s + Sp;  // the row's multiplier of P in PV (int8_dots: q's scale)
   float* rowo_s = rowa_s + kR;  // ... and of the output (int8: 2^-k)
   float* rmax_s = rowo_s + kR;  // [kNcs][kR] the warps' row maxima
   int* live_s = reinterpret_cast<int*>(rmax_s + kNcs * kR);
@@ -461,7 +567,6 @@ __global__ void __launch_bounds__(32 * mma_warps(16 * kWR),
     slab_load(i0);
     slab_store(i0);
   }
-
   // ---- 2. the column tiles that any query of the block may read
   __syncthreads();
   if (warp == 0) {
@@ -520,9 +625,82 @@ __global__ void __launch_bounds__(32 * mma_warps(16 * kWR),
   // With an int8 cache each q row is scaled by the power of two that lifts
   // its largest |q| into [2^14, 2^15) for the fp16 products, and the
   // scores are scaled back exactly (qi0, qi1: rows g and g+8)
-  uint32_t qa[kNK][4], ql[kF32 ? kNK : 1][4];
+  uint32_t qa[kDots ? kNK8 : kNK][4], ql[kF32 && !kDots ? kNK : 1][4];
   float qi0 = 1.f, qi1 = 1.f;
-  {
+  if constexpr (kDots) {
+    // int8_dots, while the first tile lands: the block's live q rows
+    // quantized once, as the twin quantizes them (the same quotients, so
+    // the same q8), rows warp + kWarpsM i of the block a warp, 2 kQP
+    // consecutive depths a lane, every row's loads issued first: the row's
+    // scale s = max(max|q|, 1e-20) / 127 into rowa_s, q8 = rint(q / s) into
+    // q8_s [nq][D] (the score buffer's start: its first score is stored
+    // after the tile loop's first barrier). |q| / s < 127.5, so q8 needs no
+    // clip to [-127, 127]
+    unsigned char* q8_s = reinterpret_cast<unsigned char*>(p_s);
+    {
+      constexpr int kQP = kD > 64 ? kD / 64 : 1;  // pairs of depths a lane
+      constexpr int kRW = kR / kWarpsM;           // rows a warp
+      const int d0 = 2 * kQP * lane;
+      float2 f[kRW][kQP];
+      float x[kRW];
+#pragma unroll
+      for (int i = 0; i < kRW; ++i) {
+        const int r = warp + kWarpsM * i;
+        const QT* qr = q + (static_cast<int64_t>(b) * T + t0 + r) * HD + hoff + d0;
+        x[i] = 0.f;
+#pragma unroll
+        for (int j = 0; j < kQP; ++j) {
+          f[i][j] = r < nq && d0 < kD ? load_pair(qr + 2 * j) : make_float2(0.f, 0.f);
+          x[i] = fmaxf(x[i], fmaxf(fabsf(f[i][j].x), fabsf(f[i][j].y)));
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int i = 0; i < kRW; ++i) x[i] = fmaxf(x[i], __shfl_xor_sync(0xffffffffu, x[i], o));
+#pragma unroll
+      for (int i = 0; i < kRW; ++i) {
+        const int r = warp + kWarpsM * i;
+        if (r >= nq) break;
+        const float s = div_rn(fmaxf(x[i], 1e-20f), 127.f, 1.f / 127.f), rs = 1.f / s;
+        const auto q8 = [&](float y) { return __fadd_rn(div_rn(y, s, rs), kRound); };
+        if (d0 < kD) {
+          if constexpr (kQP == 1) {
+            *reinterpret_cast<uint16_t*>(q8_s + r * kD + d0) = static_cast<uint16_t>(
+                pack_rounded(q8(f[i][0].x), q8(f[i][0].y), 0.f, 0.f));
+          } else {
+#pragma unroll
+            for (int j = 0; j < kQP; j += 2)
+              *reinterpret_cast<uint32_t*>(q8_s + r * kD + d0 + 2 * j) = pack_rounded(
+                  q8(f[i][j].x), q8(f[i][j].y), q8(f[i][j + 1].x), q8(f[i][j + 1].y));
+          }
+        }
+        if (lane == 0) rowa_s[r] = s;
+      }
+    }
+    __syncthreads();
+    // q8 of the thread's run from q8_s, word w = depths 4w..4w+3 (rows
+    // past nq: 0); k32-step j: words 2j (slots 4t4..) and 2j+1 (slots
+    // 16+4t4..) of rows g and g + 8; the rows' scales, by which the int32
+    // scores are multiplied
+    uint32_t w0[kRunW] = {}, w1[kRunW] = {};
+    const int r0 = 16 * rg + g;
+    if (r0 < nq) {
+      load_bytes<kD / 4>(q8_s + r0 * kD + t4 * (kD / 4), w0);
+      qi0 = rowa_s[r0];
+    }
+    if (r0 + 8 < nq) {
+      load_bytes<kD / 4>(q8_s + (r0 + 8) * kD + t4 * (kD / 4), w1);
+      qi1 = rowa_s[r0 + 8];
+    }
+#pragma unroll
+    for (int j = 0; j < kNK8; ++j) {
+      qa[j][0] = w0[2 * j];
+      qa[j][1] = w1[2 * j];
+      qa[j][2] = 2 * j + 1 < kRunW ? w0[2 * j + 1] : 0u;
+      qa[j][3] = 2 * j + 1 < kRunW ? w1[2 * j + 1] : 0u;
+    }
+  } else {
     float2 f0[kD / 8], f1[kD / 8];  // rows g and g + 8, pairs of depths
     const int r0 = t0 + 16 * rg + g;
     const QT* base = q + static_cast<int64_t>(b) * T * HD + hoff + t4 * (kD / 4);
@@ -581,10 +759,14 @@ __global__ void __launch_bounds__(32 * mma_warps(16 * kWR),
   // thread's D/8 consecutive values of every V column); the warp holds the
   // n-tiles npart*kNTw + jj, jj < kNTw
   float acc[kNTw][4];
+  int acci[kDots ? kNTw : 1][4];  // int8_dots: exact int32 sums
 #pragma unroll
   for (int j = 0; j < kNTw; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    for (int e = 0; e < 4; ++e) {
+      acc[j][e] = 0.f;
+      if constexpr (kDots) acci[j][e] = 0;
+    }
   const int ra = 16 * rg + g;  // the thread's rows in the block: ra, ra + 8
   const bool on0 = ra < nq, on1 = ra + 8 < nq;  // live query rows
   const int qp0 = len + t0 + ra, qp1 = qp0 + 8;  // their positions
@@ -610,31 +792,45 @@ __global__ void __launch_bounds__(32 * mma_warps(16 * kWR),
 #pragma unroll
           for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
         }
+        if constexpr (kDots) {
+          // int8 x int8: B is the run's words 2j, 2j+1 as they landed
+          int si[kGrp][4] = {};
 #pragma unroll
-        for (int j = 0; j < kNK; ++j)
+          for (int j = 0; j < kNK8; ++j)
 #pragma unroll
-          for (int n = 0; n < kGrp; ++n) {
-            if constexpr (kQuant) {
-              uint32_t b0, b1;
-              s8x4_to_f16(kw[n][j], b0, b1);
-              if constexpr (kF32) mma_f16(sc[n], ql[j], b0, b1);
-              mma_f16(sc[n], qa[j], b0, b1);
-            } else if constexpr (kTF32) {
-              // k8-step j: slot t4 is word 2j of the run, slot t4 + 4 word 2j+1
-              uint32_t l0, l1;
-              const uint32_t h0 = split_tf32(__uint_as_float(kw[n][2 * j]), l0);
-              const uint32_t h1 = split_tf32(__uint_as_float(kw[n][2 * j + 1]), l1);
-              mma_tf32(sc[n], ql[j], h0, h1);
-              mma_tf32(sc[n], qa[j], l0, l1);
-              mma_tf32(sc[n], qa[j], h0, h1);
-            } else {
-              mma_bf16(sc[n], qa[j], kw[n][2 * j], kw[n][2 * j + 1]);
+            for (int n = 0; n < kGrp; ++n)
+              mma_s8(si[n], qa[j], kw[n][2 * j], 2 * j + 1 < kRunW ? kw[n][2 * j + 1] : 0u);
+#pragma unroll
+          for (int n = 0; n < kGrp; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[n][e] = __int2float_rn(si[n][e]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < kNK; ++j)
+#pragma unroll
+            for (int n = 0; n < kGrp; ++n) {
+              if constexpr (kQuant) {
+                uint32_t b0, b1;
+                s8x4_to_f16(kw[n][j], b0, b1);
+                if constexpr (kF32) mma_f16(sc[n], ql[j], b0, b1);
+                mma_f16(sc[n], qa[j], b0, b1);
+              } else if constexpr (kTF32) {
+                // k8-step j: slot t4 is word 2j of the run, slot t4 + 4 word 2j+1
+                uint32_t l0, l1;
+                const uint32_t h0 = split_tf32(__uint_as_float(kw[n][2 * j]), l0);
+                const uint32_t h1 = split_tf32(__uint_as_float(kw[n][2 * j + 1]), l1);
+                mma_tf32(sc[n], ql[j], h0, h1);
+                mma_tf32(sc[n], qa[j], l0, l1);
+                mma_tf32(sc[n], qa[j], h0, h1);
+              } else {
+                mma_bf16(sc[n], qa[j], kw[n][2 * j], kw[n][2 * j + 1]);
+              }
             }
-          }
-        // C: rows ra, ra+8, columns 2t4, 2t4+1 of the n-tile: x = q.k x
-        // k_scale x log2(e)/sqrt(D), -inf where col_pos > the query's position,
-        // stored, and the rows' running maxima; rows past nq are neither
-        // stored nor read
+        }
+        // C: rows ra, ra+8, columns 2t4, 2t4+1 of the n-tile: x = q.k (x the
+        // q scale in int8_dots) x k_scale x log2(e)/sqrt(D), -inf where
+        // col_pos > the query's position, stored, and the rows' running
+        // maxima; rows past nq are neither stored nor read
 #pragma unroll
         for (int n = 0; n < kGrp; ++n) {
           const int s = c0 + 8 * (cs + kNcs * (n0 + n)) + 2 * t4;
@@ -708,7 +904,36 @@ __global__ void __launch_bounds__(32 * mma_warps(16 * kWR),
             sum += __shfl_xor_sync(0xffffffffu, sum, o);
             pmax = fmaxf(pmax, __shfl_xor_sync(0xffffffffu, pmax, o));
           }
-          if (on && l8 == 0) {
+          if constexpr (kDots) {
+            // p = e x v_scale / sum quantized per row: ps = max(max p,
+            // 1e-20) / 127, p8 = rint(e x v_scale x pc) with pc = (1 /
+            // sum)(1 / ps), one fma a value with the rounding (p's own
+            // roundings differ from the twin's, softmax then x v_scale, so
+            // an exact p / ps would not make p8 the twin's; p8 < 127.5
+            // needs no clip), stored in PV's A-fragment order: byte i of
+            // word w of each 32 columns is column 16(w%2) + w/2 + 4i, so
+            // that thread t4's 8 bytes from 8t4 are its slots 4t4.. and
+            // 16+4t4.. (section 6); lane l8 packs word l8. The output is
+            // multiplied by ps (rowo_s)
+            __syncwarp();  // the row's e x v_scale, stored by its 8 lanes
+            const float inv = sum > 0.f ? 1.f / sum : 0.f;
+            const float ps = fmaxf(pmax * inv, 1e-20f) / 127.f, pc = inv * (1.f / ps);
+            if (on) {
+              const float* src = p_s + r * PS + 16 * (l8 & 1) + (l8 >> 1);
+              unsigned char* dst = p8_s + r * P8S + 4 * l8;
+              for (int li = 0; li < n_live; ++li) {
+#pragma unroll
+                for (int h2 = 0; h2 < kCH; h2 += 32) {
+                  const int c = live_s[li] * kCH + h2;
+                  const float* x = src + c;
+                  *reinterpret_cast<uint32_t*>(dst + c) =
+                      pack_rounded(fmaf(x[0], pc, kRound), fmaf(x[4], pc, kRound),
+                                   fmaf(x[8], pc, kRound), fmaf(x[12], pc, kRound));
+                }
+              }
+              if (l8 == 0) rowo_s[r] = ps;
+            }
+          } else if (on && l8 == 0) {
             const float inv = sum > 0.f ? 1.f / sum : 0.f;
             float f = 1.f;
             if (kQuant && pmax > 0.f) {
@@ -719,6 +944,44 @@ __global__ void __launch_bounds__(32 * mma_warps(16 * kWR),
             rowa_s[r] = inv * f;
             rowo_s[r] = 1.f / f;
           }
+        }
+      }
+    } else if constexpr (kDots) {
+      // ---- 6. O += P V on the integer tensor cores (int8_dots), 32
+      // columns a k-step: thread t4's slots 4t4+i are tile columns t4 + 4i
+      // and its slots 16+4t4+i columns 16 + t4 + 4i (the order of p8_s).
+      // V gives one word of each of those columns (4 consecutive elements
+      // of the thread's D/8, n-tiles npart*kNTw + ...); the words of 4
+      // columns transposed are the B registers of 4 n-tiles
+      const int c0 = live_s[i - n_live] * kCH;
+      constexpr int kW = (kVBw + 3) / 4;
+      for (int kk = kpart; kk < kCH / 32; kk += kKS) {
+        const int s0 = 32 * kk + t4;
+        uint32_t vw[8][kW];
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          load_bytes<kVBw>(tile + (s0 + 4 * (u & 3) + 16 * (u >> 2)) * kD + g * kVB + npart * kVBw,
+                           vw[u]);
+        uint32_t a[4] = {0u, 0u, 0u, 0u};  // P of rows past nq is never read
+        const unsigned char* pa = p8_s + c0 + 32 * kk + 8 * t4;
+        if (on0) {
+          const uint2 x = *reinterpret_cast<const uint2*>(pa + ra * P8S);
+          a[0] = x.x;
+          a[2] = x.y;
+        }
+        if (on1) {
+          const uint2 x = *reinterpret_cast<const uint2*>(pa + (ra + 8) * P8S);
+          a[1] = x.x;
+          a[3] = x.y;
+        }
+#pragma unroll
+        for (int w = 0; w < kW; ++w) {
+          uint32_t b0[4], b1[4];
+          transpose_bytes(vw[0][w], vw[1][w], vw[2][w], vw[3][w], b0);
+          transpose_bytes(vw[4][w], vw[5][w], vw[6][w], vw[7][w], b1);
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            if (4 * w + x < kNTw) mma_s8(acci[4 * w + x], a, b0[x], b1[x]);
         }
       }
     } else {
@@ -806,47 +1069,61 @@ __global__ void __launch_bounds__(32 * mma_warps(16 * kWR),
   }
   cp_async_wait<0>();
 
-  // ---- 7. the warps' partial sums meet in the probability buffer; rows
-  // of the block past T are not written
+  // ---- 7. the warps' partial sums meet in the probability buffer (exact
+  // int32 sums in int8_dots mode); rows of the block past T are not written
   __syncthreads();
   constexpr int kRS = kD + 1;  // odd row stride: at most 2-way bank conflicts
   float* red_s = p_s;          // [kKS][PR][kRS]
+  int* redi_s = reinterpret_cast<int*>(p_s);
 #pragma unroll
   for (int j = 0; j < kNTw; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = ra + (e >> 1) * 8;
       const int d = (2 * t4 + (e & 1)) * kNT + npart * kNTw + j;
-      if (r < nq) red_s[(kpart * PR + r) * kRS + d] = acc[j][e];
+      if (r < nq) {
+        if constexpr (kDots) {
+          redi_s[(kpart * PR + r) * kRS + d] = acci[j][e];
+        } else {
+          red_s[(kpart * PR + r) * kRS + d] = acc[j][e];
+        }
+      }
     }
   __syncthreads();
   for (int i = tid; i < nq * kD; i += kThreadsM) {
     const int r = i / kD;
     const int d = i - r * kD;
     float y = 0.f;
+    if constexpr (kDots) {
+      int yi = 0;
 #pragma unroll
-    for (int c = 0; c < kKS; ++c) y += red_s[(c * PR + r) * kRS + d];
-    if (kQuant && n_live > 0) y *= rowo_s[r];  // 2^-k: exact
+      for (int c = 0; c < kKS; ++c) yi += redi_s[(c * PR + r) * kRS + d];
+      if (n_live > 0) y = __int2float_rn(yi) * rowo_s[r];  // int32 x ps
+    } else {
+#pragma unroll
+      for (int c = 0; c < kKS; ++c) y += red_s[(c * PR + r) * kRS + d];
+      if (kQuant && n_live > 0) y *= rowo_s[r];  // 2^-k: exact
+    }
     ob[static_cast<int64_t>(r) * HD + d] = from_float<QT>(y);
   }
 }
 
-template <typename QT, typename CacheT, int kD, int kWR>
+template <typename QT, typename CacheT, int kD, int kWR, bool kDots>
 int launch_mma_d(const void* q, void* k, void* v, const void* k_slab, const void* v_slab,
                  const void* k_scale, const void* v_scale, const void* col_pos,
                  const void* lengths, const void* cursor, void* out, int B, int T, int S, int H,
                  cudaStream_t stream) {
-  const size_t smem = mma_smem_bytes(S, kD, sizeof(CacheT), 16 * kWR, T);
+  const size_t smem = mma_smem_bytes(S, kD, sizeof(CacheT), 16 * kWR, T, kDots);
   if (smem > kSmemLimit) return kTooLarge;
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(spec_attention_mma_kernel<QT, CacheT, kD, kWR>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(smem));
+    const cudaError_t e =
+        cudaFuncSetAttribute(spec_attention_mma_kernel<QT, CacheT, kD, kWR, kDots>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   const int64_t blocks = static_cast<int64_t>((T + 16 * kWR - 1) / (16 * kWR)) * H * B;
   if (blocks < 1 || blocks > INT_MAX) return cudaErrorInvalidConfiguration;
-  spec_attention_mma_kernel<QT, CacheT, kD, kWR>
+  spec_attention_mma_kernel<QT, CacheT, kD, kWR, kDots>
       <<<static_cast<unsigned>(blocks), 32 * mma_warps(16 * kWR), smem, stream>>>(
           static_cast<const QT*>(q), static_cast<CacheT*>(k), static_cast<CacheT*>(v),
           static_cast<const CacheT*>(k_slab), static_cast<const CacheT*>(v_slab),
@@ -859,20 +1136,21 @@ int launch_mma_d(const void* q, void* k, void* v, const void* k_slab, const void
 // The regime: 64 query rows per block (refresh) for T > 16 where those
 // buffers fit shared memory, else 16 (verify, and a refresh over a long
 // cache). The head size is a template parameter: 16, 32, 64 or 128
-template <typename QT, typename CacheT>
+template <typename QT, typename CacheT, bool kDots = false>
 int launch_mma(const void* q, void* k, void* v, const void* k_slab, const void* v_slab,
                const void* k_scale, const void* v_scale, const void* col_pos,
                const void* lengths, const void* cursor, void* out, int B, int T, int S, int H,
                int D, cudaStream_t stream) {
-  const bool refresh = T > 16 && mma_smem_bytes(S, D, sizeof(CacheT), 64, T) <= kSmemLimit;
-#define SPEC_MMA_LAUNCH(DD)                                                                   \
-  case DD:                                                                                    \
-    return refresh ? launch_mma_d<QT, CacheT, DD, 4>(q, k, v, k_slab, v_slab, k_scale,        \
-                                                     v_scale, col_pos, lengths, cursor, out,  \
-                                                     B, T, S, H, stream)                      \
-                   : launch_mma_d<QT, CacheT, DD, 1>(q, k, v, k_slab, v_slab, k_scale,        \
-                                                     v_scale, col_pos, lengths, cursor, out,  \
-                                                     B, T, S, H, stream);
+  const bool refresh =
+      T > 16 && mma_smem_bytes(S, D, sizeof(CacheT), 64, T, kDots) <= kSmemLimit;
+#define SPEC_MMA_LAUNCH(DD)                                                                  \
+  case DD:                                                                                   \
+    return refresh ? launch_mma_d<QT, CacheT, DD, 4, kDots>(q, k, v, k_slab, v_slab, k_scale, \
+                                                            v_scale, col_pos, lengths,        \
+                                                            cursor, out, B, T, S, H, stream)  \
+                   : launch_mma_d<QT, CacheT, DD, 1, kDots>(q, k, v, k_slab, v_slab, k_scale, \
+                                                            v_scale, col_pos, lengths,        \
+                                                            cursor, out, B, T, S, H, stream);
   switch (D) {
     SPEC_MMA_LAUNCH(16)
     SPEC_MMA_LAUNCH(32)
@@ -885,3 +1163,12 @@ int launch_mma(const void* q, void* k, void* v, const void* k_slab, const void* 
 }
 
 }  // namespace
+
+// The int8_dots mode (an int8 cache) for a bf16 q (fp32 == 0) or an fp32
+// one, as launch_mma launches the other modes. Its instantiations compile
+// in spec_attention_dots.cu, beside the other modes' sources; the entry
+// points of spec_attention.cu and spec_attention_f32.cu call it.
+int launch_mma_dots(const void* q, void* k, void* v, const void* k_slab, const void* v_slab,
+                    const void* k_scale, const void* v_scale, const void* col_pos,
+                    const void* lengths, const void* cursor, void* out, int B, int T, int S,
+                    int H, int D, int fp32, cudaStream_t stream);

@@ -35,19 +35,24 @@ The CUDA kernels take ``q`` (and the slabs of an unquantized cache) in one
 type, bf16 or fp32 (an fp32 model: the Pallas kernel computes in q's
 dtype), an int8 cache or one in that type, a head size D that divides 128
 and is a multiple of 16, any ``cursor`` with ``0 <= cursor <= S - Tw``, and
-an S whose block buffers fit shared memory. Outside ``int8_dots`` both
-types run the tensor-core kernel of ``csrc/spec_attention_mma.cuh`` in one
-of two regimes that its launcher chooses from T, 16 query rows per block
-for T <= 16 (a verify step), 64 for a refresh where those buffers fit (16
-over a long cache); S goes up to about 7,000 at T=5 and 2,900 at T >= 16
-(6,200 and 2,500 over an fp32 cache; mma_smem_bytes). A bf16 ``q`` enters
-through ``csrc/spec_attention.cu``. An fp32 ``q`` enters through
+an S whose block buffers fit shared memory. Every mode runs the tensor-core
+kernel of ``csrc/spec_attention_mma.cuh`` in one of two regimes that its
+launcher chooses from T, 16 query rows per block for T <= 16 (a verify
+step), 64 for a refresh where those buffers fit (16 over a long cache); S
+goes up to about 7,000 at T=5 and 2,900 at T >= 16 (6,200 and 2,500 over
+an fp32 cache; mma_smem_bytes). A bf16 ``q`` enters through
+``csrc/spec_attention.cu``. An fp32 ``q`` enters through
 ``csrc/spec_attention_f32.cu`` and keeps fp32 accuracy on the tensor cores
 with split operands: over an int8 cache q and the probabilities each as two
 fp16 parts, hi and lo (two passes per product), over an fp32 cache 3xTF32
 (three);
 :func:`spec_attention_f32_mma_model` evaluates those roundings on the CPU.
-``int8_dots`` takes a bf16 ``q`` only.
+``int8_dots`` takes either type of ``q`` (instantiated in
+``csrc/spec_attention_dots.cu``): q quantized in the kernel as
+:func:`spec_attention_int8_dots_reference` quantizes it, the probabilities
+per row as it does up to their roundings (a quantized probability may be
+a neighbouring integer), both products int8 x int8 on the integer tensor
+cores (mma.sync m16n8k32), exact int32 sums.
 """
 
 from __future__ import annotations
@@ -269,8 +274,6 @@ def _check_cuda(q, k, v, k_slab, v_slab, k_scale, v_scale, col_pos, lengths,
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"q must be torch.bfloat16 or torch.float32, got "
                          f"{dtype}")
-    if int8_dots and dtype != torch.bfloat16:
-        raise ValueError("int8_dots takes a bf16 q")
     cache_dtype = torch.int8 if quantized else dtype
     want = {
         "q": (q, dtype, (B, T, HD)),
@@ -323,10 +326,9 @@ def _launch(q, k, v, k_slab, v_slab, k_scale, v_scale, col_pos, lengths,
             B, T, S, n_head, D, int(quantized))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lib = _build.load_library()
-    if q.dtype == torch.float32:
-        rc = lib.spec_attention_f32_launch(*args, stream)
-    else:
-        rc = lib.spec_attention_launch(*args, int(int8_dots), stream)
+    launch = (lib.spec_attention_f32_launch if q.dtype == torch.float32
+              else lib.spec_attention_launch)
+    rc = launch(*args, int(int8_dots), stream)
     if rc == _build.TOO_LARGE:
         raise ValueError(f"S={S} too large for one block's shared memory "
                          f"(csrc/spec_attention_mma.cuh mma_smem_bytes)")

@@ -31,9 +31,10 @@ printing a result):
 2. build: the CUDA kernels, compiled from ``ai_music_generation_tpu_torch/
    ops/csrc`` (nvcc's register/shared-memory report is printed);
 3. kernel vs plain twin at the batched decode shape (B=4096, S=128, H=6,
-   KH=2, D=64) and at MHA (KH=6) in all four modes (int8/bf16 cache x
-   lockstep/ring mask), pos in {0, 127}, plus a 3-row batch at pos in
-   {0, 7, 8, 127}, and
+   KH=2, D=64, int8 cache) with the lockstep and the ring mask, pos in
+   {0, 127}, plus a 3-row batch at KH=2 and at MHA (KH=6) in all four
+   modes (int8/bf16 cache x lockstep/ring mask) at pos in {0, 7, 8, 127},
+   and
    3 rows over a 1024-column cache (GPTConfig's default block_size) at MHA
    with a bf16 cache and at KH=2 with an int8 one: caches and scales
    bit-exact, the output within one bf16 ulp of its range of the twin
@@ -102,7 +103,8 @@ printing a result):
     beside each variant's byte floor, printed, not gated;
 16. fp32 kernels vs twin: K1's fp32 instantiation (fp32 q and slabs over
     an int8 or fp32 cache) at B=4096, S=128 and 3 rows over S=1024, KH 2
-    and 6, lockstep and ring, pos {0, 7, S-1}; the fp32 verify kernel
+    and 6, lockstep and ring, pos {0, S-1} (3 rows also 7); the fp32
+    verify kernel
     (K2, the tensor-core kernel of ``csrc/spec_attention_mma.cuh`` with
     split passes) at B=4096 and B=3 (+ a dead row), S=256, T in {1, 5,
     128}, and B=3 (+ the dead row) over S=1024, T in {5, 17, 64, 65, 128},
@@ -183,7 +185,7 @@ printing a result):
     that keep the prompt, 105 K1 launches a bar and no call of the twin;
     tunes/min; then batch 1,024, printed;
 27. server: ``TunesServer`` at 1,024 slots under cli/serve_bench.py's tunes
-    load (4,096 requests, 32 patches), a cold then a hot pass: every
+    load (1,024 requests, 32 patches), a cold then a hot pass: every
     request finishes with its prompt, 105 K1 launches a bar, no twin call,
     a request re-run alone in slot 0 and alone in slot 1 (a filler
     admitted a bar before it) identical, the counter
@@ -204,14 +206,14 @@ printing a result):
     dropout 0.1, each core's layer-0 masks
     (under its own key) bit-equal card vs CPU, and a NaN parameter's step
     leaving every parameter, moment and the count bit for bit;
-30. TunesFormer's real path: 1,000 random_tunes as .abc files,
+30. TunesFormer's real path: 500 random_tunes as .abc files,
     cli/add_control_codes.py -> data.json, cli/tunesformer_train.py at
     its defaults (the reference config: 9+3 layers, 768 wide, 128 x 32,
     batch 8, bf16, dropout 0.1) for 2 epochs (the eval loss falls,
     weights.pth and logs.txt written) and ``--load_from_checkpoint`` to 3
     (epoch 3 alone); ms/iter (median of the steady epochs' steps) and peak
     memory printed; then cli/sample_tunesformer.py over the trained
-    weights.pth and 8 curated tunes: 105 K1 launches a bar, no twin call;
+    weights.pth and 4 curated tunes: 105 K1 launches a bar, no twin call;
 31. experiments/tunes_mfu.py at batches 8 and 32 (the reference widths,
     dropout 0, bf16): ms/iter, TFLOP/step by FlopCounterMode (equal to the
     analytic count), MFU against 989 TFLOP/s, peak memory. Phases 29-31
@@ -227,8 +229,8 @@ printing a result):
     within 1e-5 of its range, trim indices and ``synthesize_midi_batch``'s
     output lengths equal, two card runs bit-equal;
 33. ABC -> WAV: cli/abc_to_midi_wav_and_aesthetics.py through ``main`` on
-    the card on the JAX package's recipe (500 random ABC tunes, half its
-    protocol's 1,000 for the script's time limit; the proxy scorer):
+    the card on the JAX package's recipe (128 random ABC tunes of its
+    protocol's 1,000, for the script's time limit; the proxy scorer):
     n_failed 0, a MIDI, a WAV, an aesthetics row (finite) and a similarity
     row for every tune, 8 WAVs within 1 LSB of the CPU's
     render; tunes/min of the whole run and each stage's seconds (ABC ->
@@ -249,9 +251,9 @@ printing a result):
     10, peak memory, FLOPs a chunk (``FlopCounterMode``) and their share
     of 67 TFLOP/s;
 35. cli/audio_aes.py (``--ckpt`` = phase 34's file, ``--batch-size 10``)
-    over phase 33's 500 WAVs and a missing path: 501 rows, the missing
+    over phase 33's 128 WAVs and a missing path: 129 rows, the missing
     one NaN; files/min and chunks/s; then EvalPipeline through
-    cli/abc_to_midi_wav_and_aesthetics.py on 64 of phase 33's tunes with
+    cli/abc_to_midi_wav_and_aesthetics.py on 32 of phase 33's tunes with
     ``$AUDIOBOX_WEIGHTS`` set: engine ``audio-aes``, rows within 1e-5 of
     the CLI's. Phases 34-35 launch none of K1-K7. ``--profile audiobox``
     profiles one forward at batch 10;
@@ -302,10 +304,10 @@ printing a result):
     configuration under its cold and hot passes, every request's tokens
     equal to the unsharded server's on the same weights, K1 launched on
     that path (``by_path["serve_mesh"]`` of K1's entry), tok/s of both
-    over two more hot passes of MESH_SERVE_REQUESTS each, in turns
-    (plain, sharded, sharded, plain); ``TunesServer`` over it (the
-    reference model at phase 27's 1,024 slots, its cold pass, then two
-    passes of 1,024 more in turns), texts equal to the unsharded server's;
+    over a hot pass of MESH_SERVE_REQUESTS each (sharded, then plain);
+    ``TunesServer`` over it (the reference model at phase 27's 1,024
+    slots, its cold pass, then a pass of 1,024 more each), texts equal to
+    the unsharded server's;
     the render of
     phase 32's tunes over it bit-equal to the unsharded render; the
     pipeline (one stage, 4 microbatches) and sequence (one chunk, the ring
@@ -342,12 +344,13 @@ printing a result):
     with inputs PASSes, audio-aes parity, abc2midi and fluidsynth SKIP
     unless their binaries are present, exit 0; no launch of K1-K7;
 45. the last host entry points: ``cli/transfer_experiment.py`` at its
-    defaults with ``--device=cuda`` in a temporary directory (400 melodies
-    and 120 chorales synthesized, converted to midi-text, split and
-    prepared with the union vocab; three legs through ``cli/train.py``:
-    600 iterations on the melodies, a resume into the chorales to 900, 300
-    from scratch on the chorales; 4L/4H/256d, block 256, batch 32, bf16):
-    each leg ends at its iteration, the transfer leg's evals start at 600,
+    defaults but its iterations with ``--device=cuda`` in a temporary
+    directory (400 melodies and 120 chorales synthesized, converted to
+    midi-text, split and prepared with the union vocab; three legs through
+    ``cli/train.py``: 300 iterations on the melodies, a resume into the
+    chorales to 500, 200 from scratch on the chorales; 4L/4H/256d, block
+    256, batch 32, bf16):
+    each leg ends at its iteration, the transfer leg's evals start at 300,
     every val loss finite, no launch of K1-K7; the losses, the verdict
     (recorded, not gated) and ms/iter per leg printed; then each host CLI
     once on seeded fixtures (``bach_pipeline``'s six subcommands,
@@ -358,22 +361,27 @@ printing a result):
     present and non-empty in its expected count;
 46. the trained-model decode studies (``experiments/{realpath_bench_r5,
     realpath_window_r5,window64_probe,int8_quality,gqa_quality,
-    spec_decode,spec_trace,serve_soak}.py``) at full width and batch (the
-    bench widths, 3,000 tunes, B=4096, 500 new tokens, the 1,000-sample
-    CLI leg), their three trainings cut to STUDY_ITERS iterations, one
-    timed generate a leg, spec_trace unprofiled, the soak at STUDY_WAVES
+    spec_decode,spec_trace,serve_soak}.py``) at full width (the bench
+    widths, 3,000 tunes, 500 new tokens, the 1,000-sample CLI leg), their
+    three trainings cut to STUDY_ITERS iterations, one timed generate a
+    leg at STUDY_BATCH rows (spec_trace's at B=4096), spec_trace
+    unprofiled, the soak at STUDY_WAVES
     waves: every val loss falls, every teacher NLL is finite, every plain
     generate, CLI run and soak wave launches exactly n_layer K1 a T=1 step
     and no K2, every speculative generate K2 and no K1 (spec_trace's
     int8_dots variant included), the soak's accounting holds; each study's
-    JSON line printed. Then K2's int8_dots mode against its twin at
-    spec_trace's verify step (B=4096, S=256, T=8) and timed, and
+    JSON line printed. Then K2's int8_dots mode (the integer tensor-core
+    mode) against its twin at spec_trace's verify step (B=4096, S=256,
+    T=8), with a bf16 q and with an fp32 one, and timed beside K2's
+    bf16-dot int8 mode on the same inputs, then the same over 120 live
+    history columns and at a refresh, and
     ``parallel/worker_smoke.py`` over NCCL at world size 1.
 47. the last experiment scripts (``experiments/{window_quality,
     refresh_quality,window_flat_probe,mfu_sweep,fuzz_campaign,int4_probe,
     int4_probe2,int4_cache_probe}.py``) in phase 46's work directory
-    (window_quality reuses its spec checkpoint) at full width and batch:
-    trainings cut to STUDY_ITERS, one timed generate a leg, mfu_sweep at
+    (window_quality reuses its spec checkpoint) at full width: trainings
+    cut to STUDY_ITERS, one timed generate a leg at STUDY_BATCH rows,
+    mfu_sweep at
     both models with every variant, the fuzz campaign at FUZZ_CASES, the
     int4 probes at their full shapes (B=4096, S=256): every val loss falls,
     every NLL is finite, every generate launches exactly n_layer K1 a T=1
@@ -412,9 +420,11 @@ sharded server, ``by_path["gpt2"]`` its launches a GPT-2 generate (phase
 43, with those launches and the shapes the path ran at.
 ``by_path["studies"]`` of K1's and of K2's entry is their launches in
 phase 46, ``by_path["experiments"]`` of K1's its launches in phase 47;
-K2's ``int8_dots`` holds that mode's numbers at spec_trace's verify step,
-its launches in spec_trace's timed generate and the generate's ms a
-verify step.
+K2's ``int8_dots`` holds that mode's numbers at spec_trace's verify step
+(with its source, its fp32-q time and the bf16-dot mode's time on the
+same inputs, the same two over a shorter history and at a refresh), its
+launches in spec_trace's timed generate and the generate's ms a verify
+step.
 ``bound_ms`` is the least time the card could take for the timed call: its
 bytes (each input read once, each output written once) over 3.35 TB/s or
 its operations over 989 TFLOP/s (1979 TOP/s for int8 x int8 products; the
@@ -527,45 +537,47 @@ BENCH_BURN_IN, BENCH_STEPS = 3, 10
 # patch and 3 char layers, 768 wide, 12 heads, 128 patches of 32 chars,
 # bf16); the generation protocol of docs/PERF.md (batch 16, 32 patches,
 # top_p 0.8, top_k 8, T 1.2) and docs/SERVING.md's tunes headline (1,024
-# slots) under cli/serve_bench.py's tunes load (4,096 requests), all on
-# cli/serve_bench.py's prompt
+# slots) under cli/serve_bench.py's tunes load (4,096 requests, cut to one
+# a slot for the script's time limit), all on cli/serve_bench.py's prompt
 TUNES_H, TUNES_SIZE, TUNES_LENGTH = 12, 32, 128
 TUNES_GEN_B, TUNES_GEN_BIG, TUNES_MAX_PATCH = 16, 1024, 32
-TUNES_SLOTS, TUNES_REQUESTS = 1024, 2048
+TUNES_SLOTS, TUNES_REQUESTS = 1024, 1024
 # the batches of the other tunes paths: the HTTP server's slots (phase 27),
 # tunesformer_generate's tunes (phase 28; sample_tunesformer runs one a
 # leadsheet)
 TUNES_HTTP_SLOTS, TUNES_CLI_TUNES = 64, 8
 TUNES_PROMPT = "S:2\nB:9\nE:4\nB:9\nL:1/8\nM:3/4\nK:D\n de|"
 # TunesFormer training (phases 29-31): the train step card vs CPU at the
-# reference widths cut to 2+1 layers (batch 2); the real path (1,000
+# reference widths cut to 2+1 layers (batch 2); the real path (500
 # random_tunes curated into data.json, cli/tunesformer_train.py at its
-# defaults for 2 epochs, a resume to 3, sampling through K1); the MFU probe
+# defaults for 2 epochs, a resume to 3, sampling TUNES_SHEETS leadsheets
+# through K1); the MFU probe
 # (experiments/tunes_mfu.py) at batches 8 and 32
 TUNES_TRAIN_DEPTH = dict(patch_layers=2, char_layers=1)
 TUNES_TRAIN_LR = 1e-3  # phase 29's peak lr, as the cuda test's
-TUNES_TRAIN_B, TUNES_CORPUS, TUNES_EPOCHS = 2, 1000, 2
+TUNES_TRAIN_B, TUNES_CORPUS, TUNES_EPOCHS, TUNES_SHEETS = 2, 500, 2, 4
 TUNES_MFU_B = (8, 32)
 # ABC -> WAV (phases 32-33): the eval pipeline's render (synth_batch 8,
 # synthesize_midi_batch's 120 s at 16 kHz) and the JAX package's protocol
 # (docs/PERF.md:11: 1,000 random ABC tunes of cli/random_baselines.py's
 # recipe through cli/abc_to_midi_wav_and_aesthetics.py, proxy scorer), cut
-# to 250 tunes to keep the script inside its time limit. The
+# to 128 tunes to keep the script inside its time limit. The
 # card's render is held to the CPU's within 1e-5 of each wave's range
 # (CUDA's and the CPU's exp and sin differ by an ulp; every index, mask and
 # trim is computed from equal bits)
-SYNTH_BATCH, SYNTH_SECONDS, SYNTH_RATE, SYNTH_TUNES = 8, 120, 16_000, 250
+SYNTH_BATCH, SYNTH_SECONDS, SYNTH_RATE, SYNTH_TUNES = 8, 120, 16_000, 128
 SYNTH_SEED = 7
 SYNTH_FRAC = 1e-5
 # the Audiobox scorer (phases 34-35): AudioboxConfig() (WavLM base, fp32)
 # from a seeded init, 10-s chunks at 16 kHz, timed at AesPredictor's batch
 # (8) and audio-aes's (10); card vs CPU within 1e-4 of the range (the fp32
-# yardstick of phases 17 and 25); cli/audio_aes.py over phase 33's 500
-# WAVs, EvalPipeline over its first 64 tunes. AUDIOBOX_WAVLM overrides
-# WavLMConfig's fields (none on the card; narrow widths to rehearse)
+# yardstick of phases 17 and 25); cli/audio_aes.py over phase 33's
+# SYNTH_TUNES WAVs, EvalPipeline over its first 32 tunes. AUDIOBOX_WAVLM
+# overrides WavLMConfig's fields (none on the card; narrow widths to
+# rehearse)
 AUDIOBOX_WAVLM: dict = {}
 AUDIOBOX_SEED, AUDIOBOX_CHUNK, AUDIOBOX_FRAC = 0, 160_000, 1e-4
-AUDIOBOX_BATCHES, AUDIOBOX_ITERS, AUDIOBOX_PIPELINE_TUNES = (8, 10), 5, 64
+AUDIOBOX_BATCHES, AUDIOBOX_ITERS, AUDIOBOX_PIPELINE_TUNES = (8, 10), 5, 32
 
 
 def bound(n_bytes, n_ops, ops_per_s=BF16_OPS_PER_S) -> tuple[float, str]:
@@ -686,11 +698,15 @@ def phase_kernel_vs_twin(device, B=BATCH, S=WINDOW) -> float:
     )
 
     worst32 = worst16 = 0.0
-    # B rows at the first and the last position (their twins run on the
-    # host, seconds a case); the tile edges 7 and 8 at 3 rows
-    cases = [(b, S, kh, quant, ring, pos) for b in (B, 3) for kh in (2, 6)
-             for quant in (True, False) for ring in (False, True)
-             for pos in ((0, S - 1) if b == B else (0, 7, 8, S - 1))]
+    # B rows in the bench config's two modes (KH=2, int8 cache: the decode
+    # path's lockstep and the serving tick's ring) at the first and the
+    # last position (their twins run on the host, seconds a case); every
+    # mode at KH 2 and 6, with the tile edges 7 and 8, at 3 rows
+    cases = [(B, S, 2, True, ring, pos) for ring in (False, True)
+             for pos in (0, S - 1)]
+    cases += [(3, S, kh, quant, ring, pos) for kh in (2, 6)
+              for quant in (True, False) for ring in (False, True)
+              for pos in (0, 7, 8, S - 1)]
     # a long cache (8 staged tiles of columns): MHA bf16 and GQA int8
     cases += [(3, LONG, kh, quant, ring, pos)
               for kh, quant in ((6, False), (2, True))
@@ -727,8 +743,9 @@ def phase_kernel_vs_twin(device, B=BATCH, S=WINDOW) -> float:
         worst32 = max(worst32, err)
         worst16 = max(worst16,
                       (out - ref.float()).abs().max().item())
-    print(f"kernel vs twin: 4 modes x G (3, 1) at B={B} (pos 0, {S - 1}) "
-          f"and B=3 (pos 0, 7, 8, {S - 1}), S={S}, B=3, S={LONG} (MHA bf16, "
+    print(f"kernel vs twin: G=3 int8 lockstep and ring at B={B} (pos 0, "
+          f"{S - 1}), 4 modes x G (3, 1) at B=3 (pos 0, 7, 8, {S - 1}), "
+          f"S={S}, B=3, S={LONG} (MHA bf16, "
           f"G=3 int8; "
           f"pos 0, 7, 8, {LONG - 1}) and the sample CLI's B={CLI_SAMPLES}, "
           f"S={CLI_S} (G=3 int8 lockstep; pos 0, 7, 8, {CLI_S - 1}): caches "
@@ -1345,15 +1362,15 @@ def _event_seconds(fn) -> float:
 def phase_spec_throughput(gen, prompts):
     """Spec tokens/s (B * 500 / time of one generate) beside the plain
     Generator on the same SPEC model (window 256: its own default, K1 at
-    MHA), one generate each in the order plain, spec, spec, plain after a
-    plain warm-up (the spec path is warm from its main-path runs)."""
+    MHA), one generate each in the order spec, plain after a plain warm-up
+    (the spec path is warm from its main-path runs)."""
     from ai_music_generation_tpu_torch.decode.generate import Generator
 
     plain = Generator(gen.model, max_new_tokens=gen.max_new_tokens,
                       temperature=0.8, top_k=200)
     plain.generate(prompts, seed=99)
     seconds = {"plain": [], "spec": []}
-    for i, name in enumerate(("plain", "spec", "spec", "plain")):
+    for i, name in enumerate(("spec", "plain")):
         g = plain if name == "plain" else gen
         seconds[name].append(_event_seconds(
             lambda: g.generate(prompts, seed=2000 + i)))
@@ -1541,8 +1558,8 @@ def phase_pallas_main_path(device, B=BATCH, max_new=MAX_NEW):
 def phase_pallas_throughput(gen, prompts):
     """Tokens/s and peak memory of the pallas path (K4) beside the same
     weights with attn_impl="xla" (K1 at MHA bf16), one generate each in the
-    order xla, pallas, pallas, xla after an xla warm-up (the pallas path is
-    warm from its main-path runs). Printed, not gated."""
+    order pallas, xla after an xla warm-up (the pallas path is warm from
+    its main-path runs). Printed, not gated."""
     from ai_music_generation_tpu_torch.decode.generate import Generator
     from ai_music_generation_tpu_torch.models.gpt import GPT, GPTConfig
 
@@ -1555,7 +1572,7 @@ def phase_pallas_throughput(gen, prompts):
     xla.generate(prompts, seed=99)
     seconds = {"xla": [], "pallas": []}
     peak = {}
-    for i, name in enumerate(("xla", "pallas", "pallas", "xla")):
+    for i, name in enumerate(("pallas", "xla")):
         g = xla if name == "xla" else gen
         torch.cuda.reset_peak_memory_stats()
         seconds[name].append(_event_seconds(
@@ -1848,7 +1865,7 @@ def phase_fp32_kernel_vs_twin(device, B=BATCH, S=WINDOW, spec_S=256, H=6,
     """K1 and K2 on fp32 operands (an fp32 model's decode and verify steps)
     against their plain twins on the same device and inputs: K1 at B rows,
     S columns and 3 rows over LONG, KH 2 and 6, int8 and fp32 caches,
-    lockstep and ring, pos in {0, 7, S-1}; K2 (with its slab write) at B and
+    lockstep and ring, pos in {0, S-1} (3 rows: {0, 7, S-1}); K2 (with its slab write) at B and
     3 rows (+ a row that reads nothing), S=256, T in {1, 5, 128}, cursors 0
     and S-Tw, int8 and fp32 caches, and at 3 rows (+ the dead row) over
     LONG at T in {5, 17, 64, 65, 128}, the regime edges of phase 6 (a
@@ -1864,10 +1881,12 @@ def phase_fp32_kernel_vs_twin(device, B=BATCH, S=WINDOW, spec_S=256, H=6,
     )
 
     worst = {"gqa_decode_update": 0.0, "spec_attention_update": 0.0}
+    # B rows at the first and the last position (their inputs are drawn
+    # on the host, a second a case), 3 rows also at the tile edge 7
     cases = [(b, s_len, kh, quant, ring, pos)
              for b, s_len in ((B, S), (3, LONG)) for kh in (2, 6)
              for quant in (True, False) for ring in (False, True)
-             for pos in (0, 7, s_len - 1)]
+             for pos in ((0, s_len - 1) if b == B else (0, 7, s_len - 1))]
     # cli/sample.py --dtype=float32's decode step (phase 3's CLI cases)
     cases += [(CLI_SAMPLES, CLI_S, 2, True, False, pos)
               for pos in (0, 7, CLI_S - 1)]
@@ -1933,7 +1952,7 @@ def phase_fp32_kernel_vs_twin(device, B=BATCH, S=WINDOW, spec_S=256, H=6,
                     del x, ref_k, ref_v, out, ref
     print(f"fp32 kernels vs twin: K1 {len(cases)} cases (B={B}, S={S} and "
           f"B=3, S={LONG}; KH 2, 6; int8 and fp32 caches; lockstep and "
-          f"ring; pos 0, 7, S-1; and B={CLI_SAMPLES}, S={CLI_S}, KH 2 int8 "
+          f"ring; pos 0, (7,) S-1; and B={CLI_SAMPLES}, S={CLI_S}, KH 2 int8 "
           f"lockstep), K2 {n_spec} cases (B={B} and B=3 + a dead "
           f"row, S={spec_S}, T 1, 5, 128; B=3 + a dead row, S={LONG}, T 5, "
           f"17, 64, 65, 128; cursors 0 and S-Tw, int8 and fp32 caches, full "
@@ -3760,7 +3779,7 @@ def phase_tunes_train_cli(root, device, n_tunes=TUNES_CORPUS,
     from epoch 1 to ``epochs``, weights.pth and logs.txt are written (an
     entry an epoch), the resume runs epoch ``epochs + 1`` alone from the
     checkpoint's weights and count. Returns the numbers, out_dir and the
-    leadsheets of phase 30's sampling (8 curated tunes)."""
+    leadsheets of phase 30's sampling (TUNES_SHEETS curated tunes)."""
     import os
     import statistics
 
@@ -3813,7 +3832,8 @@ def phase_tunes_train_cli(root, device, n_tunes=TUNES_CORPUS,
     steady = [e["ms_per_iter"] for e in epochs_run[1:]]
     with open(data) as f:
         items = json.load(f)
-    sheets = [dict(id=1000 + i, **item) for i, item in enumerate(items[:8])]
+    sheets = [dict(id=1000 + i, **item)
+              for i, item in enumerate(items[:TUNES_SHEETS])]
     sheets_path = os.path.join(root, "leadsheets.json")
     with open(sheets_path, "w") as f:
         json.dump(sheets, f)
@@ -3830,9 +3850,10 @@ def phase_tunes_train_cli(root, device, n_tunes=TUNES_CORPUS,
 
 @torch.inference_mode()
 def phase_tunes_sample_trained(trained, device, max_patch=TUNES_MAX_PATCH):
-    """cli/sample_tunesformer.py over phase 30's weights.pth and 8 of its
-    curated tunes as leadsheets: one sample_<id>.abc with its X:<id>
-    header each; 105 K1 launches a bar and no twin call on the card.
+    """cli/sample_tunesformer.py over phase 30's weights.pth and
+    TUNES_SHEETS of its curated tunes as leadsheets: one sample_<id>.abc
+    with its X:<id> header each; 105 K1 launches a bar and no twin call
+    on the card.
     Returns (K1 launches, bars)."""
     import contextlib
     import io
@@ -4744,13 +4765,14 @@ MOE_K1_SHAPES = ((MOE_DECODE_B, 256, 6, False, False),
 
 
 def phase_moe_kernel_vs_twin(device) -> tuple[float, set]:
-    """K1 at ``MOE_K1_SHAPES`` (pos 0, 7, 8, S-1; ring rows at random
+    """K1 at ``MOE_K1_SHAPES`` (pos 0, 7, 8, S-1; 0 and S-1 alone at B >=
+    4096, whose twins take the host seconds a case; ring rows at random
     lengths): caches bit-exact, the output within one bf16 ulp of its
     range of the twin in fp32. Returns (the largest error, the shapes
     checked as (B, S, KH*D, cache dtype, ring))."""
     worst, checked = 0.0, set()
     for b, s_len, kh, quant, ring in MOE_K1_SHAPES:
-        for pos in (0, 7, 8, s_len - 1):
+        for pos in ((0, s_len - 1) if b >= BATCH else (0, 7, 8, s_len - 1)):
             cpu = _decode_inputs(quant, ring, pos, b, s_len, KH=kh)
             err, _ = _check_k1(_to(cpu, device), [
                 None if a is None else a.clone() for a in cpu], pos, device,
@@ -4760,7 +4782,8 @@ def phase_moe_kernel_vs_twin(device) -> tuple[float, set]:
         checked.add((b, s_len, kh * 64, torch.int8 if quant
                      else torch.bfloat16, ring))
     print(f"K1 at the MoE paths' shapes (B, S, KH, int8, ring) "
-          f"{list(MOE_K1_SHAPES)}, pos 0, 7, 8, S-1: caches bit-exact, out "
+          f"{list(MOE_K1_SHAPES)}, pos 0, 7, 8, S-1 (0, S-1 at B >= {BATCH})"
+          f": caches bit-exact, out "
           f"max abs err {worst} vs the fp32 twin")
     return worst, checked
 
@@ -5113,8 +5136,8 @@ def phase_moe_bench_decode(device) -> dict:
     """The bench config with 4 experts (MOE_BENCH, init weights) at the
     bench protocol (B=4096, 8-token prompts, window 128, 500 new tokens, T
     0.8, top_k 200): two same-seed generates bit-equal, each exactly
-    n_layer x 500 = 3000 K1 launches; then one generate timed (CUDA
-    events): tok/s, peak memory (the windowed refresh routes 4096 x 64
+    n_layer x 500 = 3000 K1 launches, the second timed (CUDA events on the
+    card): tok/s, peak memory (the windowed refresh routes 4096 x 64
     tokens a layer through the index dispatch)."""
     from ai_music_generation_tpu_torch.decode.generate import Generator
 
@@ -5125,12 +5148,12 @@ def phase_moe_bench_decode(device) -> dict:
                             generator=torch.Generator().manual_seed(2),
                             dtype=torch.int32)
     _reset_peak(device)
-    runs = []
-    for _ in range(2):
+    runs, outs = [], []
+    for _ in range(2):  # the second run's time is kept: the first is warm-up
         before = _k1_launches()
-        out = gen.generate(prompts, seed=1234)
-        _sync(device)
-        runs.append((out.cpu(), _k1_launches() - before))
+        seconds = _event_seconds(
+            lambda: outs.append(gen.generate(prompts, seed=1234)))
+        runs.append((outs[-1].cpu(), _k1_launches() - before))
     want = (model.config.n_layer * MAX_NEW
             if torch.device(device).type == "cuda" else 0)
     if not (torch.equal(runs[0][0], runs[1][0])
@@ -5143,7 +5166,6 @@ def phase_moe_bench_decode(device) -> dict:
     if not (torch.equal(out[:, :PROMPT_LEN], prompts)
             and ((out >= 0) & (out < model.config.vocab_size)).all()):
         raise AssertionError("MoE bench decode: prompts or token range")
-    seconds = _event_seconds(lambda: gen.generate(prompts, seed=1235))
     tok_s = BATCH * MAX_NEW / seconds
     peak = _peak_gib(device)
     print(f"MoE bench decode (bench config + 4 experts, B={BATCH}, window "
@@ -5409,8 +5431,8 @@ def _served(srv, n, seed):
 
 
 # the timed passes of phase 42's servers, each engine's cold pass first:
-# (engine, load seed), the plain and the sharded engine in turns
-MESH_TURNS = (("plain", 0), ("mesh", 0), ("mesh", 1), ("plain", 1))
+# (engine, load seed), one a server (the script's time limit)
+MESH_TURNS = (("mesh", 0), ("plain", 0))
 # the sharded server's hot passes: half of phase 19's load (the script's
 # time limit)
 MESH_SERVE_REQUESTS = 4096
@@ -5422,8 +5444,8 @@ def phase_mesh_serve(device="cuda", n_slots=SERVE_SLOTS,
     """Phase 42's GenerationServer: the unsharded engine and the engine
     over ``make_mesh(1, 1)`` (the control plane of serve/mesh.py, the
     model's mesh parts, the token gather) over the same weights, each
-    through phase 19's cold pass, then two hot passes each in turns
-    (MESH_TURNS): every request's tokens equal. K1's launches on the
+    through phase 19's cold pass, then a hot pass each (MESH_TURNS): every
+    request's tokens equal. K1's launches on the
     sharded engine's passes (its count set to 0 just before each, read just
     after) must be > 0. Returns the mean tok/s of each engine's hot passes
     and those launches."""
@@ -5465,8 +5487,8 @@ def phase_mesh_serve(device="cuda", n_slots=SERVE_SLOTS,
                mesh_tok_s=statistics.mean(tok_s["mesh"]), launches=launches,
                passes=tok_s)
     print(f"sharded serving (mesh 1x1): {n_slots} slots, a cold pass of "
-          f"{n_slots} and two hot passes of {requests} requests each, in "
-          f"turns, every request's tokens equal to the unsharded server's; "
+          f"{n_slots} and a hot pass of {requests} requests each, every "
+          f"request's tokens equal to the unsharded server's; "
           f"hot passes {res['mesh_tok_s']:.1f} tok/s vs unsharded "
           f"{res['plain_tok_s']:.1f} (each: {tok_s}); K1 launches on the "
           f"sharded passes {launches}")
@@ -5479,9 +5501,9 @@ def phase_mesh_tunes(device="cuda", n_slots=TUNES_SLOTS,
     """Phase 42's TunesServer: the unsharded server and the server over
     ``make_mesh(1, 1)``, each over the reference model's init weights,
     through phase 27's cold pass (``n_slots`` requests of
-    cli/serve_bench.py's tunes protocol, seeds 10,000 + i), then in turns
-    (MESH_TURNS) through two passes of ``n_slots`` more (seeds 20,000 + i,
-    then 30,000 + i): every text equal. Returns the mean tunes/min of each
+    cli/serve_bench.py's tunes protocol, seeds 10,000 + i), then through a
+    hot pass of ``n_slots`` more each (MESH_TURNS, seeds 20,000 + i): every
+    text equal. Returns the mean tunes/min of each
     server's timed passes."""
     import statistics
 
@@ -5514,7 +5536,7 @@ def phase_mesh_tunes(device="cuda", n_slots=TUNES_SLOTS,
     res = dict(plain=statistics.mean(rates["plain"]),
                mesh=statistics.mean(rates["mesh"]), passes=rates)
     print(f"sharded TunesServer (mesh 1x1): {n_slots} slots, phase 27's "
-          f"cold pass and two passes of {n_slots} requests in turns at "
+          f"cold pass and a pass of {n_slots} requests each at "
           f"{max_patch} patches, every text equal to the unsharded server's;"
           f" {res['mesh']:.1f} tunes/min vs unsharded {res['plain']:.1f} "
           f"(each: {rates})")
@@ -6193,11 +6215,12 @@ def phase_replay(root, device="cuda") -> dict:
 
 
 # the last host entry points (phase 45): cli/transfer_experiment.py at its
-# defaults (:73-85: 400 melodies, 120 chorales, 600 pretrain and 300
-# fine-tune iterations, 4L/4H/256d, block 256, batch 32, dropout 0.1,
-# bf16, an eval of 20 batches every 100 iterations) on the card, then each
-# host CLI once on fixtures made from a seed
-TRANSFER_ITERS = {"--pretrain_iters": 600, "--finetune_iters": 300,
+# defaults (:73-85: 400 melodies, 120 chorales, 4L/4H/256d, block 256,
+# batch 32, dropout 0.1, bf16, an eval of 20 batches every 100 iterations)
+# but its 600 pretrain and 300 fine-tune iterations, cut to 300 and 200
+# for the script's time limit, on the card, then each host CLI once on
+# fixtures made from a seed
+TRANSFER_ITERS = {"--pretrain_iters": 300, "--finetune_iters": 200,
                   "--eval_interval": 100}
 HOST_CHORALES, HOST_MELODIES, HOST_XML = 24, 40, 8
 HOST_PIECES_PER_SIG, HOST_GENERATED = 10, 4
@@ -6206,11 +6229,11 @@ HOST_HANG_S = 300  # a hung pool ends the script with its traceback
 
 
 def phase_transfer(root, device="cuda", flags=()) -> dict:
-    """``cli/transfer_experiment.py`` with ``--device`` (and ``flags``: none
-    on the card, a tiny model in a CPU rehearsal) in ``root``, its
-    ``--doc_out`` there too: the three legs finish at their iterations
-    (melody 0 -> 600, transfer 600 -> 900, resumed from the melody
-    checkpoint, scratch 0 -> 300), every val loss finite. The verdict
+    """``cli/transfer_experiment.py`` with ``--device``, TRANSFER_ITERS (and
+    ``flags``: none on the card, a tiny model in a CPU rehearsal) in
+    ``root``, its ``--doc_out`` there too: the three legs finish at their
+    iterations (melody 0 -> 300, transfer 300 -> 500, resumed from the
+    melody checkpoint, scratch 0 -> 200), every val loss finite. The verdict
     (transfer beats scratch or not) is recorded, not gated. ms/iter of a
     leg: the median of its log lines whose 50-iteration window holds no
     eval. Returns the best val losses, the verdict, ms/iter per leg and
@@ -6233,7 +6256,8 @@ def phase_transfer(root, device="cuda", flags=()) -> dict:
     t0 = time.perf_counter()
     log = _tee(transfer_experiment.main, [
         f"--work_dir={w}", f"--doc_out={doc}", f"--device={device}",
-        *flags])
+        *(f"{k}={v}" for k, v in it.items()),
+        *(f for f in flags if f.partition("=")[0] not in it)])
     wall = time.perf_counter() - t0
     spans = {"melody": (0, pre), "transfer": (pre, pre + fine),
              "scratch": (0, fine)}
@@ -6468,14 +6492,16 @@ def phase_host_clis(root) -> dict:
 
 # the trained-model decode studies (phase 46): experiments/{realpath_bench_r5,
 # realpath_window_r5,window64_probe,int8_quality,gqa_quality,spec_decode,
-# spec_trace,serve_soak}.py at full width and batch (decode_studies.Sizes:
-# 6L/6H/384d, block 256, 3,000 tunes, B=4096, 500 new tokens, 64 quality
-# generations), each training cut to STUDY_ITERS iterations, one timed
-# generate a leg, the 1,000-sample CLI leg alone, spec_trace without the
-# profiler and the soak cut to STUDY_WAVES waves (the full protocols run
-# through python -m, PERF.md); then parallel/worker_smoke.py over NCCL at
-# world size 1
-STUDY_ITERS, STUDY_WAVES = 300, 3
+# spec_trace,serve_soak}.py at full width (decode_studies.Sizes: 6L/6H/384d,
+# block 256, 3,000 tunes, 500 new tokens, 64 quality generations), each
+# training cut to STUDY_ITERS iterations, one timed generate a leg, the
+# 1,000-sample CLI leg alone, spec_trace without the profiler and the soak
+# cut to STUDY_WAVES waves (the full protocols run through python -m,
+# PERF.md); the timed generates at STUDY_BATCH rows, a quarter of the
+# protocol's 4,096, for the script's time limit, but spec_trace's (its
+# int8_dots verify step is the shape phase 46 times at B=4096); then
+# parallel/worker_smoke.py over NCCL at world size 1
+STUDY_ITERS, STUDY_WAVES, STUDY_BATCH = 300, 3, 1024
 SPEC_TRACE_T = 8  # spec_trace's verify step: n_draft 7 + 1
 
 
@@ -6504,6 +6530,7 @@ def phase_studies(root, device="cuda", iters=STUDY_ITERS, waves=STUDY_WAVES,
     accounting holds (its run raises otherwise) with its ticks on K1; then
     worker_smoke over NCCL at world size 1. ``sizes`` / ``soak`` override
     the study sizes and the soak's arguments (a CPU rehearsal)."""
+    import dataclasses
     import math
     import os
 
@@ -6522,7 +6549,8 @@ def phase_studies(root, device="cuda", iters=STUDY_ITERS, waves=STUDY_WAVES,
         launch_multiprocess_smoke,
     )
 
-    sizes = sizes or ds.Sizes(iters=iters, reps=1, samples=(1000,))
+    full = sizes or ds.Sizes(iters=iters, reps=1, samples=(1000,))
+    sizes = dataclasses.replace(full, batch=min(full.batch, STUDY_BATCH))
     steps = (
         ("realpath_bench_r5", lambda: realpath_bench_r5.run(
             root, sizes, device)),
@@ -6534,7 +6562,7 @@ def phase_studies(root, device="cuda", iters=STUDY_ITERS, waves=STUDY_WAVES,
         ("gqa_quality", lambda: gqa_quality.run(root, sizes, device,
                                                 reuse=True)),
         ("spec_decode", lambda: spec_decode.run(root, sizes, device)),
-        ("spec_trace", lambda: spec_trace.run(root, sizes, device,
+        ("spec_trace", lambda: spec_trace.run(root, full, device,
                                               reuse=True, profile=False)),
         ("serve_soak", lambda: serve_soak.run(
             device, **(soak or dict(waves=waves)))),
@@ -6597,14 +6625,26 @@ def phase_studies(root, device="cuda", iters=STUDY_ITERS, waves=STUDY_WAVES,
     return dict(results=res, walls=walls, smoke=smoke)
 
 
+# a verify step of spec_trace's over a shorter history: its live history
+# columns (the generate's histories run from its 8-token prompts to S-8)
+INT8_DOTS_MID = 120
+INT8_DOTS_SOURCE = "ai_music_generation_tpu_torch/ops/csrc/spec_attention_dots.cu"
+
+
 def phase_int8_dots_timing(B=BATCH, S=256, H=6, D=64, T=SPEC_TRACE_T) -> dict:
-    """K2's int8_dots mode at spec_trace's verify step (B=4096, S=256, T=8,
-    cursor S-8, every history column live) against its twin (write_slab +
-    the int8_dots reference) in fp32: the write bit-exact, the output
-    within 2^-6 of its largest value (phase 6's yardstick); then both timed
-    (plain,
-    kernel, kernel, plain). Its bound: the bytes, or the int8 x int8
-    products at 1979 TOP/s; no one PyTorch call computes it."""
+    """K2's int8_dots mode (the integer tensor-core mode of
+    csrc/spec_attention_mma.cuh) at spec_trace's verify step (B=4096, S=256,
+    T=8, cursor S-8, every history column live), with a bf16 q and with a
+    full fp32 one, against its twin (write_slab + the int8_dots reference)
+    in fp32: the write bit-exact, the output within 2^-6 of its largest
+    value (phase 6's yardstick). Then timed in the order plain, kernel,
+    kernel, plain, the fp32-q kernel and K2's bf16-dot int8 mode (the
+    mode the bf16 models run) on the same inputs timed beside the kernel.
+    Then the same gate and the kernel, its twin and the bf16-dot mode timed
+    at a verify step over INT8_DOTS_MID live history columns (cursor
+    there) and at a refresh (T=128 at cursor 0, no history). Its bound: the
+    bytes, or the int8 x int8 products at 1979 TOP/s; no one PyTorch call
+    computes it."""
     from ai_music_generation_tpu_torch.ops.spec_attention import (
         spec_attention_int8_dots_reference, spec_attention_update,
         write_slab,
@@ -6612,56 +6652,112 @@ def phase_int8_dots_timing(B=BATCH, S=256, H=6, D=64, T=SPEC_TRACE_T) -> dict:
 
     x = _spec_inputs(True, T, S - 8, B, S, H, D, seed=2, device="cuda",
                      n_live=S - 8)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    xf = dict(x, q=torch.randn(x["q"].shape, generator=g, device="cuda"))
 
     def plain(x):
         write_slab(x["k"], x["v"], x["k_slab"], x["v_slab"], x["cursor"])
         return spec_attention_int8_dots_reference(
             *[x[n] for n in SPEC_ATT], n_head=H)
 
-    def kernel(x):
+    def kernel(x, dots=True):
         return spec_attention_update(*[x[n] for n in SPEC_UPD], n_head=H,
-                                     int8_dots=True)
+                                     int8_dots=dots)
 
-    ref_k, ref_v = x["k"].clone(), x["v"].clone()
-    got = kernel(x)
-    write_slab(ref_k, ref_v, x["k_slab"], x["v_slab"], x["cursor"])
-    if not (torch.equal(x["k"], ref_k) and torch.equal(x["v"], ref_v)):
-        raise AssertionError("int8_dots: the cache write differs")
-    want = spec_attention_int8_dots_reference(
-        x["q"].float(), ref_k, ref_v, *[x[n] for n in SPEC_ATT[3:]],
-        n_head=H)
-    err = float((got.float() - want).abs().max())
-    span = float(want.abs().max())
-    if err > 2.0 ** -6 * span:
-        raise AssertionError(f"int8_dots at T={T}: error {err} > 2^-6 of "
-                             f"{span}")
-    del ref_k, ref_v, got, want
-    ks, ps = [], []
-    for order in (0, 1, 1, 0):
-        if order:
-            ks.append(_cuda_ms(lambda: kernel(x), 20))
-        else:
-            ps.append(_cuda_ms(lambda: plain(x), 5))
+    errs, spans = {}, {}
+
+    def check(y, label):
+        ref_k, ref_v = y["k"].clone(), y["v"].clone()
+        got = kernel(y)
+        write_slab(ref_k, ref_v, y["k_slab"], y["v_slab"], y["cursor"])
+        if not (torch.equal(y["k"], ref_k) and torch.equal(y["v"], ref_v)):
+            raise AssertionError(f"int8_dots ({label}): the cache write "
+                                 f"differs")
+        want = spec_attention_int8_dots_reference(
+            y["q"].float(), ref_k, ref_v, *[y[n] for n in SPEC_ATT[3:]],
+            n_head=H)
+        errs[label] = float((got.float() - want).abs().max())
+        spans[label] = float(want.abs().max())
+        if errs[label] > 2.0 ** -6 * spans[label]:
+            raise AssertionError(f"int8_dots ({label}): error {errs[label]}"
+                                 f" > 2^-6 of {spans[label]}")
+
+    check(x, "bf16")
+    check(xf, "fp32")  # x and xf share the caches
+    runs = {"plain": (lambda: plain(x), 5), "kernel": (lambda: kernel(x), 20),
+            "fp32": (lambda: kernel(xf), 20),
+            "bf16_dot": (lambda: kernel(x, dots=False), 20)}
+    ms = {name: [] for name in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for name in order:
+            fn, iters = runs[name]
+            ms[name].append(_cuda_ms(fn, iters))
     bound_ms, bound_by = bound(*_spec_work(x, T, S - 8, H, True),
                                INT8_OPS_PER_S)
-    r = dict(ms=min(ks), plain_ms=min(ps), bound_ms=bound_ms,
-             bound_by=bound_by, library_ms=None, max_abs_err=err)
+    fp32_bound, _ = bound(*_spec_work(xf, T, S - 8, H, True),
+                          INT8_OPS_PER_S)
+    del x, xf
+
+    def beside(T, cursor, n_live, iters, seed):
+        """The kernel, its twin and the bf16-dot mode at one more shape,
+        timed as above; with its bound."""
+        y = _spec_inputs(True, T, cursor, B, S, H, D, seed=seed,
+                         device="cuda", n_live=n_live)
+        check(y, f"T={T} cursor {cursor}")
+        runs = {"plain": (lambda: plain(y), 2),
+                "kernel": (lambda: kernel(y), iters),
+                "bf16_dot": (lambda: kernel(y, dots=False), iters)}
+        ms = {name: [] for name in runs}
+        for order in (list(runs), list(runs)[::-1]):
+            for name in order:
+                fn, n = runs[name]
+                ms[name].append(_cuda_ms(fn, n))
+        b_ms, b_by = bound(*_spec_work(y, T, cursor, H, True),
+                           INT8_OPS_PER_S)
+        return ms, b_ms, b_by
+
+    mms, m_bound, m_by = beside(T, INT8_DOTS_MID, INT8_DOTS_MID, 20, 5)
+    # the refresh (T=128 at cursor 0 over an empty history)
+    rms, r_bound, r_by = beside(128, 0, 0, 10, 4)
+    r = dict(route="cuda", source=INT8_DOTS_SOURCE,
+             ms=min(ms["kernel"]), plain_ms=min(ms["plain"]),
+             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+             max_abs_err=errs["bf16"], bf16_dot_ms=min(ms["bf16_dot"]),
+             fp32=dict(ms=min(ms["fp32"]), bound_ms=fp32_bound,
+                       max_abs_err=errs["fp32"]),
+             mid=dict(live=INT8_DOTS_MID, ms=min(mms["kernel"]),
+                      plain_ms=min(mms["plain"]), bound_ms=m_bound,
+                      bound_by=m_by, bf16_dot_ms=min(mms["bf16_dot"]),
+                      max_abs_err=errs[f"T={T} cursor {INT8_DOTS_MID}"]),
+             refresh=dict(ms=min(rms["kernel"]), plain_ms=min(rms["plain"]),
+                          bound_ms=r_bound, bound_by=r_by,
+                          bf16_dot_ms=min(rms["bf16_dot"]),
+                          max_abs_err=errs["T=128 cursor 0"]))
     print(f"spec_attention_update int8_dots (B={B} S={S} T={T}, {S - 8} live"
-          f" history columns): kernel {ks} ms/call, twin {ps} (plain, "
-          f"kernel, kernel, plain); error {err:.3e} (largest value "
-          f"{span:.3f}); "
-          f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / r['ms']:.3f} "
-          f"of it")
+          f" history columns), ms/call in the order plain, kernel, fp32 q, "
+          f"bf16-dot and back: {ms}; error bf16 q {errs['bf16']:.3e} "
+          f"(largest value {spans['bf16']:.3f}), fp32 q {errs['fp32']:.3e} "
+          f"({spans['fp32']:.3f}); bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{bound_ms / r['ms']:.3f} of it (fp32 q: {fp32_bound:.4f}, "
+          f"{fp32_bound / r['fp32']['ms']:.3f}); the bf16-dot mode "
+          f"{r['bf16_dot_ms']:.4f} ms; over {INT8_DOTS_MID} live history "
+          f"columns (cursor there) in the order plain, kernel, bf16-dot and "
+          f"back: {mms}, bound {m_bound:.4f} ms ({m_by}), "
+          f"{m_bound / r['mid']['ms']:.3f} of it; the refresh (T=128 at "
+          f"cursor 0) the same: {rms}, bound "
+          f"{r_bound:.4f} ms ({r_by}), {r_bound / r['refresh']['ms']:.3f} of"
+          f" it")
     return r
 
 
 # the last experiment scripts (phase 47): experiments/{window_quality,
 # refresh_quality,window_flat_probe,mfu_sweep,fuzz_campaign,int4_probe,
-# int4_probe2,int4_cache_probe}.py at full width and batch in phase 46's
-# work directory (window_quality reuses its spec checkpoint), trainings cut
-# to STUDY_ITERS, one timed generate a leg, mfu_sweep at both models with
-# every variant, the fuzz campaign at FUZZ_CASES, the probes at their full
-# shapes (the full protocols run through python -m, PERF.md)
+# int4_probe2,int4_cache_probe}.py at full width in phase 46's work
+# directory (window_quality reuses its spec checkpoint), trainings cut to
+# STUDY_ITERS, one timed generate a leg at STUDY_BATCH rows, mfu_sweep at
+# both models with every variant, the fuzz campaign at FUZZ_CASES, the
+# probes at their full shapes (the full protocols run through python -m,
+# PERF.md)
 FUZZ_CASES = (5000, 500)  # ABC differential cases, codec round trips a mode
 SUM_RATE_LIMIT = 1.05 * 3.35e3  # GB/s: no sum pass reads above the HBM rate
 
@@ -6693,7 +6789,7 @@ def phase_experiments(root, device="cuda", iters=STUDY_ITERS, sizes=None,
         window_quality,
     )
 
-    sizes = sizes or ds.Sizes(iters=iters, reps=1)
+    sizes = sizes or ds.Sizes(iters=iters, reps=1, batch=STUDY_BATCH)
     refresh_sizes = refresh_sizes or dataclasses.replace(
         refresh_quality.SIZES, iters=iters, reps=1)
     probes = probes or {}
@@ -7369,9 +7465,9 @@ def main(argv=None) -> int:
           f"{gpt2_peak_flops / 1e12:.0f} TFLOP/s; phase 43 {gpt2_s:.1f} s; "
           f"phase 44 {replay_s:.1f} s (the harness {replay['wall']:.1f} s, "
           f"fixtures {replay['fixtures_s']:.1f} s): {replay['rows']}")
-    # the last host entry points (phase 45): the transfer experiment at its
-    # defaults trains on the card, then each host CLI runs once; no kernel
-    # of the port
+    # the last host entry points (phase 45): the transfer experiment (its
+    # iterations cut) trains on the card, then each host CLI runs once; no
+    # kernel of the port
     host_t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         transfer, counts = _main_path(phase_transfer, tmp)
@@ -7382,7 +7478,8 @@ def main(argv=None) -> int:
                              f"launched kernels of the port: {counts}, "
                              f"{cli_counts}")
     torch.cuda.empty_cache()
-    print(f"[{card}] transfer experiment (defaults, bf16): best val loss "
+    print(f"[{card}] transfer experiment (TRANSFER_ITERS, bf16): best val "
+          f"loss "
           f"melody {transfer['best']['melody']:.4f}, transfer "
           f"{transfer['best']['transfer']:.4f}, scratch "
           f"{transfer['best']['scratch']:.4f}: transfer "
@@ -7418,7 +7515,11 @@ def main(argv=None) -> int:
     kernels[0]["by_path"]["studies"] = counts["gqa_decode_update"]
     kernels[1]["by_path"] = {"studies": counts["spec_attention_update"]}
     kernels[1]["int8_dots"] = dict(
-        dots, launches=trace["int8dots_k7"]["counts"]["k2"],
+        dots, name="spec_attention_update/int8_dots",
+        replaces=SPEC_REPLACES["spec_attention_update"],
+        redesign="mma.sync m16n8k32 s8 for both products (before: __dp4a "
+                 "on the CUDA cores)",
+        launches=trace["int8dots_k7"]["counts"]["k2"],
         ms_per_step=trace["int8dots_k7"]["ms_per_step"])
     rb, soak = res["realpath_bench_r5"], res["serve_soak"]
     print(f"[{card}] trained-model studies ({STUDY_ITERS} iterations a "
@@ -7436,7 +7537,10 @@ def main(argv=None) -> int:
           + f"; spec_trace ms/step plain {trace['plain']['ms_per_step']:.3f},"
           f" bf16 {trace['bf16_k7']['ms_per_step']:.3f}, int8_dots "
           f"{trace['int8dots_k7']['ms_per_step']:.3f}; K2 int8_dots "
-          f"{dots['ms']:.4f} ms/call (bound {dots['bound_ms']:.4f}); soak "
+          f"{dots['ms']:.4f} ms/call (bound {dots['bound_ms']:.4f}; fp32 q "
+          f"{dots['fp32']['ms']:.4f}; bf16-dot {dots['bf16_dot_ms']:.4f}; "
+          f"{INT8_DOTS_MID} live columns {dots['mid']['ms']:.4f}, bf16-dot "
+          f"{dots['mid']['bf16_dot_ms']:.4f}); soak "
           f"spread {soak['warm_spread']:.4f}, rss "
           f"{soak['rss_growth_mb']:+.1f} MB, device "
           f"{soak['device_growth_mb']:+.1f} MB; launches {counts}; phase 46 "

@@ -9,6 +9,7 @@ without the JAX conftest:
 """
 
 import copy
+import functools
 
 import pytest
 import torch
@@ -259,7 +260,8 @@ def _spec_fp32_twin(x, n_head, int8_dots):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["bf16", "int8", "int8_dots"])
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int8_dots",
+                                  "int8_dots_fp32"])
 @pytest.mark.parametrize("write", [False, True], ids=["k3", "k2"])
 def test_spec_attention_kernel_matches_twin(cuda, write, mode):
     """K2 (write + attention) and K3 (attention) against the twins, at
@@ -270,41 +272,55 @@ def test_spec_attention_kernel_matches_twin(cuda, write, mode):
     dead (output 0): the slab write bit-exact; the B rows' output within
     one bf16 ulp of its range of the twin evaluated in fp32 (2^-7), 2^-6 in
     int8_dots mode (the kernel and the twin may round a quantized
-    probability to neighbouring integers)."""
-    quant, dots = mode != "bf16", mode == "int8_dots"
-    for B, S, H, D in ((3, 64, 6, 64), (3, 256, 6, 64), (8, 256, 6, 64),
-                       (2, 32, 2, 16), (2, 128, 2, 128), (2, 72, 4, 32),
-                       (3, 1024, 6, 64)):
-        for T in (1, 5, 7, 8, 13, 16, 17, 64, 65, 128):
-            Tw = -(-T // 8) * 8
-            if Tw > S:
-                continue
-            cursors = sorted({c for c in (0, 8, S - Tw) if c <= S - Tw})
-            for cursor in cursors if write else (S - Tw,):
-                cpu = _spec_inputs(quant, T, cursor, B, S, H, D, seed=T,
-                                   dead_row=True)
-                gpu = _on(cpu, cuda)
-                if write:
-                    before = spec_attention_update.launches
-                    out = spec_attention_update(
-                        *[gpu[n] for n in UPD], n_head=H, int8_dots=dots)
-                    assert spec_attention_update.launches == before + 1
-                    write_slab(cpu["k"], cpu["v"], cpu["k_slab"],
-                               cpu["v_slab"], cursor)
-                else:
-                    before = spec_attention.launches
-                    out = spec_attention(*[gpu[n] for n in ATT], n_head=H,
-                                         int8_dots=dots)
-                    assert spec_attention.launches == before + 1
-                torch.cuda.synchronize()
-                for n in ("k", "v"):  # the write, bit for bit
-                    assert torch.equal(gpu[n].cpu(), cpu[n]), (n, B, T)
-                ref = _spec_fp32_twin(cpu, H, dots)[:-1]
-                out = out.float().cpu()
-                assert torch.equal(out[-1], torch.zeros_like(out[-1]))
-                err = (out[:-1] - ref).abs().max()
-                tol = 2.0 ** (-6 if dots else -7) * ref.abs().max()
-                assert err <= tol, (B, S, T, cursor, err, tol)
+    probability to neighbouring integers), with a bf16 q and with a full
+    fp32 one (int8_dots_fp32). Then spec_trace's verify shape at a small
+    batch: B=8, S=256, T=8 at cursor S-8, every row reading the 248 history
+    columns."""
+    quant, dots = mode != "bf16", mode.startswith("int8_dots")
+    make = _spec_inputs32 if mode == "int8_dots_fp32" else functools.partial(
+        _spec_inputs, dead_row=True)
+    shapes = [(B, S, H, D, T, None)
+              for B, S, H, D in ((3, 64, 6, 64), (3, 256, 6, 64),
+                                 (8, 256, 6, 64), (2, 32, 2, 16),
+                                 (2, 128, 2, 128), (2, 72, 4, 32),
+                                 (3, 1024, 6, 64))
+              for T in (1, 5, 7, 8, 13, 16, 17, 64, 65, 128)]
+    shapes.append((8, 256, 6, 64, 8, 248))  # spec_trace's verify step
+    for B, S, H, D, T, n_live in shapes:
+        Tw = -(-T // 8) * 8
+        if Tw > S:
+            continue
+        cursors = sorted({c for c in (0, 8, S - Tw) if c <= S - Tw})
+        for cursor in cursors if write and n_live is None else (S - Tw,):
+            cpu = make(quant, T, cursor, B, S, H, D, seed=T)
+            if n_live is not None:  # every live row reads n_live columns
+                cpu["lengths"][:-1] = n_live
+                cpu["col_pos"][:-1] = KVCache.INVALID_POS
+                cpu["col_pos"][:-1, :n_live] = torch.arange(n_live)
+                cpu["col_pos"][:-1, cursor:cursor + T] = (
+                    n_live + torch.arange(T))
+            gpu = _on(cpu, cuda)
+            if write:
+                before = spec_attention_update.launches
+                out = spec_attention_update(
+                    *[gpu[n] for n in UPD], n_head=H, int8_dots=dots)
+                assert spec_attention_update.launches == before + 1
+                write_slab(cpu["k"], cpu["v"], cpu["k_slab"],
+                           cpu["v_slab"], cursor)
+            else:
+                before = spec_attention.launches
+                out = spec_attention(*[gpu[n] for n in ATT], n_head=H,
+                                     int8_dots=dots)
+                assert spec_attention.launches == before + 1
+            torch.cuda.synchronize()
+            for n in ("k", "v"):  # the write, bit for bit
+                assert torch.equal(gpu[n].cpu(), cpu[n]), (n, B, T)
+            ref = _spec_fp32_twin(cpu, H, dots)[:-1]
+            out = out.float().cpu()
+            assert torch.equal(out[-1], torch.zeros_like(out[-1]))
+            err = (out[:-1] - ref).abs().max()
+            tol = 2.0 ** (-6 if dots else -7) * ref.abs().max()
+            assert err <= tol, (B, S, T, cursor, n_live, err, tol)
 
 
 @pytest.mark.cuda
@@ -812,9 +828,16 @@ def test_fp32_kernels_refuse_mixed_types(cuda):
     with pytest.raises(ValueError, match="k must be"):  # a bf16 cache
         spec_attention(x["q"], x["k"].bfloat16(), x["v"], None, None,
                        x["col_pos"], x["lengths"], n_head=6)
-    x8 = _on(_spec_inputs32(True, 5, 8, 2, 32, 6, 64), cuda)
-    with pytest.raises(ValueError, match="int8_dots takes a bf16 q"):
-        spec_attention(*[x8[n] for n in ATT], n_head=6, int8_dots=True)
+    # int8_dots takes an fp32 q (the Pallas kernel quantizes q from fp32
+    # either way): it runs and matches its twin
+    cpu8 = _spec_inputs32(True, 5, 8, 2, 32, 6, 64)
+    x8 = _on(cpu8, cuda)
+    out = spec_attention(*[x8[n] for n in ATT], n_head=6, int8_dots=True)
+    assert out.dtype == torch.float32
+    ref = spec_attention_int8_dots_reference(*[cpu8[n] for n in ATT],
+                                             n_head=6)[:-1]
+    err = (out.cpu()[:-1] - ref).abs().max()
+    assert err <= 2.0 ** -6 * ref.abs().max(), err
     args = [None if a is None else a.to(cuda)
             for a in _inputs32(False, False, 0, 4, 16)]
     pos = torch.zeros((), dtype=torch.int32, device=cuda)

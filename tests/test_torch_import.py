@@ -78,6 +78,7 @@ MODULES = [
     "ai_music_generation_tpu_torch.experiments.int4_kernel_probe",
     "ai_music_generation_tpu_torch.experiments.int4_probe",
     "ai_music_generation_tpu_torch.experiments.int4_probe2",
+    "ai_music_generation_tpu_torch.experiments.int8_dots_probe",
     "ai_music_generation_tpu_torch.experiments.int8_quality",
     "ai_music_generation_tpu_torch.experiments.k1_ab",
     "ai_music_generation_tpu_torch.experiments.mfu_sweep",
@@ -258,7 +259,8 @@ def test_build_key_tracks_sources_and_flags(monkeypatch, tmp_path):
     assert _build.library_path() == path  # stable
     assert [p.name for p in _build.sources()] == [
         "decode_attention.cu", "gqa_decode.cu", "gqa_decode_ring.cu",
-        "lean_attention.cu", "spec_attention.cu", "spec_attention_f32.cu"]
+        "lean_attention.cu", "spec_attention.cu", "spec_attention_dots.cu",
+        "spec_attention_f32.cu"]
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-g",))
     assert _build.library_path() != path
     assert "--use_fast_math" not in _build.NVCC_FLAGS

@@ -33,7 +33,9 @@ from ai_music_generation_tpu.ops.spec_attention import (
 from ai_music_generation_tpu.ops.spec_attention import (
     spec_attention_update as jax_spec_attention_update,
 )
-from ai_music_generation_tpu_torch.experiments import register_caps
+from ai_music_generation_tpu_torch.experiments import (
+    int8_dots_probe, register_caps,
+)
 from ai_music_generation_tpu_torch.models.gpt import (
     KVCache,
     quantize_int8,
@@ -219,14 +221,26 @@ def test_within_step_causality_and_dead_columns():
     assert torch.equal(out, poisoned)
 
 
+@pytest.mark.parametrize("q_dtype", ["bf16", "fp32"])
 @pytest.mark.parametrize("T", [5, 8])
-def test_int8_dots_twin_matches_pallas_interpret(T):
-    x = make_inputs(B=2, T=T, H=2, S=32, quant=True, seed=20 + T)
-    t, j = _torch(x), _jax(x)
+def test_int8_dots_twin_matches_pallas_interpret(T, q_dtype):
+    """The int8_dots twin against the Pallas kernel in interpret mode, with
+    a bf16 q and with a full fp32 one (the Pallas kernel quantizes q from
+    fp32 in either dtype): out in q's dtype, within 2^-7 of its range (the
+    twin differs only in fp32 softmax rounding)."""
+    if q_dtype == "bf16":
+        x = make_inputs(B=2, T=T, H=2, S=32, quant=True, seed=20 + T)
+        t, j = _torch(x), _jax(x)
+    else:
+        x = make_inputs(B=2, T=T, H=2, S=32, quant=True, seed=30 + T)
+        x["q"] = np.random.default_rng(40 + T).standard_normal(
+            x["q"].shape).astype(np.float32)
+        t, j = _torch(x, torch.float32), _jax(x, jnp.float32)
     want = jax_spec_attention(*_args(j, *ATT), n_head=2, interpret=True,
                               int8_dots=True)
     got = spec_attention_int8_dots_reference(*_args(t, *ATT), n_head=2)
-    assert got.dtype == torch.bfloat16
+    assert got.dtype == (torch.bfloat16 if q_dtype == "bf16"
+                         else torch.float32)
     _assert_close(got, want, 2.0 ** -7)
     # the wrappers select the same twin on CPU tensors
     assert torch.equal(spec_attention(*_args(t, *ATT), n_head=2,
@@ -449,6 +463,17 @@ def test_register_caps_finds_the_fp32_verify_cap():
     assert len(caps) == 1 and caps[0][1] == "6"
 
 
+@pytest.mark.parametrize("variant", sorted(int8_dots_probe.VARIANTS))
+def test_int8_dots_probe_finds_its_edits(variant):
+    """experiments/int8_dots_probe.py changes one part of the int8_dots mode
+    a variant: each text it replaces is in the kernel source exactly once,
+    and the edit changes the source (but the unchanged variant's)."""
+    header = (_build.CSRC / int8_dots_probe.HEADER).read_text()
+    _, edits = int8_dots_probe.VARIANTS[variant]
+    edited = int8_dots_probe.variant_header(header, edits)
+    assert (edited == header) == (variant == "source")
+
+
 def _check_args(T=5, S=64, H=2, D=64, quant=True, write=True):
     """CPU operands of one verify call, zeros, for the wrapper's checks,
     as a dict of spec_attention_update's arguments."""
@@ -478,6 +503,21 @@ def test_kernel_checks_pass_what_it_takes(quant, write):
         x = _check_args(T, S, quant=quant, write=write)
         got = _check_cuda(*x.values(), 2, False)
         assert got == (2, T, S, 64, quant)
+
+
+@pytest.mark.parametrize("T", [5, 8, 128])
+def test_kernel_checks_take_int8_dots_with_an_fp32_q(T):
+    """int8_dots takes an fp32 q as it takes a bf16 one (the kernel's fp32
+    entry point instantiates the mode): the checks pass an fp32 q over the
+    int8 cache, with and without the write, and still refuse a bf16 cache."""
+    for write in (True, False):
+        x = _check_args(T, 256, quant=True, write=write)
+        x["q"] = x["q"].float()
+        assert _check_cuda(*x.values(), 2, True) == (2, T, 256, 64, True)
+    x = _check_args(T, 256, quant=False)
+    x["q"] = x["q"].float()
+    with pytest.raises(ValueError, match="int8_dots needs"):
+        _check_cuda(*x.values(), 2, True)
 
 
 @pytest.mark.parametrize("edit,match", [
