@@ -1,20 +1,22 @@
-"""K1 (``ops/csrc/gqa_decode*.cu``) of two source trees, timed against
-each other on the card in one process.
+"""K1 (``ops/csrc/gqa_decode*.cu``) of two or more source trees, timed
+against each other on the card in one process.
 
-Builds the ``gqa_decode*.cu`` sources of this checkout's ``ops/csrc`` and of
-``--base``
-(another version's ``ops/csrc`` directory, e.g. a parent commit's unpacked
-with ``git archive`` into a git-ignored directory) into a library each,
-under ``_build/k1_ab/``. At each shape the two run in alternating rounds
-(base, this, this, base, ...): CUDA events over ``--iters`` calls after a
-warm-up, each round's ms printed, then each version's median and spread
-((max - min) / min over its rounds) and its median's change from base's.
+Builds the ``gqa_decode*.cu`` sources of this checkout's ``ops/csrc``, of
+``--base`` (another version's ``ops/csrc`` directory, e.g. a parent
+commit's unpacked with ``git archive`` into a git-ignored directory) and of
+each ``--variant NAME=DIR`` (a copy of the sources with one part changed)
+into a library each, under ``_build/k1_ab/``. At each shape the versions
+run in alternating rounds (base, this, variants, then the reverse, ...):
+CUDA events over ``--iters`` calls after a warm-up, each round's ms
+printed, then each version's median and spread ((max - min) / min over its
+rounds) and its median's change from base's.
 
-Before timing, both versions take the same seeded inputs once: the caches
-(and int8 scales) they write must be equal bit for bit; the outputs must be
-equal bit for bit in lockstep mode and are compared as the largest
-difference over the output's range in ring mode (a version may sum a ring
-row's columns in another order).
+Before timing, every version takes the same seeded inputs once: the caches
+(and int8 scales) it writes must equal base's bit for bit. At G = H/KH > 1
+the output must equal base's bit for bit too. At G = 1 (gqa_decode_mha.cuh
+since its redesign) a version may sum in another order, so the output is
+compared as the largest difference over the output's range, and must stay
+within one bf16 ulp of it (2^-7).
 
 Shapes (D = 64, every row's step at pos S - 1):
 - ``gpt_ring``: the GPT serving tick, int8 cache, H=6, KH=2, B=8192, S=128,
@@ -22,12 +24,19 @@ Shapes (D = 64, every row's step at pos S - 1):
 - ``gpt_lockstep``: the same in lockstep mode;
 - ``tunes_ring``: the TunesFormer server's patch step, bf16 cache,
   H=KH=12, B=1024, S=128, ring;
-- ``tunes_char``: its char step, lockstep, S=32.
+- ``tunes_char``: its char step, lockstep, S=32;
+- ``moe_step``: the MoE model's decode step, bf16, lockstep, B=256, S=256,
+  H=KH=6 (chip_smoke.py phase 36);
+- ``gpt2_step``: GPT-2 124M's decode step, bf16, lockstep, B=256, S=1024,
+  H=KH=12 (phase 43);
+- ``mha_int8``: the bench shape at MHA, int8, lockstep, B=4096, S=128,
+  H=KH=6.
 
 Run on a machine with a CUDA card:
 
     python -m ai_music_generation_tpu_torch.experiments.k1_ab \\
-        --base DIR [--rounds 5] [--iters 50]
+        --base DIR [--variant NAME=DIR ...] [--shapes NAME,...] \\
+        [--rounds 5] [--iters 50]
 """
 
 from __future__ import annotations
@@ -51,6 +60,9 @@ SHAPES = {
     "gpt_lockstep": (True, False, 8192, 128, 6, 2),
     "tunes_ring": (False, True, 1024, 128, 12, 12),
     "tunes_char": (False, False, 1024, 32, 12, 12),
+    "moe_step": (False, False, 256, 256, 6, 6),
+    "gpt2_step": (False, False, 256, 1024, 12, 12),
+    "mha_int8": (True, False, 4096, 128, 6, 6),
 }
 D = 64
 
@@ -87,30 +99,29 @@ def build(csrc: pathlib.Path, name: str) -> ctypes.CDLL:
 
 
 def inputs(quant, ring, B, S, H, KH, seed=0) -> list:
-    """One K1 step's operands on the card (the order of
-    ``gqa_decode_update``), pos = S - 1."""
-    g = torch.Generator().manual_seed(seed)
+    """One K1 step's operands, drawn on the card from a seeded generator
+    (the order of ``gqa_decode_update``), pos = S - 1."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(generator=g, device="cuda")
 
     def bf(*shape):
-        return torch.randn(shape, generator=g).to(torch.bfloat16)
+        return torch.randn(shape, **kw).to(torch.bfloat16)
 
     q, k_slab, v_slab = bf(B, H, D), bf(B, KH * D), bf(B, KH * D)
     k_scale = v_scale = mask_rel = None
     if quant:
-        k, v = (torch.randint(-127, 128, (B, S, KH * D), generator=g,
-                              dtype=torch.int8) for _ in range(2))
-        k_scale, v_scale = ((torch.rand((B, KH, S), generator=g) * 0.1
+        k, v = (torch.randint(-127, 128, (B, S, KH * D), dtype=torch.int8,
+                              **kw) for _ in range(2))
+        k_scale, v_scale = ((torch.rand((B, KH, S), **kw) * 0.1
                              + 0.01).to(torch.bfloat16) for _ in range(2))
     else:
         k, v = bf(B, S, KH * D), bf(B, S, KH * D)
     if ring:
-        lengths = torch.randint(0, S, (B,), generator=g)
-        offset = (S - 1 - torch.arange(S)) % S
+        lengths = torch.randint(0, S, (B,), **kw)
+        offset = (S - 1 - torch.arange(S, device="cuda")) % S
         mask_rel = (lengths[:, None] - offset[None, :]).to(torch.int32)
-    pos = torch.tensor(S - 1, dtype=torch.int32)
-    return [None if t is None else t.cuda()
-            for t in (q, k, v, k_slab, v_slab, k_scale, v_scale, mask_rel,
-                      pos)]
+    pos = torch.tensor(S - 1, dtype=torch.int32, device="cuda")
+    return [q, k, v, k_slab, v_slab, k_scale, v_scale, mask_rel, pos]
 
 
 def launch(cdll, x, shape) -> torch.Tensor:
@@ -138,10 +149,35 @@ def ms_per_call(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def sdpa_ms(x, shape, iters) -> dict:
+    """ms of ``scaled_dot_product_attention`` over the same step's columns
+    (attention only: no column write), the yardstick of chip_smoke.py's K1
+    rows: K and V copied to [B, H, S, D] once, outside the timed calls (as
+    chip_smoke.py times it), and the cache's own layout viewed so."""
+    import torch.nn.functional as F
+
+    _, _, B, S, H, _ = shape
+    q, k, v, mask = x[0][:, :, None, :], x[1], x[2], x[7]
+    kt, vt = (t.view(B, S, H, D).transpose(1, 2) for t in (k, v))
+    m = None if mask is None else (mask >= 0)[:, None, None, :]
+    res = {}
+    for layout, (kk, vv) in (("[B, H, S, D] copies", (kt.contiguous(),
+                                                       vt.contiguous())),
+                             ("the cache's [B, S, H*D]", (kt, vt))):
+        res[layout] = min(ms_per_call(lambda: F.scaled_dot_product_attention(
+            q, kk, vv, attn_mask=m), iters) for _ in range(2))
+    return res
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--base", required=True,
                         help="another version's ops/csrc directory")
+    parser.add_argument("--variant", action="append", default=[],
+                        metavar="NAME=DIR",
+                        help="one more version's ops/csrc directory")
+    parser.add_argument("--shapes", default=",".join(SHAPES),
+                        help="comma-separated names of SHAPES to time")
     parser.add_argument("--rounds", type=int, default=5)
     parser.add_argument("--iters", type=int, default=50)
     args = parser.parse_args(argv)
@@ -151,37 +187,52 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    libs = {"base": build(pathlib.Path(args.base), "base"),
-            "this": build(_build.CSRC, "this")}
-    for name, shape in SHAPES.items():
-        quant, ring = shape[0], shape[1]
+    dirs = {"base": pathlib.Path(args.base), "this": _build.CSRC}
+    for spec in args.variant:
+        name, _, d = spec.partition("=")
+        dirs[name] = pathlib.Path(d)
+    libs = {name: build(d, name) for name, d in dirs.items()}
+    order = list(libs)
+    for name in args.shapes.split(","):
+        shape = SHAPES[name]
+        quant, ring, H, KH = shape[0], shape[1], shape[4], shape[5]
         xs = {v: inputs(*shape) for v in libs}
         outs = {v: launch(libs[v], xs[v], shape) for v in libs}
         torch.cuda.synchronize()
-        for i in (1, 2, 5, 6):
-            a, b = xs["base"][i], xs["this"][i]
-            if a is not None and not torch.equal(a, b):
-                raise AssertionError(f"{name}: the versions wrote other "
-                                     f"caches (argument {i})")
         ref = outs["base"].float()
-        diff = (outs["this"].float() - ref).abs().max().item() \
-            / ref.abs().max().item()
-        if not ring and diff != 0:
-            raise AssertionError(f"{name}: lockstep outputs differ ({diff})")
+        diffs = {}
+        for v in order[1:]:
+            for i in (1, 2, 5, 6):
+                a, b = xs["base"][i], xs[v][i]
+                if a is not None and not torch.equal(a, b):
+                    raise AssertionError(f"{name}: {v} wrote other caches "
+                                         f"than base (argument {i})")
+            diffs[v] = (outs[v].float() - ref).abs().max().item() \
+                / ref.abs().max().item()
+            if H > KH and diffs[v] != 0:
+                raise AssertionError(f"{name}: {v}'s output differs from "
+                                     f"base's at G > 1 ({diffs[v]})")
+            if not diffs[v] <= 2.0 ** -7:
+                raise AssertionError(f"{name}: {v}'s output differs from "
+                                     f"base's by {diffs[v]} of the range")
         times = {v: [] for v in libs}
         for r in range(args.rounds):
-            for v in (("base", "this") if r % 2 == 0 else ("this", "base")):
+            for v in (order if r % 2 == 0 else order[::-1]):
                 times[v].append(ms_per_call(
                     lambda: launch(libs[v], xs[v], shape), args.iters))
         med = {v: statistics.median(t) for v, t in times.items()}
         spread = {v: (max(t) - min(t)) / min(t) for v, t in times.items()}
-        print(f"{name} (B={shape[2]} S={shape[3]} H={shape[4]} "
-              f"KH={shape[5]} {'int8' if quant else 'bf16'} "
-              f"{'ring' if ring else 'lockstep'}): out differs by {diff:.3e}"
-              f" of the range; ms per call by round {times}; median base "
-              f"{med['base']:.4f} (spread {spread['base']:.4f}), this "
-              f"{med['this']:.4f} (spread {spread['this']:.4f}), change "
-              f"{med['this'] / med['base'] - 1:+.4f}")
+        print(f"{name} (B={shape[2]} S={shape[3]} H={H} KH={KH} "
+              f"{'int8' if quant else 'bf16'} "
+              f"{'ring' if ring else 'lockstep'}): out differs from base's by"
+              f" {diffs} of the range; ms per call by round {times}")
+        for v in order:
+            print(f"  {name} {v}: median {med[v]:.4f} ms (spread "
+                  f"{spread[v]:.4f}), change {med[v] / med['base'] - 1:+.4f}")
+        if H == KH and not quant:
+            for layout, ms in sdpa_ms(xs["base"], shape, args.iters).items():
+                print(f"  {name} SDPA over {layout}: {ms:.4f} ms (attention "
+                      f"only, best of 2)")
         del xs, outs
     return 0
 

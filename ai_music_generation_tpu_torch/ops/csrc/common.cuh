@@ -1,7 +1,7 @@
 // Device helpers shared by the kernel sources of this directory: warp and
-// block reductions, 16-byte cache loads widened to floats, and the float
-// conversions of the bf16 and fp32 instantiations. Every function is
-// inline, so each source's object holds its own copy.
+// block reductions, cp.async copies, 16-byte cache loads widened to floats,
+// and the float conversions of the bf16 and fp32 instantiations. Every
+// function is inline, so each source's object holds its own copy.
 
 #pragma once
 
@@ -42,6 +42,23 @@ __device__ __forceinline__ float block_sum(float x, float* stat) {
   for (int w = 1; w < kWarps; ++w) r += stat[w];
   __syncthreads();
   return r;
+}
+
+// cp.async: a 16-byte copy from global to shared memory, issued without
+// waiting; commit closes a group of copies, wait<N> returns once at most N
+// of this thread's groups are still in flight
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // 16 bytes of cache -> floats: 16 int8 values, 8 bf16 values or 4 fp32 values

@@ -1,6 +1,10 @@
 // One T=1 grouped-query decode step over a flat KV cache: the fresh K/V
 // column is written (int8 mode: quantized first) and all H query heads
-// attend over the cache, in one kernel.
+// attend over the cache, in one kernel. This kernel serves G = H/KH > 1;
+// gqa_decode.cu's entry point sends G = 1 (multi-head attention, one query
+// head per kv-head) to gqa_decode_mha.cuh, whose warp-per-row design (no
+// block barrier, tiles of 32 columns, an online softmax, no limit on S)
+// serves one query a kv-head better than this block of 128 threads.
 //
 // Replaces the TPU kernel ai_music_generation_tpu/ops/gqa_decode.py::
 // _gqa_decode_update (Pallas). The contract and the plain PyTorch twin live
@@ -71,6 +75,8 @@
 //
 // Sources: gqa_decode.cu instantiates the lockstep kernels and holds the C
 // entry point; gqa_decode_ring.cu the ring ones, in its own nvcc process.
+// The S limit: smem_bytes grows by G + 3 floats a column, so S reaches
+// about 8,000 at G = 3 before a block's buffers pass shared memory.
 //
 // Build with nvcc -gencode arch=compute_90a,code=sm_90a and WITHOUT
 // --use_fast_math: the int8 scale must be an IEEE division (and rintf
@@ -96,20 +102,6 @@ constexpr int kCH = kThreads;  // columns per staged tile: one per thread in the
 constexpr int kStages = 2;     // staged tiles in shared memory (the ring)
 constexpr size_t kSmemLimit = 227 * 1024;
 constexpr int kTooLarge = -1;  // returned when a block's buffers exceed shared memory
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // bytes of one padded K or V row in shared memory
 template <typename CacheT, int kD>

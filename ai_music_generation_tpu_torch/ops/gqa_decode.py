@@ -3,9 +3,14 @@ column is written (int8 mode: quantized first) and every query head attends.
 
 Port of ``ai_music_generation_tpu/ops/gqa_decode.py`` (the Pallas kernel
 ``_gqa_decode_update``). On a CUDA tensor :func:`gqa_decode_update` launches
-the hand-written kernel of ``csrc/gqa_decode.cuh`` (lockstep mode built
-from ``csrc/gqa_decode.cu``, ring mode from ``csrc/gqa_decode_ring.cu``);
-on a CPU tensor it runs
+a hand-written kernel: at G = H // KH > 1 the one of ``csrc/gqa_decode.cuh``
+(a block of 128 threads a (row, kv-head); lockstep mode built from
+``csrc/gqa_decode.cu``, ring mode from ``csrc/gqa_decode_ring.cu``), at
+G = 1 (multi-head attention) the one of ``csrc/gqa_decode_mha.cuh`` (a
+warp a (row, head), 32-column tiles, an online softmax, a row's columns
+split over up to 4 warps where the launch has few rows; lockstep mode
+built from ``csrc/gqa_decode_mha.cu``, ring mode from
+``csrc/gqa_decode_mha_ring.cu``); on a CPU tensor it runs
 the plain twin :func:`gqa_decode_reference`. Nothing falls back: a CUDA call
 that the kernel cannot take raises.
 
@@ -39,11 +44,13 @@ Returns ``out`` [B, H, D] in q's dtype.
 
 The CUDA kernel takes ``q`` and the slabs in one type, bf16 or fp32 (an
 fp32 model: the Pallas kernel computes in q's dtype), and an int8 cache or
-one in that type, with k and v on 16-byte boundaries, a head size D that is a multiple of 16 and
-divides 128, and an S whose per-block buffers fit shared memory (it
-streams K and V through a ring of column tiles, so what grows with S is
-only G+3 floats per column: S up to about 8,000 at G=3, 12,000 at MHA). It
-raises on anything else; it does not fall back.
+one in that type, with k and v on 16-byte boundaries, and a head size D
+that is a multiple of 16 and divides 128. At G > 1, S must also let one
+block's buffers fit shared memory (the kernel streams K and V through a
+ring of column tiles, so what grows with S is only G+3 floats per column:
+S up to about 8,000 at G=3). At G = 1 nothing in shared memory grows with
+S (the softmax is online), so S has no limit of its own. It raises on
+anything else; it does not fall back.
 """
 
 from __future__ import annotations

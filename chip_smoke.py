@@ -456,6 +456,10 @@ BATCH, PROMPT_LEN, MAX_NEW, WINDOW = 4096, 8, 500, 128
 LONG = 1024
 KERNEL_SOURCE = "ai_music_generation_tpu_torch/ops/csrc/gqa_decode.cu"
 KERNEL_RING_SOURCE = "ai_music_generation_tpu_torch/ops/csrc/gqa_decode_ring.cu"
+# K1 at G = 1 (H == KH: the TunesFormer, MoE and GPT-2 steps)
+KERNEL_MHA_SOURCE = "ai_music_generation_tpu_torch/ops/csrc/gqa_decode_mha.cu"
+KERNEL_MHA_RING_SOURCE = (
+    "ai_music_generation_tpu_torch/ops/csrc/gqa_decode_mha_ring.cu")
 KERNEL_REPLACES = "ai_music_generation_tpu/ops/gqa_decode.py:394"
 # speculative decoding: the bench config with MHA (the spec cache refuses
 # GQA), at the protocol of docs/experiments/spec_decode.py and cli/sample.py
@@ -7250,8 +7254,8 @@ def main(argv=None) -> int:
         err = max(numbers.pop("max_abs_err"), tunes_err)
         kernels.append(_entry(
             f"gqa_decode_update/{name}",
-            KERNEL_RING_SOURCE if name == "tunes_ring" else KERNEL_SOURCE,
-            KERNEL_REPLACES,
+            KERNEL_MHA_RING_SOURCE if name == "tunes_ring"
+            else KERNEL_MHA_SOURCE, KERNEL_REPLACES,
             sum(c.launches[name] for c in tunes_calls.values()), err,
             numbers, batches=sorted({b for c in tunes_calls.values()
                                      for b, S, ring in c.shapes
@@ -7333,9 +7337,13 @@ def main(argv=None) -> int:
                              f"which phase 36 did not hold against the twin")
     moe_k1_launches = {p: c["gqa_decode_update"]
                        for p, c in moe_counts.items() if p != "train"}
+    # the entry's kernel is G = 1's: the trained MHA model's paths; the
+    # bench config (KH=2) and its server run gqa_decode.cu's and
+    # gqa_decode_ring.cu's, and stand in by_path
     kernels.append(_entry(
-        "gqa_decode_update/moe", KERNEL_SOURCE, KERNEL_REPLACES,
-        sum(n for p, n in moe_k1_launches.items() if p != "serve"),
+        "gqa_decode_update/moe", KERNEL_MHA_SOURCE, KERNEL_REPLACES,
+        sum(n for p, n in moe_k1_launches.items()
+            if p not in ("bench", "serve")),
         max(moe_err, moe_k1.pop("max_abs_err")), moe_k1,
         ring_launches=moe_k1_launches["serve"], by_path=moe_k1_launches,
         shapes=sorted(f"B={b} S={S} KHD={khd} {str(dt)[6:]} "
@@ -7448,7 +7456,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     kernels[0]["by_path"]["gpt2"] = gpt2_launches
     kernels.append(_entry(
-        "gqa_decode_update/gpt2", KERNEL_SOURCE, KERNEL_REPLACES,
+        "gqa_decode_update/gpt2", KERNEL_MHA_SOURCE, KERNEL_REPLACES,
         gpt2_launches, gpt2_k1.pop("max_abs_err"), gpt2_k1,
         shapes=sorted(f"B={b} S={S} KHD={khd} {str(dt)[6:]} "
                       f"{'ring' if ring else 'lockstep'}"

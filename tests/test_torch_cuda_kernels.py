@@ -101,10 +101,13 @@ def _inputs(quant, ring, pos, B, S, seed=0, KH=KH):
 def test_gqa_decode_kernel_matches_twin(cuda, quant, ring, kv_heads):
     """K1 in all four modes, for G = 3 and G = 1 (MHA), pos from 0 to S-1
     (ring mode wraps through both ends), S from one staged tile of columns
-    to eight (S=1024, the default block_size): caches and scales
+    to eight (S=1024, the default block_size); at G = 1 also 30 rows (B=5),
+    not a multiple of the 4 rows a block of gqa_decode_mha.cuh, and one row
+    over S=1024, whose columns 4 warps split: caches and scales
     bit-exact, the output within one bf16 ulp of its range of the twin in
     fp32."""
-    for B, S in ((8, 32), (3, 77), (64, 128), (3, 256), (3, 1024)):
+    for B, S in ((8, 32), (3, 77), (64, 128), (3, 256), (3, 1024), (5, 32),
+                 (1, 1024)):
         for pos in (0, 5, 8, S - 1):
             cpu = _inputs(quant, ring, pos, B, S, KH=kv_heads)
             gpu = [None if a is None else a.to(cuda) for a in cpu]
@@ -129,6 +132,47 @@ def test_gqa_decode_kernel_matches_twin(cuda, quant, ring, kv_heads):
             # int8 caches, so it is not the yardstick for the output)
             err = (out.float().cpu() - ref32).abs().max()
             assert err <= 2.0 ** -7 * ref32.abs().max(), (B, S, pos, err)
+
+
+def _ring_rolled(x, shift):
+    """The same ring rows with every column moved ``shift`` places on (the
+    caches, scales and mask rolled along S), fresh copies."""
+    out = [None if a is None else a.clone() for a in x]
+    for i in (1, 2, 7):
+        out[i] = x[i].roll(shift, dims=1).contiguous()
+    for i in (5, 6):
+        if x[i] is not None:
+            out[i] = x[i].roll(shift, dims=2).contiguous()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_gqa_decode_mha_ring_keeps_the_window_order(cuda, quant):
+    """K1 at G = 1 (csrc/gqa_decode_mha.cuh) in ring mode sums each row's
+    window oldest first on the card: the same rows at another cursor (every
+    column rolled along the ring) give the same output bits, and rows whose
+    window starts at column 0 give the lockstep output's bits; over one
+    tile (S=32), four (S=128) and 32 tiles split over 4 warps (B=1,
+    S=1024)."""
+    for B, S in ((5, 32), (3, 128), (1, 1024)):
+        for pos in (0, 5, S - 1):
+            x = [None if a is None else a.to(cuda)
+                 for a in _inputs(quant, True, pos, B, S, KH=H)]
+            p = lambda c: torch.tensor(c % S, dtype=torch.int32,  # noqa
+                                       device=cuda)
+            want = gqa_decode_update(*_ring_rolled(x, 0), p(pos))
+            for shift in (1, 9, S - 6):
+                got = gqa_decode_update(*_ring_rolled(x, shift),
+                                        p(pos + shift))
+                assert torch.equal(got, want), (B, S, pos, shift)
+            lock = _ring_rolled(x, 0)
+            lock[7] = None
+            ring = _ring_rolled(x, 0)
+            cols = torch.arange(S, dtype=torch.int32, device=cuda)
+            ring[7] = (pos - (pos - cols) % S).expand(B, S).contiguous()
+            assert torch.equal(gqa_decode_update(*ring, p(pos)),
+                               gqa_decode_update(*lock, p(pos))), (B, S, pos)
 
 
 @pytest.mark.cuda
@@ -726,8 +770,9 @@ def test_gqa_decode_fp32_kernel_matches_twin(cuda, quant, ring, kv_heads):
     """K1's fp32 instantiation (fp32 q and slabs over an fp32 or int8
     cache) against the twin in fp32 on the CPU: caches and scales
     bit-exact (the int8 quantize of an fp32 slab included), the fp32 output
-    within 1e-5 of its range (summation order only)."""
-    for B, S in ((8, 32), (3, 77), (64, 128), (3, 1024)):
+    within 1e-5 of its range (summation order only); at G = 1 also B=5 (a
+    partial block) and B=1 over S=1024 (the column split)."""
+    for B, S in ((8, 32), (3, 77), (64, 128), (3, 1024), (5, 32), (1, 1024)):
         for pos in (0, 5, S - 1):
             cpu = _inputs32(quant, ring, pos, B, S, KH=kv_heads)
             gpu = [None if a is None else a.to(cuda) for a in cpu]

@@ -4,12 +4,15 @@ against the JAX package.
 The same inputs, made with numpy from a seed, go through the port's plain
 twin and the JAX ``gqa_decode_reference`` (what the JAX op runs off-TPU),
 on the tests/test_gqa_flat.py grid: B=8, S=32, H=6, KH=2, D=64, int8 or
-bf16 cache x lockstep or ring mask x pos in {0, 5, 8, S-1}. The JAX side
+bf16 cache x lockstep or ring mask x pos in {0, 5, 8, S-1}, and on the same
+grid at G = 1 (H = KH = 12, the TunesFormer char step's heads). The JAX side
 takes its queries folded with its own ``_placement``; the port takes them
 unfolded. Cache and scale writes must be bit-exact. The CUDA kernel is held
 against the twin in tests/test_torch_cuda_kernels.py (no JAX there: the
 machine with the card has none).
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -41,22 +44,23 @@ def _bf16(a):
         torch.bfloat16).float().numpy()
 
 
-def _inputs(quant, ring, pos, b=B, s=S, seed=0):
+def _inputs(quant, ring, pos, b=B, s=S, seed=0, h=H, kh=KH):
     rng = np.random.default_rng(seed)
+    khd = kh * D
     x = {
-        "q": _bf16(rng.standard_normal((b, H, D))),
-        "k_slab": _bf16(rng.standard_normal((b, KHD))),
-        "v_slab": _bf16(rng.standard_normal((b, KHD))),
+        "q": _bf16(rng.standard_normal((b, h, D))),
+        "k_slab": _bf16(rng.standard_normal((b, khd))),
+        "v_slab": _bf16(rng.standard_normal((b, khd))),
         "k_scale": None, "v_scale": None, "mask_rel": None,
     }
     if quant:
-        x["k"] = rng.integers(-127, 128, (b, s, KHD)).astype(np.int8)
-        x["v"] = rng.integers(-127, 128, (b, s, KHD)).astype(np.int8)
-        x["k_scale"] = _bf16(rng.uniform(0.01, 0.11, (b, KH, s)))
-        x["v_scale"] = _bf16(rng.uniform(0.01, 0.11, (b, KH, s)))
+        x["k"] = rng.integers(-127, 128, (b, s, khd)).astype(np.int8)
+        x["v"] = rng.integers(-127, 128, (b, s, khd)).astype(np.int8)
+        x["k_scale"] = _bf16(rng.uniform(0.01, 0.11, (b, kh, s)))
+        x["v_scale"] = _bf16(rng.uniform(0.01, 0.11, (b, kh, s)))
     else:
-        x["k"] = _bf16(rng.standard_normal((b, s, KHD)))
-        x["v"] = _bf16(rng.standard_normal((b, s, KHD)))
+        x["k"] = _bf16(rng.standard_normal((b, s, khd)))
+        x["v"] = _bf16(rng.standard_normal((b, s, khd)))
     if ring:
         lengths = rng.integers(0, s, (b,))
         offset = (pos - np.arange(s)) % s
@@ -76,9 +80,9 @@ def _torch_args(x, device="cpu"):
                               "v_scale", "mask_rel")]
 
 
-def _jax_run(x, pos):
+def _jax_run(x, pos, h=H, kh=KH):
     bf = lambda a: None if a is None else jnp.asarray(a, jnp.bfloat16)  # noqa
-    P = _placement(H, KH, D, jnp.bfloat16)
+    P = _placement(h, kh, D, jnp.bfloat16)
     q_bd = jnp.einsum("bhd,hdc->bhc", bf(x["q"]), P)
     cache = (jnp.asarray(x["k"]) if x["k"].dtype == np.int8 else bf(x["k"]),
              jnp.asarray(x["v"]) if x["v"].dtype == np.int8 else bf(x["v"]))
@@ -86,7 +90,7 @@ def _jax_run(x, pos):
         q_bd, *cache, bf(x["k_slab"])[:, None], bf(x["v_slab"])[:, None],
         bf(x["k_scale"]), bf(x["v_scale"]),
         None if x["mask_rel"] is None else jnp.asarray(x["mask_rel"]), pos,
-        n_head=H, n_kv_head=KH)
+        n_head=h, n_kv_head=kh)
     out = jnp.einsum("bhc,hdc->bhd", res[-1].astype(jnp.float32),
                      P.astype(jnp.float32))
     return [np.asarray(r.astype(jnp.float32) if r.dtype == jnp.bfloat16
@@ -97,12 +101,20 @@ def _np(t):
     return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
 
-@pytest.mark.parametrize("pos", POSITIONS)
-@pytest.mark.parametrize("ring", [False, True], ids=["lockstep", "ring"])
-@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
-def test_twin_matches_jax_reference(quant, ring, pos):
-    x = _inputs(quant, ring, pos)
-    (jk, jv, *jscales), jout = _jax_run(x, pos)
+# (quant, ring, pos, H, KH): the GQA grid (G = 3), then the same at G = 1
+# with the TunesFormer char step's 12 heads (S = 32)
+TWIN_CASES = [
+    pytest.param(quant, ring, pos, h, kh, id=f"{prefix}{qn}-{rn}-{pos}")
+    for prefix, h, kh in (("", H, KH), ("mha-", 12, 12))
+    for quant, qn in ((False, "bf16"), (True, "int8"))
+    for ring, rn in ((False, "lockstep"), (True, "ring"))
+    for pos in POSITIONS]
+
+
+@pytest.mark.parametrize("quant,ring,pos,h,kh", TWIN_CASES)
+def test_twin_matches_jax_reference(quant, ring, pos, h, kh):
+    x = _inputs(quant, ring, pos, h=h, kh=kh)
+    (jk, jv, *jscales), jout = _jax_run(x, pos, h=h, kh=kh)
     q, k, v, ks, vs, k_scale, v_scale, mask = _torch_args(x)
     out = gqa_decode_reference(q, k, v, ks, vs, k_scale, v_scale, mask,
                                torch.tensor(pos, dtype=torch.int32))
@@ -270,3 +282,88 @@ def test_ring_output_does_not_depend_on_the_cursor(quant):
     pos = torch.tensor(5, dtype=torch.int32)
     assert torch.equal(gqa_decode_reference(*ring, pos),
                        gqa_decode_reference(*lock, pos))
+
+
+def _kernel_order(q, k, v, k_scale, v_scale, mask_rel, pos, split):
+    """The output of csrc/gqa_decode_mha.cuh (K1 at G = 1) summed in its
+    order, in plain torch fp32, from caches that already hold the fresh
+    column: each (row, head)'s logical columns (ring mode: its window, oldest
+    first, then the rest) in tiles of 32; warp w of ``split`` takes tiles
+    w, w + split, ...; per tile the online softmax (the running max m, a
+    sum per lane, the accumulator rescaled by exp(m_old - m)); tiles with no
+    live column skipped; then the warps merged in order."""
+    B, H, Dh = q.shape
+    S = k.shape[1]
+    kf, vf = (t.view(B, S, H, Dh).float() for t in (k, v))
+    scale = 1.0 / math.sqrt(Dh)
+    out = torch.zeros(B, H, Dh)
+    inf = float("inf")
+    for b in range(B):
+        if mask_rel is None:
+            order = torch.arange(pos + 1)
+            live = torch.ones(pos + 1, dtype=torch.bool)
+        else:
+            n_win = min(max(int(mask_rel[b, pos]) + 1, 1), S)
+            order = (pos + 1 - n_win + torch.arange(S)) % S
+            live = mask_rel[b, order] >= 0
+        n_t = -(-len(order) // 32)
+        for h in range(H):
+            parts = []
+            for w in range(split):
+                m, lanes, acc = -inf, torch.zeros(32), torch.zeros(Dh)
+                for t in range(w, n_t, split):
+                    cols = order[32 * t:32 * t + 32]
+                    lv = live[32 * t:32 * t + 32]
+                    if not lv.any():
+                        continue
+                    s = kf[b, cols, h] @ q[b, h].float()
+                    if k_scale is not None:
+                        s = s * k_scale[b, h, cols].float()
+                    s = torch.where(lv, s * scale, -inf)
+                    m_new = max(m, s.max().item())
+                    corr = math.exp(m - m_new)
+                    e = torch.exp(s - m_new)
+                    lanes[:len(e)] = lanes[:len(e)] * corr + e
+                    lanes[len(e):] *= corr
+                    pv = e if v_scale is None else e * v_scale[b, h,
+                                                                cols].float()
+                    acc = acc * corr + pv @ vf[b, cols, h]
+                    m = m_new
+                parts.append((m, lanes.sum(), acc))
+            mx = max(p[0] for p in parts)
+            f = [0.0 if p[0] == -inf else math.exp(p[0] - mx) for p in parts]
+            total = sum(fi * p[1] for fi, p in zip(f, parts))
+            y = sum(fi * p[2] for fi, p in zip(f, parts))
+            out[b, h] = y / total if total > 0 else y * 0
+    return out
+
+
+# small cases of K1's G = 1 steps, each with the column split its launcher
+# picks at the full shape: (B, S, H, ring, int8 cache, split)
+ORDER_CASES = {
+    "char": (4, 32, 12, False, False, 1),      # TunesFormer B=1024: one tile
+    "moe": (2, 256, 6, False, False, 4),       # B=256, S=256: 1536 rows
+    "gpt2": (1, 1024, 12, False, False, 4),    # B=256, S=1024: 3072 rows
+    "ring": (4, 128, 12, True, False, 1),      # the tunes server's patch step
+    "ring-split": (3, 128, 6, True, True, 2),
+    "int8": (3, 128, 6, False, True, 2),
+}
+
+
+@pytest.mark.parametrize("name", list(ORDER_CASES))
+def test_mha_reduction_order_matches_the_twin(name):
+    """K1's G = 1 kernel sums in another order than the twin (online over
+    32-column tiles, split over warps, merged): that order, followed in
+    torch fp32, lands within 1e-5 of the output's range of the twin in
+    fp32 (q and slabs upcast), at every position kind."""
+    b, s, h, ring, quant, split = ORDER_CASES[name]
+    for pos in sorted({0, 5, min(33, s - 1), s - 1}):
+        x = _torch_args(_inputs(quant, ring, pos, b=b, s=s, seed=pos, h=h,
+                                kh=h))
+        x = [None if a is None else
+             (a.float() if i in (0, 3, 4) else a) for i, a in enumerate(x)]
+        p = torch.tensor(pos, dtype=torch.int32)
+        ref = gqa_decode_reference(*x, p)  # writes the fresh column
+        got = _kernel_order(x[0], x[1], x[2], x[5], x[6], x[7], pos, split)
+        err = (got - ref).abs().max()
+        assert err <= 1e-5 * ref.abs().max(), (pos, err)

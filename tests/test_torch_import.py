@@ -258,8 +258,9 @@ def test_build_key_tracks_sources_and_flags(monkeypatch, tmp_path):
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert _build.library_path() == path  # stable
     assert [p.name for p in _build.sources()] == [
-        "decode_attention.cu", "gqa_decode.cu", "gqa_decode_ring.cu",
-        "lean_attention.cu", "spec_attention.cu", "spec_attention_dots.cu",
+        "decode_attention.cu", "gqa_decode.cu", "gqa_decode_mha.cu",
+        "gqa_decode_mha_ring.cu", "gqa_decode_ring.cu", "lean_attention.cu",
+        "spec_attention.cu", "spec_attention_dots.cu",
         "spec_attention_f32.cu"]
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-g",))
     assert _build.library_path() != path
@@ -274,7 +275,8 @@ def test_build_key_tracks_sources_and_flags(monkeypatch, tmp_path):
     assert _build.library_path() != before
     # the shared headers are part of the key
     assert [p.name for p in _build.headers()] == [
-        "common.cuh", "gqa_decode.cuh", "spec_attention_mma.cuh"]
+        "common.cuh", "gqa_decode.cuh", "gqa_decode_mha.cuh",
+        "spec_attention_mma.cuh"]
     header = tmp_path / "common.cuh"
     header.write_text("// shared")
     monkeypatch.setattr(_build, "headers", lambda: [header])
