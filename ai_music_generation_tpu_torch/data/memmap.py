@@ -19,6 +19,8 @@ from typing import Optional
 
 import numpy as np
 
+from ai_music_generation_tpu_torch.utils import tracing
+
 
 class BinDataset:
     """Random-offset sampler over a flat token bin file."""
@@ -70,17 +72,19 @@ class BinDataset:
         batch dim, the ``shard = (index, count)``-th of ``count`` equal
         blocks (the data axis: ``(data_rank, n_data)``), so the global
         batch does not depend on the mesh (JAX ``sharded_sample``, which
-        gathers the rows of its addressable devices)."""
+        gathers the rows of its addressable devices). The draw is the span
+        ``data.sample`` (``utils/tracing.py``) while a profiler records."""
         index, count = shard
         rows = batch_shape[-1]
         if rows % count:
             raise ValueError(f"{rows} rows do not split over {count} ranks")
-        ix = self.global_indices(
-            seed, it, int(np.prod(batch_shape)), block_size
-        ).reshape(batch_shape)
-        per = rows // count
-        return self.gather(ix[..., index * per:(index + 1) * per],
-                           block_size)
+        with tracing.span(tracing.DATA_SAMPLE):
+            ix = self.global_indices(
+                seed, it, int(np.prod(batch_shape)), block_size
+            ).reshape(batch_shape)
+            per = rows // count
+            return self.gather(ix[..., index * per:(index + 1) * per],
+                               block_size)
 
 
 def load_meta(meta_path: str) -> Optional[dict]:

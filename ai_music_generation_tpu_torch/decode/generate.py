@@ -32,6 +32,7 @@ from typing import Optional
 import torch
 
 from ai_music_generation_tpu_torch.models.gpt import GPT, KVCache
+from ai_music_generation_tpu_torch.utils import tracing
 
 
 def apply_top_p(logits: torch.Tensor, top_p: float) -> torch.Tensor:
@@ -67,12 +68,13 @@ def sample_logits(logits: torch.Tensor, generator: Optional[torch.Generator],
     categorical draw (Gumbel-max, as ``jax.random.categorical``). ``logits``
     [B, V]; returns int32 [B]. ``temperature == 0`` is greedy and draws
     nothing."""
-    if temperature == 0.0:
-        return logits.float().argmax(dim=-1).to(torch.int32)
-    logits = filter_logits(logits, temperature, top_k, top_p)
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
-    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
-    return (logits + gumbel).argmax(dim=-1).to(torch.int32)
+    with tracing.span(tracing.DECODE_SAMPLE):
+        if temperature == 0.0:
+            return logits.float().argmax(dim=-1).to(torch.int32)
+        logits = filter_logits(logits, temperature, top_k, top_p)
+        u = torch.rand(logits.shape, generator=generator, device=logits.device)
+        gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+        return (logits + gumbel).argmax(dim=-1).to(torch.int32)
 
 
 class Generator:
@@ -141,14 +143,17 @@ class Generator:
 
         def step(cache, logits, t):
             """Commit token t (prompt token or sample), then feed it."""
-            sampled = sample_logits(logits[:, -1, :], gen, self.temperature,
-                                    self.top_k, self.top_p)
-            next_tok = torch.where(t < lens, tokens[:, t], sampled)
-            tokens[:, t] = next_tok
-            return model(next_tok[:, None], cache=cache)[0]
+            with tracing.span(tracing.DECODE_STEP):
+                sampled = sample_logits(logits[:, -1, :], gen,
+                                        self.temperature, self.top_k,
+                                        self.top_p)
+                next_tok = torch.where(t < lens, tokens[:, t], sampled)
+                tokens[:, t] = next_tok
+                return model(next_tok[:, None], cache=cache)[0]
 
-        cache = KVCache.create(cfg, B, max_len=self.window, device=device)
-        logits, _ = model(tokens[:, :prefill_len], cache=cache)
+        with tracing.span(tracing.DECODE_PREFILL):
+            cache = KVCache.create(cfg, B, max_len=self.window, device=device)
+            logits, _ = model(tokens[:, :prefill_len], cache=cache)
         t = min(total, self.window)
         for tt in range(prefill_len, t):
             logits = step(cache, logits, tt)
@@ -156,8 +161,10 @@ class Generator:
         while t < total:
             # re-prefill the last `ctx` tokens at positions 0..ctx-1 into a
             # fresh (zeroed) cache
-            cache = KVCache.create(cfg, B, max_len=self.window, device=device)
-            logits, _ = model(tokens[:, t - ctx:t], cache=cache)
+            with tracing.span(tracing.DECODE_REFRESH):
+                cache = KVCache.create(cfg, B, max_len=self.window,
+                                       device=device)
+                logits, _ = model(tokens[:, t - ctx:t], cache=cache)
             n_steps = min(self.refresh, total - t)
             for tt in range(t, t + n_steps):
                 logits = step(cache, logits, tt)

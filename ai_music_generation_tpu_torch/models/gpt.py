@@ -10,7 +10,11 @@ Numerics mirror the Flax modules: parameters stay in ``param_dtype`` (fp32)
 and are cast to the compute ``dtype`` at each use, as Flax's ``Dense``,
 ``Embed`` and ``attend`` do; LayerNorm reduces in fp32 and returns
 ``dtype``; the MLP uses the tanh GELU (Flax's ``nn.gelu`` default); the
-residual stream and the logits are in ``dtype``.
+residual stream and the logits are in ``dtype``. Every per-use cast goes
+through :func:`cast_param`, which counts the bytes the casts move.
+
+While a profiler records, ``GPT.forward`` is the span ``gpt.forward`` and
+each block's forward the span ``gpt.block`` (``utils/tracing.py``).
 
 Decode runs over a flat :class:`KVCache`. In lockstep mode a prefill
 (T > 1) writes its slab and attends with plain torch ops (JAX runs it as XLA
@@ -94,6 +98,7 @@ from ai_music_generation_tpu_torch.parallel.collectives import (
     gather_last,
     reduce_from,
 )
+from ai_music_generation_tpu_torch.utils import tracing
 from ai_music_generation_tpu_torch.utils.hash32 import GOLDEN, M32, mix32, mul32
 
 
@@ -357,10 +362,29 @@ def attend(q, k, v, k_scale, v_scale, mask):
     return y.reshape(B, T, G, KH, D).transpose(2, 3).reshape(B, T, H * D)
 
 
+def cast_param(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Parameter ``p`` in ``dtype`` for one use (module docstring).
+    ``cast_param.bytes`` counts what the casts move: ``numel x (source
+    bytes + target bytes)`` for each cast that changes the dtype, nothing
+    for one that does not. ``GPT.forward.calls`` counts the forwards, so
+    their ratio is a forward's cast traffic. Both are process-wide Python
+    counters, as the ops' ``.launches``, but count only while a profiler
+    records (``tracing.recording``): untraced, a cast pays one flag read (a
+    forward captured into a CUDA graph counts at capture only)."""
+    if p.dtype == dtype:
+        return p
+    if tracing.recording():
+        cast_param.bytes += p.numel() * (p.element_size() + dtype.itemsize)
+    return p.to(dtype)
+
+
+cast_param.bytes = 0
+
+
 def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     """Flax ``Dense(dtype=...)``: weight and bias cast to x's dtype."""
-    bias = None if layer.bias is None else layer.bias.to(x.dtype)
-    return F.linear(x, layer.weight.to(x.dtype), bias)
+    bias = None if layer.bias is None else cast_param(layer.bias, x.dtype)
+    return F.linear(x, cast_param(layer.weight, x.dtype), bias)
 
 
 def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
@@ -602,10 +626,10 @@ class CausalSelfAttention(nn.Module):
         if not heads_split:  # its rows of c_proj's input
             Cl = self.config.n_embd // lay.n_model
             y = y[..., lay.model_rank * Cl:(lay.model_rank + 1) * Cl]
-        y = reduce_from(F.linear(y, self.c_proj.weight.to(y.dtype)),
+        y = reduce_from(F.linear(y, cast_param(self.c_proj.weight, y.dtype)),
                         lay.model_group)
         if self.c_proj.bias is not None:
-            y = y + self.c_proj.bias.to(y.dtype)
+            y = y + cast_param(self.c_proj.bias, y.dtype)
         return y
 
     def _sharded_forward(self, x, drop):
@@ -711,10 +735,11 @@ class MLP(nn.Module):
         # Flax's nn.gelu is the tanh approximation
         h = F.gelu(_linear(x, self.c_fc), approximate="tanh")
         if split:
-            y = reduce_from(F.linear(h, self.c_proj.weight.to(h.dtype)),
-                            lay.model_group)
+            y = reduce_from(
+                F.linear(h, cast_param(self.c_proj.weight, h.dtype)),
+                lay.model_group)
             if self.c_proj.bias is not None:
-                y = y + self.c_proj.bias.to(y.dtype)
+                y = y + cast_param(self.c_proj.bias, y.dtype)
         else:
             y = _linear(h, self.c_proj)
         if drop is not None:
@@ -749,12 +774,13 @@ class Block(nn.Module):
 
     def forward(self, x, layer_cache=None, cache_len=None, cursor=None,
                 spec_col_pos=None, mask_rel=None, drop=None, aux=True):
-        x = x + self.attn(_layer_norm(x, self.ln_1), layer_cache, cache_len,
-                          cursor, spec_col_pos, mask_rel, drop)
-        if self.config.n_expert > 0:
-            y, aux = self.moe(_layer_norm(x, self.ln_2), drop, aux)
-            return x + y, aux
-        return x + self.mlp(_layer_norm(x, self.ln_2), drop)
+        with tracing.span(tracing.GPT_BLOCK):
+            x = x + self.attn(_layer_norm(x, self.ln_1), layer_cache,
+                              cache_len, cursor, spec_col_pos, mask_rel, drop)
+            if self.config.n_expert > 0:
+                y, aux = self.moe(_layer_norm(x, self.ln_2), drop, aux)
+                return x + y, aux
+            return x + self.mlp(_layer_norm(x, self.ln_2), drop)
 
 
 class GPT(nn.Module):
@@ -815,6 +841,13 @@ class GPT(nn.Module):
                 cache: Optional[KVCache] = None,
                 return_all_logits: bool = False,
                 dropout_key: Optional[int] = None):
+        if tracing.recording():
+            GPT.forward.calls += 1
+        with tracing.span(tracing.GPT_FORWARD):
+            return self._forward(idx, targets, cache, return_all_logits,
+                                 dropout_key)
+
+    def _forward(self, idx, targets, cache, return_all_logits, dropout_key):
         cfg = self.config
         B, T = idx.shape
         if T > cfg.block_size:
@@ -843,7 +876,7 @@ class GPT(nn.Module):
                     "dropout is active in train() mode: pass dropout_key "
                     "(models.gpt.dropout_key), or call eval()")
             drop = (cfg.dropout, dropout_key)
-        wte = self.transformer.wte.weight.to(cfg.dtype)
+        wte = cast_param(self.transformer.wte.weight, cfg.dtype)
         pos = torch.arange(T, device=idx.device)
         spec_col_pos = mask_rel = None
         if cache is not None and cache.col_pos is not None:
@@ -868,7 +901,8 @@ class GPT(nn.Module):
         vocab_split = "transformer.wte.weight" in self.split
         tok = (vocab_embedding(idx, wte, lay) if vocab_split
                else F.embedding(idx, wte))
-        x = tok + F.embedding(pos, self.transformer.wpe.weight.to(cfg.dtype))
+        x = tok + F.embedding(
+            pos, cast_param(self.transformer.wpe.weight, cfg.dtype))
         if drop is not None:
             x = dropout(x, *drop, 0, SITE_EMBED, lay)
         # remat (JAX gpt.py:945-948): each block's activations are
@@ -944,6 +978,9 @@ class GPT(nn.Module):
         wpe = self.transformer.wpe
         wpe.weight = nn.Parameter(wpe.weight[:block_size].clone())
         wpe.num_embeddings = block_size
+
+
+GPT.forward.calls = 0
 
 
 def cross_entropy_ignore_index(logits: torch.Tensor, targets: torch.Tensor,

@@ -64,7 +64,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ai_music_generation_tpu_torch.models.gpt import SITE_MLP_OUT, dropout
+from ai_music_generation_tpu_torch.models.gpt import (
+    SITE_MLP_OUT,
+    cast_param,
+    dropout,
+)
 from ai_music_generation_tpu_torch.parallel.collectives import (
     all_gather_stack,
     copy_to,
@@ -216,13 +220,13 @@ class MoEMLP(nn.Module):
         buf = x.new_zeros(E_local * rows_per + 1, C).index_put(
             (rows.reshape(-1),), xk)
         xe = buf[:-1].view(E_local, rows_per, C)
-        h = torch.bmm(xe, self.w_fc.to(dt))
+        h = torch.bmm(xe, cast_param(self.w_fc, dt))
         if self.b_fc is not None:
-            h = h + self.b_fc[:, None, :].to(dt)
+            h = h + cast_param(self.b_fc, dt)[:, None, :]
         h = F.gelu(h, approximate="tanh")
-        ye = torch.bmm(h, self.w_proj.to(dt))
+        ye = torch.bmm(h, cast_param(self.w_proj, dt))
         if self.b_proj is not None:
-            ye = ye + self.b_proj[:, None, :].to(dt)
+            ye = ye + cast_param(self.b_proj, dt)[:, None, :]
 
         # combine: each kept pair's output weighted by its gate (in the
         # compute dtype), summed over k in fp32; a dropped pair weighs 0

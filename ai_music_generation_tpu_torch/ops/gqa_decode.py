@@ -57,6 +57,8 @@ from __future__ import annotations
 
 import torch
 
+from ai_music_generation_tpu_torch.utils import tracing
+
 
 def gqa_decode_reference(q, k, v, k_slab, v_slab, k_scale, v_scale,
                          mask_rel, pos):
@@ -150,32 +152,35 @@ def gqa_decode_update(q, k, v, k_slab, v_slab, k_scale, v_scale, mask_rel,
     """The decode step (module docstring): the CUDA kernel for CUDA
     tensors, the plain twin for CPU tensors. Updates k, v (and the scales)
     in place; returns out [B, H, D]. ``gqa_decode_update.launches`` counts
-    kernel launches."""
-    if q.device.type == "cpu":
-        return gqa_decode_reference(q, k, v, k_slab, v_slab, k_scale,
-                                    v_scale, mask_rel, pos)
-    if q.device.type != "cuda":
-        raise ValueError(f"gqa_decode_update runs on cuda or cpu, not "
-                         f"{q.device.type}")
-    from ai_music_generation_tpu_torch.ops import _build
+    kernel launches; the call is the span ``ops.gqa_decode``
+    (``utils/tracing.py``) while a profiler records."""
+    with tracing.span(tracing.K1_UPDATE):
+        if q.device.type == "cpu":
+            return gqa_decode_reference(q, k, v, k_slab, v_slab, k_scale,
+                                        v_scale, mask_rel, pos)
+        if q.device.type != "cuda":
+            raise ValueError(f"gqa_decode_update runs on cuda or cpu, not "
+                             f"{q.device.type}")
+        from ai_music_generation_tpu_torch.ops import _build
 
-    B, S, H, KH, D, quantized = _check_cuda(
-        q, k, v, k_slab, v_slab, k_scale, v_scale, mask_rel, pos)
-    out = torch.empty_like(q)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    lib = _build.load_library()
-    rc = lib.gqa_decode_update_launch(
-        ptr(q), ptr(k), ptr(v), ptr(k_slab), ptr(v_slab), ptr(k_scale),
-        ptr(v_scale), ptr(mask_rel), ptr(pos), ptr(out),
-        B, S, H, KH, D, int(quantized), int(q.dtype == torch.float32),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if rc == _build.TOO_LARGE:
-        raise ValueError(f"S={S} too large for one block's shared memory "
-                         f"(csrc/gqa_decode.cuh smem_bytes)")
-    if rc != 0:
-        raise RuntimeError(f"gqa_decode kernel launch failed: cudaError {rc}")
-    gqa_decode_update.launches += 1
-    return out
+        B, S, H, KH, D, quantized = _check_cuda(
+            q, k, v, k_slab, v_slab, k_scale, v_scale, mask_rel, pos)
+        out = torch.empty_like(q)
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        lib = _build.load_library()
+        rc = lib.gqa_decode_update_launch(
+            ptr(q), ptr(k), ptr(v), ptr(k_slab), ptr(v_slab), ptr(k_scale),
+            ptr(v_scale), ptr(mask_rel), ptr(pos), ptr(out),
+            B, S, H, KH, D, int(quantized), int(q.dtype == torch.float32),
+            torch.cuda.current_stream(q.device).cuda_stream)
+        if rc == _build.TOO_LARGE:
+            raise ValueError(f"S={S} too large for one block's shared memory "
+                             f"(csrc/gqa_decode.cuh smem_bytes)")
+        if rc != 0:
+            raise RuntimeError(
+                f"gqa_decode kernel launch failed: cudaError {rc}")
+        gqa_decode_update.launches += 1
+        return out
 
 
 gqa_decode_update.launches = 0

@@ -15,6 +15,12 @@ loss is its share of the global mean (``models/gpt.py::
 cross_entropy_ignore_index``), so the data-axis mean of the gradients that
 DDP and FSDP2 take is the single-card mean over the global batch; the grad
 norm is the whole parameter set's and the loss the data-axis mean.
+
+While a profiler records, the step opens the spans of ``utils/tracing.py``:
+``train.forward`` and ``train.backward`` for each micro-step's forward and
+its ``backward()`` call, ``train.clip`` over the gradients' scale, norm and
+clip, ``train.optimizer`` over the lr, ``optimizer.step()`` and
+``zero_grad``.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from ai_music_generation_tpu_torch.train.optimizer import (
     clip_by_global_norm_,
     global_norm,
 )
+from ai_music_generation_tpu_torch.utils import tracing
 
 
 def make_train_step(model: GPT, optimizer: torch.optim.Optimizer,
@@ -59,25 +66,29 @@ def make_train_step(model: GPT, optimizer: torch.optim.Optimizer,
         for i in range(accum):
             sync = plan is None or i == accum - 1
             with contextlib.nullcontext() if sync else plan.no_sync():
-                _, micro = forward(x[i], y[i],
-                                   dropout_key=dropout_key(seed, step, i))
-                micro.backward()
+                with tracing.span(tracing.TRAIN_FORWARD):
+                    _, micro = forward(x[i], y[i],
+                                       dropout_key=dropout_key(seed, step, i))
+                with tracing.span(tracing.TRAIN_BACKWARD):
+                    micro.backward()
             loss = micro.detach() if loss is None else loss + micro.detach()
         grads = [p.grad for p in params]
-        if accum > 1:  # the fast path (accum 1) scales by nothing
-            torch._foreach_mul_([_local(g) for g in grads], 1.0 / accum)
-            loss = loss * (1.0 / accum)
-        if plan is not None:
-            loss = plan.data_mean(loss)
-        grad_norm = global_norm(grads, groups)
-        if grad_clip:
-            clip_by_global_norm_(grads, grad_clip, grad_norm)
-        lr = (schedule(step) if schedule is not None
-              else optimizer.param_groups[0]["lr"])
-        for group in optimizer.param_groups:
-            group["lr"] = lr
-        optimizer.step()
-        optimizer.zero_grad(set_to_none=True)
+        with tracing.span(tracing.TRAIN_CLIP):
+            if accum > 1:  # the fast path (accum 1) scales by nothing
+                torch._foreach_mul_([_local(g) for g in grads], 1.0 / accum)
+                loss = loss * (1.0 / accum)
+            if plan is not None:
+                loss = plan.data_mean(loss)
+            grad_norm = global_norm(grads, groups)
+            if grad_clip:
+                clip_by_global_norm_(grads, grad_clip, grad_norm)
+        with tracing.span(tracing.TRAIN_OPTIMIZER):
+            lr = (schedule(step) if schedule is not None
+                  else optimizer.param_groups[0]["lr"])
+            for group in optimizer.param_groups:
+                group["lr"] = lr
+            optimizer.step()
+            optimizer.zero_grad(set_to_none=True)
         return {"loss": loss, "grad_norm": grad_norm, "lr": lr}
 
     return train_step
