@@ -87,6 +87,10 @@ from torch.utils.checkpoint import checkpoint
 from ai_music_generation_tpu_torch.ops.decode_attention import (
     decode_attention,
 )
+from ai_music_generation_tpu_torch.ops.dropout import (  # noqa: F401
+    CounterDropout,
+    dropout_keep,
+)
 from ai_music_generation_tpu_torch.ops.gqa_decode import gqa_decode_update
 from ai_music_generation_tpu_torch.ops.ring_attention import ring_attention
 from ai_music_generation_tpu_torch.ops.spec_attention import (
@@ -407,51 +411,32 @@ def dropout_key(seed: int, it: int, micro: int = 0) -> int:
     return mix32(h ^ mul32(micro & M32, GOLDEN))
 
 
-def dropout_keep(shape, p: float, key: int, layer: int, site: int,
-                 device=None, start=None, full=None) -> torch.Tensor:
-    """The keep mask (bool, ``shape``) of one dropout site: element i is
-    kept iff ``mix32(mul32(i, GOLDEN) ^ k) >= p * 2^32``, ``k`` a hash of
-    (key, layer, site) and i the row-major index, so each element is kept
-    with probability 1 - p. Integer ops only: the same bits on every
-    device. ``start`` and ``full`` (per dim) make the mask the block at
-    ``start`` of the site of shape ``full``: a rank's part of a site that a
-    mesh splits."""
-    if start is None:
-        start, full = (0,) * len(shape), tuple(shape)
-    n = math.prod(full)
-    if n >= 1 << 32:
-        raise ValueError(f"a dropout site of {n} elements passes 2^32")
-    k = mix32(key ^ mul32(layer * 4 + site + 1, GOLDEN))
-    if tuple(full) == tuple(shape):
-        idx = torch.arange(n, dtype=torch.int64, device=device)
-    else:
-        idx, stride = torch.zeros((), dtype=torch.int64, device=device), 1
-        for d in reversed(range(len(shape))):
-            axis = torch.arange(start[d], start[d] + shape[d],
-                                dtype=torch.int64, device=device) * stride
-            idx = idx + axis.view([-1] + [1] * (len(shape) - 1 - d))
-            stride *= full[d]
-    bits = mix32(mul32(idx, GOLDEN) ^ k)
-    return (bits >= round(p * 2.0 ** 32)).view(shape)
-
-
 def dropout(x: torch.Tensor, p: float, key: int, layer: int, site: int,
             layout=None, head0: int = 0,
             n_head: Optional[int] = None) -> torch.Tensor:
     """Flax ``nn.Dropout`` with the mask of :func:`dropout_keep`: kept
-    values divided by 1 - p in x's dtype, the rest 0. On a mesh
-    (``layout``) x is this rank's part of the site: its rows of the data
-    axis (dim 0) and, at the attention probabilities, the heads ``head0
-    ..`` of ``n_head`` (dim 1); the mask is the single-card mask at those
-    coordinates."""
-    start = full = None
-    if layout is not None:
-        start = [layout.data_rank * x.shape[0]] + [0] * (x.dim() - 1)
-        full = [x.shape[0] * layout.n_data, *x.shape[1:]]
-        if n_head is not None:
-            start[1], full[1] = head0, n_head
-    keep = dropout_keep(x.shape, p, key, layer, site, x.device, start, full)
-    return torch.where(keep, true_divide(x, 1.0 - p), 0.0)
+    values divided by 1 - p in x's dtype, the rest 0, through
+    ``ops.dropout.CounterDropout`` (one kernel a site on the card, forward
+    and backward; the plain twin on the CPU). On a mesh (``layout``) x is
+    this rank's part of the site (:func:`site_block`); the mask is the
+    single-card mask at those coordinates."""
+    return CounterDropout.apply(x, p, key, layer, site,
+                                *site_block(x.shape, layout, head0, n_head))
+
+
+def site_block(shape, layout=None, head0: int = 0,
+               n_head: Optional[int] = None) -> tuple:
+    """(start, full) of this rank's part of a dropout site of ``shape``
+    on a mesh: its rows of the data axis (dim 0) and, at the attention
+    probabilities, the heads ``head0 ..`` of ``n_head`` (dim 1); (None,
+    None), the whole site, without a ``layout``."""
+    if layout is None:
+        return None, None
+    start = [layout.data_rank * shape[0]] + [0] * (len(shape) - 1)
+    full = [shape[0] * layout.n_data, *shape[1:]]
+    if n_head is not None:
+        start[1], full[1] = head0, n_head
+    return start, full
 
 
 def vocab_embedding(ids: torch.Tensor, weight: torch.Tensor,

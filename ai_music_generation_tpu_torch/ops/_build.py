@@ -134,4 +134,8 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
         fn.restype = i32
+    lib.dropout_apply_launch.argtypes = [
+        ptr, ptr, ctypes.c_longlong, ctypes.c_uint32, ctypes.c_uint64,
+        ctypes.c_float, i32, ctypes.POINTER(ctypes.c_longlong), ptr]
+    lib.dropout_apply_launch.restype = i32
     return lib

@@ -146,7 +146,13 @@ printing a result):
     weights and batch (accum 2 x batch 4, lr 1e-3): loss and grad_norm
     within 1e-4 of their value and the parameters within 1e-4 of their
     range at fp32, 2^-6 at bf16; at dropout 0.2 the masks of layer 0 at its
-    four sites bit-equal card vs CPU and an fp32 step within 1e-4;
+    four sites bit-equal card vs CPU and an fp32 step within 1e-4; then
+    the dropout kernel (``ops/dropout.py``) against its plain twin, forward
+    and backward bit-equal: the music step's four sites at batch 8 (twin on
+    the CPU, bf16 and fp32) and 64 (phase 22's shapes; twin on the card,
+    bf16), phase 30's eight TunesFormer sites (twin on the card, bf16); and
+    timed at the attention probabilities of batch 64 ([64, 6, 256, 256],
+    bf16) beside the twin and its bound;
 22. train CLI: ``cli/train.py configs/irishman_char.py`` (batch 64, block
     256, dropout 0.2, bf16) on phase 20's corpus for 30 iterations, an
     eval every 10 (5 batches): the val loss falls, ckpt.pt and
@@ -160,8 +166,8 @@ printing a result):
     ``--attn_impl=flash``: ms/iter, MFU against 989 TFLOP/s, peak memory
     printed. Phases 21-23 launch none of K1-K7 (their
     counts are set to 0 before each and read after; any launch fails the
-    run). ``--profile train`` profiles one 124M step and one step at the
-    music widths;
+    run), and their dropout goes through the dropout kernel. ``--profile
+    train`` profiles one 124M step and one step at the music widths;
 24. K1 at the TunesFormer shapes (MHA H = KH = 12, D = 64, bf16 cache) and
     every batch phases 26-28 give it: the char core (S=32, lockstep, pos 0,
     1, 31) and the patch core (S=128, lockstep, pos 0, 5, 127) at B 1, 3,
@@ -218,8 +224,11 @@ printing a result):
     dropout 0, bf16): ms/iter, TFLOP/step by FlopCounterMode (equal to the
     analytic count), MFU against 989 TFLOP/s, peak memory. Phases 29-31
     train with none of K1-K7 (their counts are set to 0 before each and
-    read after; any launch fails the run). ``--profile tunes_train``
-    profiles one train step at phase 30's configuration;
+    read after; any launch fails the run); phases 29 and 30 drop (0.1)
+    through the dropout kernel, phase 31 does not (its launches are set to
+    0 before each, read after and printed; a count that breaks this fails
+    the run). ``--profile tunes_train`` profiles one train step at phase
+    30's configuration;
 32. synth: ``synth/render.py::render_events_batch`` at the pipeline's
     synth_batch (8) and full length (120 s at 16 kHz) on the card against
     the port on the CPU, for the sample bank, the additive voice and an
@@ -461,6 +470,9 @@ KERNEL_MHA_SOURCE = "ai_music_generation_tpu_torch/ops/csrc/gqa_decode_mha.cu"
 KERNEL_MHA_RING_SOURCE = (
     "ai_music_generation_tpu_torch/ops/csrc/gqa_decode_mha_ring.cu")
 KERNEL_REPLACES = "ai_music_generation_tpu/ops/gqa_decode.py:394"
+# the training path's dropout; it replaces no TPU kernel (XLA fuses the JAX
+# package's)
+DROPOUT_SOURCE = "ai_music_generation_tpu_torch/ops/csrc/dropout.cu"
 # speculative decoding: the bench config with MHA (the spec cache refuses
 # GQA), at the protocol of docs/experiments/spec_decode.py and cli/sample.py
 SPEC = dict(BENCH, n_kv_head=None)
@@ -2664,6 +2676,116 @@ def phase_train_step(ws, device, B=4, accum=2) -> dict:
     return errs
 
 
+def _dropout_vs_twin(x, up, p, key, layer, site, twin_device) -> None:
+    """The kernel's forward and backward at one site (``x`` on the card,
+    upstream gradient ``up``) bit-equal to the plain twin's on
+    ``twin_device``, in 2 launches."""
+    from ai_music_generation_tpu_torch.ops.dropout import (
+        CounterDropout, dropout_apply, dropout_reference,
+    )
+
+    a = x.detach().clone().requires_grad_()
+    b = x.detach().to(twin_device).requires_grad_()
+    before = dropout_apply.launches
+    got = CounterDropout.apply(a, p, key, layer, site)
+    got.backward(up)
+    want = dropout_reference(b, p, key, layer, site)
+    want.backward(up.to(twin_device))
+    torch.cuda.synchronize()
+    if dropout_apply.launches - before != 2:
+        raise AssertionError("dropout: not 2 launches a site")
+    if not (torch.equal(got.detach().to(twin_device), want.detach())
+            and torch.equal(a.grad.to(twin_device), b.grad)):
+        raise AssertionError(f"dropout kernel != twin: site {site} of "
+                             f"{tuple(x.shape)}, {x.dtype}")
+
+
+def phase_dropout_kernel(B=8, timed_B=64) -> dict:
+    """The dropout kernel (``ops/dropout.py``) against its plain twin,
+    forward and backward bit-equal, 2 launches a site: at the music step's
+    four sites (block 256, 6 heads, 384 wide) at batch ``B`` against the
+    twin on the CPU, bf16 and fp32; at batch ``timed_B`` (the shapes of
+    phase 22's step and of the benchmark's music training, [64, 6, 256,
+    256] and [64, 256, 384]) and at phase 30's TunesFormer sites (dropout
+    0.1, each core under its own key, its last layer: the patch core's [8,
+    128, 768] and [8, 12, 128, 128], the char core's [8 x 127, 32, 768]
+    and [8 x 127, 12, 32, 32]) against the twin on the card, bf16. Then
+    ms per call of the kernel and of the twin on the card at the attention
+    probabilities of batch ``timed_B`` ([timed_B, 6, 256, 256], bf16, 2 x
+    201 MB with its output, past the 50 MB L2), the kernel's output of the
+    timed calls equal to the twin's: one call is one pass, forward or
+    backward alike. No one PyTorch call computes the counter-hash mask, so
+    there is no library time."""
+    from ai_music_generation_tpu_torch.models import gpt
+    from ai_music_generation_tpu_torch.models.tunesformer import (
+        CHAR_CORE, PATCH_CORE, TunesFormerConfig, core_dropout_key,
+    )
+    from ai_music_generation_tpu_torch.ops.dropout import (
+        dropout_apply, dropout_reference,
+    )
+
+    T, H, C, p = 256, 6, 384, 0.2
+    key = gpt.dropout_key(1337, 100, 0)
+    g = torch.Generator().manual_seed(0)
+
+    def music_sites(batch):
+        return ((gpt.SITE_EMBED, (batch, T, C)),
+                (gpt.SITE_ATTN_PROBS, (batch, H, T, T)),
+                (gpt.SITE_ATTN_OUT, (batch, T, C)),
+                (gpt.SITE_MLP_OUT, (batch, T, C)))
+
+    def draw(shape, dtype):
+        return (torch.randn(shape, generator=g).to(dtype).cuda(),
+                torch.randn(shape, generator=g).to(dtype).cuda())
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for site, shape in music_sites(B):
+            _dropout_vs_twin(*draw(shape, dtype), p, key, 5, site, "cpu")
+    for site, shape in music_sites(timed_B):
+        _dropout_vs_twin(*draw(shape, torch.bfloat16), p, key, 5, site,
+                         "cuda")
+    tc = TunesFormerConfig()
+    TB, P, S, TH, TC = 8, tc.patch_length, tc.patch_size, tc.n_head, tc.n_embd
+    rows = TB * (P - 1)  # every patch but the last conditions the next
+    step_key = gpt.dropout_key(1337, 100)
+    for core, layer, tokens, T_core in (
+            (PATCH_CORE, tc.patch_layers - 1, TB, P),
+            (CHAR_CORE, tc.char_layers - 1, rows, S)):
+        for site, shape in ((gpt.SITE_EMBED, (tokens, T_core, TC)),
+                            (gpt.SITE_ATTN_PROBS, (tokens, TH, T_core,
+                                                   T_core)),
+                            (gpt.SITE_ATTN_OUT, (tokens, T_core, TC)),
+                            (gpt.SITE_MLP_OUT, (tokens, T_core, TC))):
+            _dropout_vs_twin(*draw(shape, torch.bfloat16), tc.dropout,
+                             core_dropout_key(step_key, core), layer, site,
+                             "cuda")
+    print(f"dropout kernel bit-equal to the twin, forward and backward: the "
+          f"music step's four sites at batch {B} (CPU twin, bf16 and fp32) "
+          f"and {timed_B} (twin on the card, bf16), TunesFormer's eight at "
+          f"batch {TB} (twin on the card, bf16)")
+    x = torch.randn((timed_B, H, T, T), device="cuda", dtype=torch.bfloat16)
+    kernel, plain = [], []
+    for order in (0, 1, 1, 0):  # plain, kernel, kernel, plain
+        if order:
+            kernel.append(_cuda_ms(lambda: dropout_apply(
+                x, p, key, 5, gpt.SITE_ATTN_PROBS), 50))
+        else:
+            plain.append(_cuda_ms(lambda: dropout_reference(
+                x, p, key, 5, gpt.SITE_ATTN_PROBS), 10))
+    if not torch.equal(dropout_apply(x, p, key, 5, gpt.SITE_ATTN_PROBS),
+                       dropout_reference(x, p, key, 5, gpt.SITE_ATTN_PROBS)):
+        raise AssertionError("dropout kernel != twin at the timed shape")
+    ms, plain_ms = min(kernel), min(plain)
+    bound_ms, bound_by = bound(2 * x.nbytes, 0)
+    print(f"dropout at [{timed_B}, {H}, {T}, {T}] bf16: kernel {kernel} "
+          f"ms/call, twin {plain} ms/call (plain, kernel, kernel, plain); "
+          f"best kernel {ms:.4f} ms, twin {plain_ms:.4f} ms; bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {2 * x.nbytes / 1e6:.1f} MB), "
+          f"{bound_ms / ms:.3f} of it")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
 class _Tee:
     """A stdout that also keeps what is written."""
 
@@ -2817,13 +2939,14 @@ def phase_profile_train(top=12) -> None:
     the optimizer step (``aten::_fused_adamw_``) and the dtype casts
     (``aten::_to_copy``: the fp32 weights cast to bf16 at each use and the
     upcasts to fp32, forward and backward); with dropout, the time of the
-    step's masks alone (``models/gpt.py::dropout_keep`` at its four sites'
-    shapes in every layer, CUDA events)."""
+    forward's dropout alone (the kernel of ``ops/dropout.py`` at its four
+    sites' shapes in every layer, CUDA events; the backward's is as much
+    again)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from ai_music_generation_tpu_torch.cli import train_bench
-    from ai_music_generation_tpu_torch.models import gpt
+    from ai_music_generation_tpu_torch.ops.dropout import dropout_apply
 
     for name, widths in (("GPT-2 124M", {}), ("music", MUSIC_PROFILED)):
         c = dict(train_bench.DEFAULTS, device="cuda", **widths)
@@ -2845,9 +2968,10 @@ def phase_profile_train(top=12) -> None:
                       c["n_head"])
         shapes = [(B, T, C)] + [(B, H, T, T), (B, T, C), (B, T, C)] * c[
             "n_layer"]
-        dropout_ms = 0.0 if not c["dropout"] else _cuda_ms(lambda: [
-            gpt.dropout_keep(shape, c["dropout"], 0, 0, 0, "cuda")
-            for shape in shapes], 3)
+        sites = [torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
+                 for shape in shapes] if c["dropout"] else []
+        dropout_ms = 0.0 if not sites else _cuda_ms(lambda: [
+            dropout_apply(x, c["dropout"], 0, 0, 0) for x in sites], 3)
         print(f"profile train, {name}: batch {c['batch_size']} x "
               f"{c['block_size']}, dropout {c['dropout']}, bf16; unprofiled "
               f"step {wall * 1e3:.1f} ms, profiled {profiled * 1e3:.1f} ms; "
@@ -2856,7 +2980,7 @@ def phase_profile_train(top=12) -> None:
               f"unprofiled one; AdamW (aten::_fused_adamw_) "
               f"{under['aten::_fused_adamw_']:.2f} ms, dtype casts "
               f"(aten::_to_copy) {under['aten::_to_copy']:.2f} ms, dropout "
-              f"masks {dropout_ms:.2f} ms")
+              f"kernel (forward) {dropout_ms:.2f} ms")
         for ms, count, key in rows[:top]:
             print(f"  {ms:10.2f} ms {count:7d} calls  {ms / count:.4f} "
                   f"ms/call  {key[:90]}")
@@ -3916,21 +4040,22 @@ def phase_profile_tunes_train(B=8, top=12) -> None:
     clock between synchronizes): device self time by kernel (entries whose
     device type is not the CPU), the busy share, the device time under the
     optimizer (``aten::_fused_adamw_``) and the dtype casts
-    (``aten::_to_copy``), and the step's dropout masks alone
-    (``dropout_keep`` at every site's shape, CUDA events)."""
+    (``aten::_to_copy``), and the forward's dropout alone (the kernel of
+    ``ops/dropout.py`` at every site's shape, CUDA events; the backward's
+    is as much again)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from ai_music_generation_tpu_torch.experiments.tunes_mfu import (
         ascii_batch,
     )
-    from ai_music_generation_tpu_torch.models import gpt
     from ai_music_generation_tpu_torch.models.convert import (
         init_tunesformer_weights,
     )
     from ai_music_generation_tpu_torch.models.tunesformer import (
         TunesFormer, TunesFormerConfig,
     )
+    from ai_music_generation_tpu_torch.ops.dropout import dropout_apply
     from ai_music_generation_tpu_torch.train.optimizer import (
         hf_cosine_schedule, optax_adamw,
     )
@@ -3973,9 +4098,10 @@ def phase_profile_tunes_train(B=8, top=12) -> None:
     shapes = ([(B, P, C)] + [(B, H, P, P), (B, P, C), (B, P, C)]
               * cfg.patch_layers + [(N, S, C)]
               + [(N, H, S, S), (N, S, C), (N, S, C)] * cfg.char_layers)
-    masks_ms = _cuda_ms(lambda: [gpt.dropout_keep(shape, cfg.dropout, 0, 0,
-                                                  0, "cuda")
-                                 for shape in shapes], 3)
+    sites = [torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
+             for shape in shapes]
+    dropout_ms = _cuda_ms(lambda: [dropout_apply(x, cfg.dropout, 0, 0, 0)
+                                   for x in sites], 3)
     print(f"profile tunes_train: batch {B} x {P} x {S}, the reference "
           f"widths, dropout {cfg.dropout}, bf16; unprofiled step "
           f"{wall * 1e3:.1f} ms, profiled {profiled * 1e3:.1f} ms; device "
@@ -3983,7 +4109,7 @@ def phase_profile_tunes_train(B=8, top=12) -> None:
           f"profiled wall, {busy_ms / 1e3 / wall:.3f} of the unprofiled one; "
           f"AdamW (aten::_fused_adamw_) {under['aten::_fused_adamw_']:.2f} "
           f"ms, dtype casts (aten::_to_copy) {under['aten::_to_copy']:.2f} "
-          f"ms, dropout masks {masks_ms:.2f} ms")
+          f"ms, dropout kernel (forward) {dropout_ms:.2f} ms")
     for ms, count, key in rows[:top]:
         print(f"  {ms:10.2f} ms {count:7d} calls  {ms / count:.4f} "
               f"ms/call  {key[:90]}")
@@ -6913,7 +7039,8 @@ def _empty_cache(device) -> None:
 
 
 def _counted_ops() -> dict:
-    """Every kernel wrapper of the port by name; each counts its launches."""
+    """The wrappers of the port's K1-K7 by name; each counts its launches
+    (the dropout kernel's ``dropout_apply`` is counted on its own)."""
     from ai_music_generation_tpu_torch.ops import decode_attention_int8 as i8
     from ai_music_generation_tpu_torch.ops.decode_attention import (
         decode_attention,
@@ -7078,8 +7205,13 @@ def main(argv=None) -> int:
         phase_http(ws, "cuda")
         cli, counts = _main_path(phase_sample_cli, ws, "cuda")
         on_path = {k: n + counts[k] for k, n in on_path.items()}
-        # the training path (phases 21-23) runs no kernel of the port
+        # the training path (phases 21-23) runs none of K1-K7; its
+        # dropout runs the dropout kernel
+        from ai_music_generation_tpu_torch.ops.dropout import dropout_apply
+
         step_errs, train_launches = _main_path(phase_train_step, ws, "cuda")
+        drop_ms = phase_dropout_kernel()
+        dropout_apply.launches = 0
         music, counts = _main_path(phase_train_cli, ws, "cuda")
         train_launches = {k: n + counts[k] for k, n in train_launches.items()}
         gpt2, counts = _main_path(phase_train_bench)
@@ -7087,6 +7219,12 @@ def main(argv=None) -> int:
         if any(train_launches.values()):
             raise AssertionError(f"the training path launched kernels of "
                                  f"the port: {train_launches}")
+        if not dropout_apply.launches:
+            raise AssertionError("the music training path launched no "
+                                 "dropout kernel")
+        drop_entry = _entry("dropout_apply", DROPOUT_SOURCE, None,
+                            dropout_apply.launches, 0.0, drop_ms)
+        kernels.append(drop_entry)
         trained_s, counts = _main_path(phase_sample_trained, ws,
                                        music["out_dir"], "cuda")
     on_path = {k: n + counts[k] for k, n in on_path.items()}
@@ -7141,24 +7279,41 @@ def main(argv=None) -> int:
         with _K1Calls() as http_calls:  # its shapes; its launches untold
             phase_tunes_http(ws, "cuda")
         tunes_path("cli", phase_tunes_cli, ws, "cuda")
-    # TunesFormer training (phases 29-31): no kernel of the port while it
-    # trains; sampling the trained weights.pth runs K1 (a tunes path)
+    # TunesFormer training (phases 29-31): none of K1-K7 while it trains,
+    # and the dropout kernel wherever it drops (phases 29 and 30, dropout
+    # 0.1; phase 31 trains at dropout 0); sampling the trained weights.pth
+    # runs K1 (a tunes path)
+    tt_drops = {}
+    dropout_apply.launches = 0
     tunes_step_errs, tt_launches = _main_path(phase_tunes_train_step,
                                                  "cuda")
+    tt_drops["train_step"], dropout_apply.launches = (
+        dropout_apply.launches, 0)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         trained, counts = _main_path(phase_tunes_train_cli, tmp, "cuda")
         tt_launches = {k: n + counts[k] for k, n in tt_launches.items()}
+        tt_drops["train_cli"], dropout_apply.launches = (
+            dropout_apply.launches, 0)
         torch.cuda.empty_cache()
         tunes_path("trained", phase_tunes_sample_trained, trained, "cuda")
     torch.cuda.empty_cache()
+    dropout_apply.launches = 0
     tunes_mfu, counts = _main_path(phase_tunes_mfu)
+    tt_drops["tunes_mfu"] = dropout_apply.launches
     tt_launches = {k: n + counts[k] for k, n in tt_launches.items()}
     if any(tt_launches.values()):
         raise AssertionError(f"the TunesFormer training path launched "
                              f"kernels of the port: {tt_launches}")
+    if not (tt_drops["train_step"] and tt_drops["train_cli"]) or tt_drops[
+            "tunes_mfu"]:
+        raise AssertionError(f"the TunesFormer training path's dropout "
+                             f"launches {tt_drops}: phases 29-30 drop, 31 "
+                             f"does not")
+    drop_entry["tunes_launches"] = tt_drops
     print(f"[{card}] TunesFormer training: launches of K1-K7 "
-          f"{tt_launches}; cli/tunesformer_train.py at the reference "
+          f"{tt_launches}, of the dropout kernel {tt_drops}; "
+          f"cli/tunesformer_train.py at the reference "
           f"config (batch 8, bf16, dropout 0.1) {trained['ms']:.2f} ms/iter "
           f"(median of the steady epochs), peak {trained['peak_gib']:.2f} "
           f"GiB, eval loss {[round(v, 4) for v in trained['evals']]}; "

@@ -10,6 +10,7 @@ without the JAX conftest:
 
 import copy
 import functools
+import types
 
 import pytest
 import torch
@@ -37,6 +38,10 @@ from ai_music_generation_tpu_torch.ops.decode_attention_int8 import (
     decode_attention_int8,
     decode_attention_int8_multirow,
     decode_attention_int8_reference,
+)
+from ai_music_generation_tpu_torch.ops.dropout import (
+    dropout_apply,
+    dropout_reference,
 )
 from ai_music_generation_tpu_torch.ops.gqa_decode import (
     gqa_decode_reference,
@@ -1079,6 +1084,136 @@ def test_remat_on_cuda_gives_the_same_gradients(cuda):
         grads.append((loss.detach(), [p.grad.clone()
                                       for p in model.parameters()]))
     (l0, g0), (l1, g1) = grads
+    assert torch.equal(l0, l1)
+    for a, b in zip(g0, g1):
+        assert (a - b).abs().max() <= 1e-6 * a.abs().max()
+
+
+# -- the dropout kernel (csrc/dropout.cu) -------------------------------------
+
+# shape, models.gpt.dropout's mesh arguments, and the (start, full) they
+# stand for: whole sites of the attention-probability and [B, T, C] kinds
+# (sizes off the kernel's 8- and 4-element vectors, and one of many blocks
+# a grid-stride), a data rank's rows of a site, a rank's rows and heads of
+# the probabilities (head0 2 of 6)
+DROP_SITES = {
+    "probs": ((4, 6, 64, 64), (), None),
+    "probs-odd": ((3, 5, 19, 19), (), None),
+    "btc-odd": ((3, 17, 37), (), None),
+    "probs-b16": ((16, 6, 256, 256), (), None),
+    "rows": ((3, 5, 24), (types.SimpleNamespace(data_rank=1, n_data=3),),
+             ((3, 0, 0), (9, 5, 24))),
+    "heads": ((2, 2, 33, 33),
+              (types.SimpleNamespace(data_rank=1, n_data=2), 2, 6),
+              ((2, 2, 0, 0), (4, 6, 33, 33))),
+}
+
+
+def _dropout_pair(cuda, shape, dtype, p, key, mesh, block, seed=0):
+    """(forward, gradient) of ``models.gpt.dropout`` on the card (the
+    kernel) and of the twin on the CPU under autograd, on the same x and
+    upstream gradient; the card's launches in between."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=g).to(dtype)
+    up = torch.randn(shape, generator=g).to(dtype)
+    a, b = x.to(cuda).requires_grad_(), x.clone().requires_grad_()
+    before = dropout_apply.launches
+    got = gpt_module.dropout(a, p, key, 3, gpt_module.SITE_ATTN_PROBS, *mesh)
+    got.backward(up.to(cuda))
+    torch.cuda.synchronize()
+    launches = dropout_apply.launches - before
+    want = dropout_reference(b, p, key, 3, gpt_module.SITE_ATTN_PROBS,
+                             *(block or ()))
+    want.backward(up)
+    return (got.detach().cpu(), a.grad.cpu()), (want.detach(), b.grad), \
+        launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [0.1, 0.2, 0.5])
+@pytest.mark.parametrize("site", list(DROP_SITES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_dropout_kernel_matches_twin(cuda, dtype, site, p):
+    """The kernel's forward and backward (one launch each) equal the
+    twin's on the CPU, differentiated by autograd, bit for bit: the mask of
+    record, kept values and gradients divided by 1 - p as one IEEE
+    division in x's dtype, dropped ones +0."""
+    shape, mesh, block = DROP_SITES[site]
+    key = gpt_module.dropout_key(1337, 12, 1)
+    got, want, launches = _dropout_pair(cuda, shape, dtype, p, key, mesh,
+                                        block)
+    assert launches == 2
+    assert got[0].dtype == dtype
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_dropout_kernel_with_tunesformer_core_keys(cuda, dtype):
+    """Under each TunesFormer core's key (core_dropout_key of one step
+    key) the kernel equals the twin bit for bit at every site."""
+    from ai_music_generation_tpu_torch.models.tunesformer import (
+        CHAR_CORE, PATCH_CORE, core_dropout_key,
+    )
+
+    step_key = gpt_module.dropout_key(49, 123)
+    for core in (PATCH_CORE, CHAR_CORE):
+        got, want, launches = _dropout_pair(
+            cuda, (31, 4, 16, 16), dtype, 0.1,
+            core_dropout_key(step_key, core), (), None, seed=core)
+        assert launches == 2
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_dropout_kernel_takes_strided_and_offset_inputs(cuda):
+    """A non-contiguous x (a transpose) and one that starts off a 16-byte
+    boundary (a slice) give the twin's values of the same logical tensor."""
+    key = gpt_module.dropout_key(5, 6, 0)
+    x = torch.randn((8, 40), generator=torch.Generator().manual_seed(1))
+    for view in (lambda t: t.t(), lambda t: t.reshape(-1)[3:-5]):
+        got = dropout_apply(view(x.to(cuda)), 0.2, key, 1, 2)
+        assert torch.equal(got.cpu(), dropout_reference(view(x), 0.2, key, 1,
+                                                        2))
+
+
+@pytest.mark.cuda
+def test_music_train_step_with_the_kernel_equals_the_twin(cuda, monkeypatch):
+    """One forward and backward of the music configuration (6 layers, 6
+    heads, 384 wide, 2 kv-heads, block 256, vocab 128, dropout 0.2, bf16)
+    at batch 8 on the card with the kernel (38 launches: 19 sites, forward
+    and backward) and with ``models.gpt.dropout`` calling the twin
+    directly: the losses bit-equal, every gradient within 1e-6 of its
+    range (as the remat test: the rest of the step replays the same
+    kernels)."""
+    cfg = GPTConfig(n_layer=6, n_head=6, n_embd=384, n_kv_head=2,
+                    block_size=256, vocab_size=128, bias=False, dropout=0.2,
+                    dtype=torch.bfloat16)
+    model = init_weights(GPT(cfg, device="cpu"),
+                         torch.Generator().manual_seed(0)).to(cuda).train()
+    g = torch.Generator().manual_seed(2)
+    x, y = (torch.randint(0, 128, (8, 256), generator=g).to(cuda)
+            for _ in range(2))
+    key = gpt_module.dropout_key(1337, 7, 0)
+    runs = []
+    for twin in (False, True):
+        if twin:
+            monkeypatch.setattr(
+                gpt_module, "dropout",
+                lambda x, p, key, layer, site, *mesh: dropout_reference(
+                    x, p, key, layer, site))
+        model.zero_grad(set_to_none=True)
+        before = dropout_apply.launches
+        _, loss = model(x, y, dropout_key=key)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs.append((loss.detach(), [p.grad.clone()
+                                     for p in model.parameters()],
+                     dropout_apply.launches - before))
+    (l0, g0, n0), (l1, g1, n1) = runs
+    assert (n0, n1) == (38, 0)
     assert torch.equal(l0, l1)
     for a, b in zip(g0, g1):
         assert (a - b).abs().max() <= 1e-6 * a.abs().max()

@@ -105,6 +105,7 @@ MODULES = [
     "ai_music_generation_tpu_torch.ops._build",
     "ai_music_generation_tpu_torch.ops.decode_attention",
     "ai_music_generation_tpu_torch.ops.decode_attention_int8",
+    "ai_music_generation_tpu_torch.ops.dropout",
     "ai_music_generation_tpu_torch.ops.gqa_decode",
     "ai_music_generation_tpu_torch.ops.lean_attention",
     "ai_music_generation_tpu_torch.ops.ring_attention",
@@ -185,6 +186,7 @@ def test_port_imports_without_triton_or_nvcc():
         "spec_attention_update\n"
         "from ai_music_generation_tpu_torch.ops.decode_attention import "
         "decode_attention\n"
+        "from ai_music_generation_tpu_torch.ops.dropout import dropout_apply\n"
         "cfg = GPTConfig(block_size=16, vocab_size=16, n_layer=1, n_head=2, "
         "n_embd=32)\n"
         "GPT(cfg, device='cpu')(torch.zeros((1, 4), dtype=torch.int32))\n"
@@ -246,9 +248,10 @@ def test_port_imports_without_triton_or_nvcc():
         "assert len(aes.score_wave(np.zeros(2000, np.float32))) == 4\n"
         "print(_build.load_library.cache_info().currsize, "
         "gqa_decode_update.launches, spec_attention_update.launches, "
-        "decode_attention.launches, lean_attention.launches)\n",
+        "decode_attention.launches, lean_attention.launches, "
+        "dropout_apply.launches)\n",
         PATH=os.path.dirname(sys.executable), CUDA_HOME="/nonexistent")
-    assert out.split() == ["0", "0", "0", "0", "0"]
+    assert out.split() == ["0", "0", "0", "0", "0", "0"]
 
 
 def test_build_key_tracks_sources_and_flags(monkeypatch, tmp_path):
@@ -258,7 +261,8 @@ def test_build_key_tracks_sources_and_flags(monkeypatch, tmp_path):
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert _build.library_path() == path  # stable
     assert [p.name for p in _build.sources()] == [
-        "decode_attention.cu", "gqa_decode.cu", "gqa_decode_mha.cu",
+        "decode_attention.cu", "dropout.cu", "gqa_decode.cu",
+        "gqa_decode_mha.cu",
         "gqa_decode_mha_ring.cu", "gqa_decode_ring.cu", "lean_attention.cu",
         "spec_attention.cu", "spec_attention_dots.cu",
         "spec_attention_f32.cu"]
@@ -275,7 +279,7 @@ def test_build_key_tracks_sources_and_flags(monkeypatch, tmp_path):
     assert _build.library_path() != before
     # the shared headers are part of the key
     assert [p.name for p in _build.headers()] == [
-        "common.cuh", "gqa_decode.cuh", "gqa_decode_mha.cuh",
+        "common.cuh", "gqa_decode.cuh", "gqa_decode_mha.cuh", "hash32.cuh",
         "spec_attention_mma.cuh"]
     header = tmp_path / "common.cuh"
     header.write_text("// shared")
